@@ -1,0 +1,260 @@
+"""Wire-codec registry: one implementation per sync strategy.
+
+Port of ``repro.core.codec`` for the quantized strategies (``loco``,
+``ef``, ``naive4``):
+
+* ``encode(g, state) -> (wire, new_state)``: the per-node compressor;
+  ``wire`` is a dict of tensors that crosses the all-to-all;
+* ``decode_mean(recv) -> shard``: what the receiver reconstructs from the
+  ``D`` peer rows of each wire leaf (leading axis ``D``), averaged;
+* ``wire_shapes(n) -> {name: WireLeaf}``: static shapes/dtypes of the wire
+  tensors for an ``(n,)`` segment and how each crosses the group.
+
+Where the reference dispatched Pallas fast paths on ``use_kernels``, the
+port always routes the cells that have a kernel -- encode for
+``(loco, 4|8, block, f8)`` and ``(ef, 4|8, block, bf16)``, decode_mean for
+every quantized codec in block mode -- through
+:mod:`repro_torch.kernels.loco_quant`, whose wrappers launch the CUDA kernel
+for a CUDA tensor and run the plain version for a CPU tensor.  The other
+cells (fixed/tensor modes, naive4 encode, stochastic rounding) run the
+codec's own plain ops (``encode_ref``/``decode_mean_ref``) on any device.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Literal
+
+import torch
+
+from repro_torch.core import quantizer as Q
+from repro_torch.core.loco import SyncConfig, mean_rows
+from repro_torch.kernels import loco_quant as LQ
+
+
+@dataclasses.dataclass(frozen=True)
+class WireLeaf:
+    """Static description of one wire tensor for an ``(n,)`` segment.
+
+    ``comm``: ``split`` -- row ``i`` of ``reshape(D, -1)`` goes to peer ``i``
+    (all-to-all); ``gather`` -- per-node metadata every peer needs
+    (all-gather); ``none`` -- static metadata known to every peer already.
+    """
+
+    shape: tuple[int, ...]
+    dtype: torch.dtype
+    comm: Literal["split", "gather", "none"] = "split"
+
+
+class Codec:
+    """One sync strategy's wire format.  Subclasses implement the plain
+    ``_ref`` forms; ``encode``/``decode_mean`` add the kernel dispatch."""
+
+    strategy: str
+
+    def __init__(self, cfg: SyncConfig):
+        if cfg.strategy != self.strategy:
+            raise ValueError(f"{type(self).__name__} got strategy "
+                             f"{cfg.strategy!r}")
+        self.cfg = cfg
+
+    # ---- static facts ------------------------------------------------------
+    def state_dtype(self) -> torch.dtype:
+        raise NotImplementedError
+
+    def needs_state(self) -> bool:
+        return self.cfg.needs_state()
+
+    def state_decode(self, state: torch.Tensor) -> torch.Tensor:
+        """Stored compressor state -> logical f32 error values."""
+        return state.float()
+
+    def state_encode(self, e: torch.Tensor) -> torch.Tensor:
+        """Logical f32 error values -> stored compressor state."""
+        return e.to(self.state_dtype())
+
+    def wire_shapes(self, n: int) -> dict[str, WireLeaf]:
+        raise NotImplementedError
+
+    # ---- plain forms (the correctness contract) ----------------------------
+    def encode_ref(self, g, state, gen=None):
+        raise NotImplementedError
+
+    def decode_mean_ref(self, recv: dict[str, torch.Tensor]) -> torch.Tensor:
+        raise NotImplementedError
+
+    # ---- dispatching entry points ------------------------------------------
+    def encode(self, g: torch.Tensor, state: torch.Tensor,
+               gen: torch.Generator | None = None):
+        """Compress one local segment -> (wire dict, new_state)."""
+        return self.encode_ref(g, state, gen)
+
+    def decode_mean(self, recv: dict[str, torch.Tensor]) -> torch.Tensor:
+        """Received per-peer wire rows (leading axis D) -> averaged shard."""
+        return self.decode_mean_ref(recv)
+
+    def roundtrip(self, g: torch.Tensor, state: torch.Tensor,
+                  gen: torch.Generator | None = None):
+        """One-node encode -> decode: (dequantized contribution, new_state).
+
+        The simulation form (``loco.local_compress``) runs the wire round
+        trip, not a shortcut, which keeps sim == distributed.
+        """
+        wire, new_state = self.encode(g, state, gen)
+        d = self.decode_mean({k: v[None] for k, v in wire.items()})
+        return d, new_state
+
+
+# ---------------------------------------------------------------------------
+# codec registry
+# ---------------------------------------------------------------------------
+
+CODECS: dict[str, type[Codec]] = {}
+
+
+def register_codec(cls: type[Codec]) -> type[Codec]:
+    CODECS[cls.strategy] = cls
+    return cls
+
+
+def get_codec(cfg: SyncConfig) -> Codec:
+    try:
+        cls = CODECS[cfg.strategy]
+    except KeyError:
+        raise ValueError(
+            f"no wire codec registered for strategy {cfg.strategy!r} "
+            f"(registered: {sorted(CODECS)}); 'fp' has no all-to-all wire "
+            "format and is handled outside the registry"
+        ) from None
+    return cls(cfg)
+
+
+# ---------------------------------------------------------------------------
+# quantized codecs (loco / ef / naive4): int4/int8 payload + scales
+# ---------------------------------------------------------------------------
+
+class _QuantizedCodec(Codec):
+    """Shared wire format of the payload+scales strategies."""
+
+    # error storage the encode kernel takes for this strategy (None: no
+    # encode kernel)
+    def _kernel_err(self) -> str | None:
+        return None
+
+    def _block_kernel_cell(self) -> bool:
+        qc = self.cfg.quant
+        return (qc.mode == "block" and qc.block == LQ.QBLOCK
+                and qc.bits in (4, 8) and not qc.stochastic_rounding)
+
+    def wire_shapes(self, n: int) -> dict[str, WireLeaf]:
+        qc = self.cfg.quant
+        if qc.bits not in (4, 8):
+            raise ValueError(f"quantized codecs take 4 or 8 bits, got {qc.bits}")
+        payload = WireLeaf((n // 2,) if qc.bits == 4 else (n,), torch.int8)
+        if qc.mode == "block":
+            scales = WireLeaf((n // qc.block,), torch.float32)
+        elif qc.mode == "tensor":
+            # dynamic per-node scale: every peer needs every node's value
+            scales = WireLeaf((1,), torch.float32, comm="gather")
+        else:  # fixed: static config scale, known to every peer already
+            scales = WireLeaf((1,), torch.float32, comm="none")
+        return {"payload": payload, "scales": scales}
+
+    def encode(self, g, state, gen=None):
+        err = self._kernel_err()
+        if err is None or not self._block_kernel_cell():
+            return self.encode_ref(g, state, gen)
+        qc = self.cfg.quant
+        beta, escale = ((self.cfg.beta, qc.error_scale) if err == "f8"
+                        else (1.0, 1.0))
+        payload, scales, e_new = LQ.fused_compress(
+            g.float().contiguous(), state, bits=qc.bits, beta=beta,
+            escale=escale, err=err)
+        return {"payload": payload, "scales": scales}, e_new
+
+    def decode_mean(self, recv):
+        if not self._block_kernel_cell():
+            return self.decode_mean_ref(recv)
+        return LQ.dequant_mean(recv["payload"], recv["scales"],
+                               bits=self.cfg.quant.bits)
+
+    def decode_mean_ref(self, recv):
+        qc = self.cfg.quant
+        contrib = torch.stack([Q.decompress(p, s, qc) for p, s
+                               in zip(recv["payload"], recv["scales"])])
+        return mean_rows(contrib)
+
+    def _check_gen(self, gen):
+        if self.cfg.quant.stochastic_rounding and gen is None:
+            raise ValueError(
+                f"{self.strategy}: QuantConfig.stochastic_rounding is set "
+                "but no generator reached the encode path -- rounding would "
+                "silently fall back to round-to-nearest. Pass a "
+                "torch.Generator, or disable stochastic_rounding.")
+
+
+@register_codec
+class LocoCodec(_QuantizedCodec):
+    """Paper Algorithm 1: error-feedback + moving average + 8-bit error."""
+
+    strategy = "loco"
+
+    def state_dtype(self):
+        return Q.error_dtype(self.cfg.quant)
+
+    def state_decode(self, state):
+        return Q.error_decode(state, self.cfg.quant)
+
+    def state_encode(self, e):
+        return Q.error_encode(e, self.cfg.quant)
+
+    def _kernel_err(self):
+        return "f8" if self.cfg.quant.error_codec == "f8" else None
+
+    def encode_ref(self, g, state, gen=None):
+        self._check_gen(gen)
+        cfg, qc = self.cfg, self.cfg.quant
+        g = g.float()
+        e = Q.error_decode(state, qc)                    # decompressor(e; s_e)
+        h = g + e                                        # Eqn. (2)
+        payload, scales = Q.compress(h, qc, gen)         # Eqn. (3)
+        d = Q.decompress(payload, scales, qc)
+        e_tilde = (1.0 - cfg.beta) * e + cfg.beta * (h - d)   # Eqn. (5)
+        return ({"payload": payload, "scales": scales},
+                Q.error_encode(e_tilde, qc))             # Eqn. (7)
+
+
+@register_codec
+class EFCodec(_QuantizedCodec):
+    """Seide et al. error feedback: full last-step error, no moving average."""
+
+    strategy = "ef"
+
+    def state_dtype(self):
+        return torch.bfloat16
+
+    def _kernel_err(self):
+        return "bf16"
+
+    def encode_ref(self, g, state, gen=None):
+        self._check_gen(gen)
+        qc = self.cfg.quant
+        h = g.float() + state.float()
+        payload, scales = Q.compress(h, qc, gen)
+        d = Q.decompress(payload, scales, qc)
+        return ({"payload": payload, "scales": scales},
+                (h - d).to(state.dtype))
+
+
+@register_codec
+class Naive4Codec(_QuantizedCodec):
+    """Zero++-style direct quantization, no error feedback (4- or 8-bit)."""
+
+    strategy = "naive4"
+
+    def state_dtype(self):
+        return torch.float32  # dummy
+
+    def encode_ref(self, g, state, gen=None):
+        self._check_gen(gen)
+        payload, scales = Q.compress(g.float(), self.cfg.quant, gen)
+        return {"payload": payload, "scales": scales}, state

@@ -1,0 +1,231 @@
+"""Flat-parameter FSDP layout (PyTorch-FSDP-style).
+
+Port of the monolithic path of ``repro.core.flatparam``.  Every parameter
+tensor is described by a :class:`ParamInfo` and stored as a **flat f32
+master chunk** per rank: the logical tensor is flattened, padded to a
+multiple of ``D * GRAIN`` (``GRAIN = 512`` keeps every dp chunk divisible by
+the int4 pack factor and the quantizer block), and split into ``D`` equal
+chunks; rank ``r`` keeps chunk ``r``.
+
+Per-rank storage (the reference's local views with the singleton mesh
+dimensions dropped):
+
+=================  ==========================
+object             shape on one rank
+param chunk        (L?, chunklen) f32
+compressor state   (L?, padlen) state dtype, or (L?, 1) f32 dummy
+optimizer state    like the param chunk
+=================  ==========================
+
+``materialize`` turns a chunk into the logical bf16 tensor inside the
+forward: bf16 cast -> FSDP all-gather (with the LoCo backward) -> unpad ->
+reshape.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+import zlib
+from typing import Sequence
+
+import torch
+import torch.distributed as dist
+
+from repro_torch.core import loco as loco_lib
+from repro_torch.core.hijack import gather_fp, gather_with_sync
+from repro_torch.core.loco import SyncConfig
+
+GRAIN = 512  # dp chunks stay divisible by 2 (int4 pack) * 256 (quant block)
+
+
+@dataclasses.dataclass(frozen=True)
+class ParamInfo:
+    """Static description of one logical parameter tensor."""
+
+    name: str
+    shape: tuple[int, ...]          # logical *global* shape
+    tp_dim: int | None = None       # dim sharded over "model" (None = replicated)
+    init: str = "normal"            # normal | zeros | ones | embed
+    init_scale: float | None = None  # overrides default fan-in scaling
+    loco: bool = True               # quantized sync (False -> bf16 reduce-scatter)
+    decay: bool = True              # weight-decay mask
+
+    def local_shape(self, tp: int) -> tuple[int, ...]:
+        if self.tp_dim is None:
+            return self.shape
+        s = list(self.shape)
+        if s[self.tp_dim] % tp:
+            raise ValueError(f"{self.name}: dim {self.tp_dim} of {self.shape} "
+                             f"does not split over tp={tp}")
+        s[self.tp_dim] //= tp
+        return tuple(s)
+
+    def numel_local(self, tp: int) -> int:
+        return math.prod(self.local_shape(tp))
+
+    def padlen(self, tp: int, d: int) -> int:
+        n = self.numel_local(tp)
+        g = d * GRAIN
+        return (n + g - 1) // g * g
+
+    def chunklen(self, tp: int, d: int) -> int:
+        return self.padlen(tp, d) // d
+
+    def fan_scale(self) -> float:
+        if self.init_scale is not None:
+            return self.init_scale
+        if self.init == "embed":
+            return 1.0
+        fan_in = self.shape[0] if len(self.shape) >= 2 else self.shape[-1]
+        return 1.0 / math.sqrt(max(fan_in, 1))
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class MeshTopo:
+    """Static topology facts: the dp group, its size and this rank."""
+
+    group: object       # torch.distributed process group over the dp ranks
+    dp: int
+    rank: int
+    tp: int = 1
+
+    @staticmethod
+    def from_group(group) -> "MeshTopo":
+        return MeshTopo(group=group, dp=dist.get_world_size(group),
+                        rank=dist.get_rank(group))
+
+
+@dataclasses.dataclass(frozen=True)
+class ParamGroup:
+    """A named set of ParamInfos, optionally stacked L times (layers)."""
+
+    name: str
+    infos: tuple[ParamInfo, ...]
+    n_layers: int | None = None  # None = not stacked
+
+    @property
+    def stacked(self) -> bool:
+        return self.n_layers is not None
+
+
+# ---------------------------------------------------------------------------
+# init
+# ---------------------------------------------------------------------------
+
+def _init_full(info: ParamInfo, gen: torch.Generator,
+               tp: int) -> torch.Tensor:
+    """The logical (TP-local) tensor, f32, flattened, on the CPU."""
+    n = math.prod(info.local_shape(tp))
+    if info.init == "zeros":
+        return torch.zeros(n)
+    if info.init == "ones":
+        return torch.ones(n)
+    return torch.randn(n, generator=gen) * info.fan_scale()
+
+
+def init_chunk(info: ParamInfo, gen: torch.Generator, topo: MeshTopo,
+               device: torch.device) -> torch.Tensor:
+    """This rank's f32 master chunk: every rank draws the same full tensor
+    from a CPU generator (so a seed gives the same weights on any device)
+    and keeps its own slice."""
+    full = _init_full(info, gen, topo.tp)
+    full = torch.nn.functional.pad(full, (0, info.padlen(topo.tp, topo.dp)
+                                          - full.shape[0]))
+    c = info.chunklen(topo.tp, topo.dp)
+    return full[topo.rank * c:(topo.rank + 1) * c].to(device, copy=True)
+
+
+def init_sync_state(info: ParamInfo, cfg: SyncConfig, topo: MeshTopo,
+                    device: torch.device) -> torch.Tensor:
+    """This rank's compressor state for one param ((padlen,) or dummy)."""
+    if info.loco and cfg.needs_state():
+        return torch.zeros(info.padlen(topo.tp, topo.dp),
+                           dtype=loco_lib.state_dtype(cfg), device=device)
+    return torch.zeros(1, dtype=torch.float32, device=device)
+
+
+def _param_gen(seed: int, name: str, layer: int) -> torch.Generator:
+    key = (seed * 1_000_003 + (zlib.crc32(name.encode()) & 0x7FFFFFFF)
+           + 7919 * layer) & 0x7FFFFFFFFFFFFFFF
+    return torch.Generator().manual_seed(key)
+
+
+def init_train_state(groups: Sequence[ParamGroup], cfg: SyncConfig,
+                     topo: MeshTopo, device: torch.device, seed: int):
+    """Returns (chunks, states): {group: {name: tensor}} per-rank storage
+    (stacked groups carry a leading layer axis)."""
+    chunks, states = {}, {}
+    for g in groups:
+        cg, sg = {}, {}
+        for info in g.infos:
+            name = f"{g.name}/{info.name}"
+            if g.stacked:
+                cg[info.name] = torch.stack([
+                    init_chunk(info, _param_gen(seed, name, l), topo, device)
+                    for l in range(g.n_layers)])
+                sg[info.name] = torch.stack(
+                    [init_sync_state(info, cfg, topo, device)] * g.n_layers)
+            else:
+                cg[info.name] = init_chunk(info, _param_gen(seed, name, 0),
+                                           topo, device)
+                sg[info.name] = init_sync_state(info, cfg, topo, device)
+        chunks[g.name], states[g.name] = cg, sg
+    return chunks, states
+
+
+# ---------------------------------------------------------------------------
+# chunk -> logical tensor
+# ---------------------------------------------------------------------------
+
+def materialize(chunk: torch.Tensor, state: torch.Tensor, info: ParamInfo,
+                cfg: SyncConfig, topo: MeshTopo,
+                compute_dtype: torch.dtype = torch.bfloat16,
+                step: int | None = None) -> torch.Tensor:
+    """f32 chunk -> logical bf16 tensor (FSDP gather with the LoCo backward)."""
+    w = chunk.to(compute_dtype)
+    if info.loco:
+        flat = gather_with_sync(w, state, cfg, topo.group, step=step)
+    else:
+        flat = gather_fp(w, topo.group)
+    n = info.numel_local(topo.tp)
+    return flat[:n].reshape(info.local_shape(topo.tp))
+
+
+class TrainStore:
+    """Bridges flat master chunks + sync states to model-visible tensors.
+
+    ``chunks[group][name]`` is a chunk tensor, or for a stacked group a
+    sequence with one chunk per layer (the autograd leaves of a step);
+    ``states`` holds the per-rank compressor states, which the backward
+    updates in place.
+    """
+
+    def __init__(self, groups, chunks, states, cfg: SyncConfig,
+                 topo: MeshTopo, compute_dtype: torch.dtype = torch.bfloat16,
+                 step: int | None = None):
+        self.groups = {g.name: g for g in groups}
+        self.chunks = chunks
+        self.states = states
+        self.cfg = cfg
+        self.topo = topo
+        self.compute_dtype = compute_dtype
+        self.step = step
+
+    def _materialize(self, info, chunk, state):
+        return materialize(chunk, state, info, self.cfg, self.topo,
+                           self.compute_dtype, step=self.step)
+
+    def group(self, gname: str) -> dict[str, torch.Tensor]:
+        g = self.groups[gname]
+        if g.stacked:
+            raise ValueError(f"group {gname!r} is stacked: use layer()")
+        return {i.name: self._materialize(i, self.chunks[gname][i.name],
+                                          self.states[gname][i.name])
+                for i in g.infos}
+
+    def layer(self, gname: str, l: int) -> dict[str, torch.Tensor]:
+        """Layer ``l`` of a stacked group (``materialize_slice``)."""
+        g = self.groups[gname]
+        return {i.name: self._materialize(i, self.chunks[gname][i.name][l],
+                                          self.states[gname][i.name][l])
+                for i in g.infos}

@@ -1,0 +1,85 @@
+"""FSDP gather with compressed-gradient backward (the "hijack").
+
+Port of ``repro.core.hijack``'s monolithic gathers as
+``torch.autograd.Function``s.  The forward is the FSDP all-gather of a flat
+parameter chunk; the backward replaces the full-precision reduce-scatter
+with LoCo's compensate -> quantize -> all-to-all -> dequant-mean
+(:func:`repro_torch.core.comm.dist_sync`).
+
+The reference returns the updated compensation error as the cotangent of
+the error input, because a JAX function cannot write its inputs.  Here the
+backward writes the new error into the state tensor in place, once per
+backward (also under ``torch.utils.checkpoint``, whose recomputation reruns
+the forward but not the backward).
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core.comm import (all_gather_flat, axis_size, dist_sync,
+                                   psum_scatter_flat)
+from repro_torch.core.loco import SyncConfig
+
+
+def _reject_stochastic_rounding(cfg: SyncConfig) -> None:
+    """The backward has no generator input, so stochastic rounding cannot
+    run here: fail loudly instead of silently rounding to nearest."""
+    if cfg.strategy != "fp" and cfg.quant.stochastic_rounding:
+        raise ValueError(
+            "QuantConfig.stochastic_rounding is not supported on the "
+            "in-backward hijack path (no generator reaches the backward); "
+            "use dist_sync/sim_sync with an explicit generator, or disable "
+            "stochastic_rounding.")
+
+
+class _GatherWithSync(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, w_chunk, state, cfg, group, step):
+        # state is read and written in backward only: kept on ctx as is
+        # (not saved for backward) because backward updates it in place
+        ctx.state, ctx.cfg, ctx.group, ctx.step = state, cfg, group, step
+        return all_gather_flat(w_chunk, group)
+
+    @staticmethod
+    def backward(ctx, g_full):
+        g_shard, new_state = dist_sync(g_full, ctx.state, ctx.cfg, ctx.group,
+                                       step=ctx.step)
+        ctx.state.copy_(new_state)
+        # the synced shard is rounded to the gradient's dtype (bf16) before
+        # the optimizer sees it, as in the reference
+        return g_shard.to(g_full.dtype), None, None, None, None
+
+
+def gather_with_sync(w_chunk: torch.Tensor, state: torch.Tensor,
+                     cfg: SyncConfig, group,
+                     step: int | None = None) -> torch.Tensor:
+    """FSDP all-gather whose backward runs the configured sync strategy.
+
+    w_chunk: (n/D,) local flat parameter chunk (bf16 on the wire)
+    state:   this rank's compressor state, shape (n,) (full local-gradient
+             size), updated in place by the backward.
+    step:    step index for the cadence gate (None = step 0).
+    """
+    _reject_stochastic_rounding(cfg)
+    return _GatherWithSync.apply(w_chunk, state, cfg, group,
+                                 0 if step is None else step)
+
+
+class _GatherFp(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, w_chunk, group):
+        ctx.group = group
+        return all_gather_flat(w_chunk, group)
+
+    @staticmethod
+    def backward(ctx, g_full):
+        # bf16 wire (the paper's "16-bit Adam" baseline); mean in f32
+        D = axis_size(ctx.group)
+        g = psum_scatter_flat(g_full.to(torch.bfloat16), ctx.group)
+        return (g.float() / D).to(g_full.dtype), None
+
+
+def gather_fp(w_chunk: torch.Tensor, group) -> torch.Tensor:
+    """Plain differentiable FSDP gather whose backward is the bf16
+    reduce-scatter mean.  Used for small (non-LoCo) tensors."""
+    return _GatherFp.apply(w_chunk, group)

@@ -1,0 +1,58 @@
+"""Carry a train state from the JAX reference into the port.
+
+``from_reference`` takes what ``repro.launch.steps.make_init`` returns, as
+numpy arrays (``np.asarray`` of each leaf), and builds one data-parallel
+rank's :class:`~repro_torch.launch.steps.TrainState`.  The reference stores
+global arrays over its mesh; with ``tp = 1`` rank ``r`` of ``dp`` owns
+
+* master chunk ``[..., 0, r*C:(r+1)*C]`` of the ``(L?, TP, padlen)`` chunk
+  (``C = padlen / dp``), and likewise each Adam moment;
+* compressor state ``[..., 0, r, :]`` of the ``(L?, TP, D, padlen)`` state.
+
+float8_e4m3fn and bfloat16 arrays (numpy's ``ml_dtypes`` types) cross as
+raw bytes and are viewed as the torch dtype, so the values are exact.  Both
+packages then start from the same numbers, which is how the tests compare
+them (jax and torch random streams differ).  No JAX import is needed here.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.launch.steps import TrainState
+
+# numpy dtype name -> (same-width integer view, torch dtype)
+_BYTE_VIEWS = {"float8_e4m3fn": (np.uint8, torch.float8_e4m3fn),
+               "bfloat16": (np.int16, torch.bfloat16)}
+
+
+def to_torch(a, device: torch.device | str = "cpu") -> torch.Tensor:
+    """numpy array (incl. ml_dtypes float8/bfloat16) -> torch tensor copy."""
+    a = np.ascontiguousarray(a)
+    view = _BYTE_VIEWS.get(a.dtype.name)
+    if view is None:
+        return torch.tensor(a, device=device)
+    return torch.tensor(a.view(view[0]), device=device).view(view[1])
+
+
+def _rank_chunk(a, rank: int, dp: int):
+    a = np.asarray(a)
+    c = a.shape[-1] // dp
+    return a[..., 0, rank * c:(rank + 1) * c]
+
+
+def from_reference(chunks, states, opt, *, groups, rank: int, dp: int,
+                   device: torch.device | str = "cpu") -> TrainState:
+    """Rank ``rank``'s train state from the reference's global arrays
+    ``chunks``/``states`` (``{group: {name: array}}``) and ``opt`` (a tuple
+    of chunk-shaped trees)."""
+    def chunk_tree(tree):
+        return {g.name: {i.name: to_torch(_rank_chunk(tree[g.name][i.name],
+                                                      rank, dp), device)
+                         for i in g.infos} for g in groups}
+
+    st = {g.name: {i.name: to_torch(np.asarray(states[g.name][i.name])
+                                    [..., 0, rank, :], device)
+                   for i in g.infos} for g in groups}
+    return TrainState(chunk_tree(chunks), st,
+                      tuple(chunk_tree(t) for t in opt))

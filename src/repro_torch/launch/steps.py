@@ -1,0 +1,164 @@
+"""Train-state init and the monolithic train step.
+
+Port of the monolithic path of ``repro.launch.steps.make_train_step``:
+
+  FSDP flat-param chunks (core/flatparam) -> per-layer gather with the LoCo
+  backward (core/hijack) -> model forward/backward -> microbatch
+  accumulation (one sync per microbatch backward, like PyTorch FSDP) ->
+  global grad-norm clip -> sharded optimizer -> error reset (Eqn. 7).
+
+Each step makes the f32 master chunks autograd leaves (one per layer for
+stacked groups, so each layer's synced shard lands in its own ``.grad``),
+runs the microbatches, and writes the new chunks, optimizer moments and
+(reset) error states back into the :class:`TrainState`.  The compressor
+states are updated in place by each backward.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+import torch.distributed as dist
+
+from repro_torch.configs.base import ArchConfig, ShapeConfig
+from repro_torch.core import flatparam as FP
+from repro_torch.core.flatparam import MeshTopo
+from repro_torch.core.loco import SyncConfig, maybe_reset
+from repro_torch.models.transformer import DecoderLM
+from repro_torch.optim import optimizers as OPT
+from repro_torch.optim.schedules import make_schedule
+from repro_torch.telemetry import profiler as PROF
+
+
+@dataclasses.dataclass(frozen=True)
+class RunConfig:
+    """The fields of the reference's ``RunConfig`` that the monolithic
+    dense path reads."""
+
+    sync: SyncConfig = dataclasses.field(default_factory=SyncConfig)
+    optimizer: str = "adam"
+    lr: float = 3e-4
+    schedule: str = "cosine"
+    warmup_steps: int = 100
+    total_steps: int = 1000
+    weight_decay: float = 0.1
+    clip_norm: float = 1.0
+    microbatch: int = 1          # per-rank microbatch size
+    remat: bool = True
+
+
+@dataclasses.dataclass
+class TrainState:
+    """One rank's train state: ``{group: {name: tensor}}`` trees of master
+    chunks, compressor states and the optimizer's chunk-mirroring trees."""
+
+    chunks: dict
+    states: dict
+    opt: tuple
+
+
+def _make_opt(run: RunConfig) -> OPT.Optimizer:
+    return OPT.OPTIMIZERS[run.optimizer](weight_decay=run.weight_decay)
+
+
+def make_init(cfg: ArchConfig, run: RunConfig, topo: MeshTopo,
+              device: torch.device, seed: int = 0) -> TrainState:
+    groups = DecoderLM(cfg, topo.tp).groups()
+    chunks, states = FP.init_train_state(groups, run.sync, topo, device, seed)
+    return TrainState(chunks, states, _make_opt(run).init(chunks))
+
+
+def _leaves(chunks: dict, groups) -> dict:
+    """Autograd leaves over the master chunks, sharing their storage: one
+    per tensor, one per layer for stacked groups."""
+    out = {}
+    for g in groups:
+        og = {}
+        for info in g.infos:
+            c = chunks[g.name][info.name]
+            rows = list(c) if g.stacked else [c]
+            leaves = [r.detach().requires_grad_() for r in rows]
+            og[info.name] = leaves if g.stacked else leaves[0]
+        out[g.name] = og
+    return out
+
+
+def _grads(leaves: dict, groups, accum: int) -> dict:
+    out = {}
+    for g in groups:
+        og = {}
+        for info in g.infos:
+            lv = leaves[g.name][info.name]
+            grad = torch.stack([l.grad for l in lv]) if g.stacked else lv.grad
+            og[info.name] = grad / accum
+        out[g.name] = og
+    return out
+
+
+def make_train_step(cfg: ArchConfig, run: RunConfig, topo: MeshTopo,
+                    device: torch.device, shape: ShapeConfig):
+    """Returns ``step_fn(state, step, batch) -> metrics``.
+
+    ``batch["tokens"]`` is the global ``(global_batch, seq_len + 1)`` batch;
+    each rank trains on its ``global_batch / dp`` rows in microbatches of
+    ``run.microbatch``.  ``metrics`` holds 0-dim tensors ``loss`` (mean
+    over the dp group), ``gnorm`` (pre-clip global norm) and ``lr``.
+    """
+    model = DecoderLM(cfg, topo.tp)
+    groups = model.groups()
+    opt = _make_opt(run)
+    sched = make_schedule(run.schedule, run.lr, run.total_steps,
+                          run.warmup_steps)
+    sync = run.sync
+    if shape.global_batch % topo.dp:
+        raise ValueError(f"global batch {shape.global_batch} does not split "
+                         f"over dp={topo.dp}")
+    local_batch = shape.global_batch // topo.dp
+    micro = min(run.microbatch, local_batch)
+    if local_batch % micro:
+        raise ValueError(f"local batch {local_batch} is not a multiple of "
+                         f"the microbatch {micro}")
+    accum = local_batch // micro
+    mask = {g.name: {i.name: 1.0 if i.decay else 0.0 for i in g.infos}
+            for g in groups}
+
+    def step_fn(ts: TrainState, step: int, batch: dict) -> dict:
+        rows = batch["tokens"][topo.rank * local_batch:
+                               (topo.rank + 1) * local_batch]
+        mbs = rows.to(device).reshape(accum, micro, -1)
+        leaves = _leaves(ts.chunks, groups)
+        losses = []
+        for i in range(accum):
+            store = FP.TrainStore(groups, leaves, ts.states, sync, topo,
+                                  step=step)
+            loss, _ = model.loss_fn(store, {"tokens": mbs[i]},
+                                    remat=run.remat)
+            loss.backward()
+            losses.append(loss.detach())
+        grads = _grads(leaves, groups, accum)
+        del leaves
+
+        # ---- global grad-norm clip -----------------------------------------
+        local_sq = torch.zeros((), dtype=torch.float32, device=device)
+        for g in groups:
+            for info in g.infos:
+                local_sq = local_sq + torch.sum(grads[g.name][info.name] ** 2)
+        dist.all_reduce(local_sq, group=topo.group)
+        gnorm = torch.sqrt(local_sq)
+        if run.clip_norm:
+            cs = torch.clamp(run.clip_norm / torch.clamp(gnorm, min=1e-12),
+                             max=1.0)
+            grads = OPT.tree_map(lambda g: g * cs, grads)
+
+        lr = sched(step)
+        with PROF.phase("apply"):
+            ts.chunks, ts.opt = opt.update(grads, ts.opt, ts.chunks,
+                                           torch.tensor(step), lr, mask)
+        ts.states = OPT.tree_map(lambda s: maybe_reset(s, step + 1, sync),
+                                 ts.states)
+
+        loss = torch.stack(losses).mean()
+        dist.all_reduce(loss, group=topo.group)
+        return {"loss": loss / topo.dp, "gnorm": gnorm, "lr": lr}
+
+    return step_fn

@@ -1,0 +1,122 @@
+"""Training entry point (CLI).
+
+  PYTHONPATH=src python -m repro_torch.launch.train --arch llama2-400m \\
+      --sync loco --seq-len 1024 --global-batch 8 --microbatch 4 --steps 6
+
+  PYTHONPATH=src python -m repro_torch.launch.train --arch llama2-400m \\
+      --reduced --steps 3 --seq-len 32 --global-batch 8 --device cpu
+
+Runs on the CUDA card unless ``--device cpu`` is given; without a card it
+raises rather than fall back.  Under ``torchrun`` every rank joins one NCCL
+(or gloo) data-parallel group; otherwise the run is one rank in a
+world-size-1 group.  Prints the reference's ``step N loss=... gnorm=...
+lr=... tok/s=...`` lines; ``tok/s`` leaves out the first step, which pays
+the warm-up (kernel build, allocator growth).
+"""
+from __future__ import annotations
+
+import argparse
+import os
+import time
+
+import torch
+
+from repro_torch.configs.base import ShapeConfig, get_arch, reduced
+from repro_torch.core.flatparam import MeshTopo
+from repro_torch.core.loco import SyncConfig
+from repro_torch.data.synthetic import DataConfig, make_batch_fn
+from repro_torch.launch import mesh
+from repro_torch.launch.steps import RunConfig, make_init, make_train_step
+
+
+def build_args(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--steps", type=int, default=100)
+    ap.add_argument("--seq-len", type=int, default=128)
+    ap.add_argument("--global-batch", type=int, default=8)
+    ap.add_argument("--microbatch", type=int, default=1)
+    ap.add_argument("--sync", default="loco",
+                    choices=["fp", "loco", "ef", "naive4"])
+    ap.add_argument("--beta", type=float, default=0.5)
+    ap.add_argument("--reset-every", type=int, default=512)
+    ap.add_argument("--optimizer", default="adam", choices=["adam", "adamw"])
+    ap.add_argument("--lr", type=float, default=3e-4)
+    ap.add_argument("--warmup", type=int, default=20)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--log-every", type=int, default=10)
+    ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
+                    help="cuda (default; raises without a card) or cpu")
+    return ap.parse_args(argv)
+
+
+def resolve_device(name: str) -> torch.device:
+    if name == "cpu":
+        return torch.device("cpu")
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device available; pass --device cpu to "
+                           "train on the CPU")
+    return torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0)))
+
+
+def make_run(args) -> RunConfig:
+    sync = SyncConfig(strategy=args.sync, beta=args.beta,
+                      reset_every=args.reset_every)
+    return RunConfig(sync=sync, optimizer=args.optimizer, lr=args.lr,
+                     warmup_steps=args.warmup, total_steps=args.steps,
+                     microbatch=args.microbatch)
+
+
+def main(argv=None) -> dict:
+    """Train; returns ``{"losses": [...], "tok_per_s": float | None,
+    "peak_mem_bytes": int | None}`` (tok/s over the steps after the first,
+    peak device memory on a card)."""
+    args = build_args(argv)
+    device = resolve_device(args.device)
+    cfg = get_arch(args.arch)
+    if args.reduced:
+        cfg = reduced(cfg)
+    shape = ShapeConfig("cli", args.seq_len, args.global_batch, "train")
+    run = make_run(args)
+    batch_fn = make_batch_fn(DataConfig(vocab=cfg.vocab, seq_len=args.seq_len,
+                                        global_batch=args.global_batch,
+                                        seed=args.seed))
+    cuda = device.type == "cuda"
+    losses: list[float] = []
+    with mesh.dp_group(device) as group:
+        topo = MeshTopo.from_group(group)
+        state = make_init(cfg, run, topo, device, args.seed)
+        step_fn = make_train_step(cfg, run, topo, device, shape)
+        if cuda:
+            torch.cuda.reset_peak_memory_stats(device)
+        t0 = t_run = time.perf_counter()
+        first_s = None
+        for step in range(args.steps):
+            m = step_fn(state, step, batch_fn(step))
+            loss = float(m["loss"])  # waits for the step to finish
+            losses.append(loss)
+            if first_s is None:
+                first_s = time.perf_counter() - t0
+                t_run = time.perf_counter()
+            if step % args.log_every == 0 or step == args.steps - 1:
+                n_run = step
+                tok_s = (n_run * args.global_batch * args.seq_len
+                         / max(time.perf_counter() - t_run, 1e-9))
+                print(f"step {step:5d} loss={loss:.4f} "
+                      f"gnorm={float(m['gnorm']):.3f} lr={float(m['lr']):.2e} "
+                      f"tok/s={tok_s:,.0f}", flush=True)
+        run_s = time.perf_counter() - t_run
+        n_run = max(args.steps - 1, 0)
+        tok_s = n_run * args.global_batch * args.seq_len / run_s if n_run else None
+        peak = torch.cuda.max_memory_allocated(device) if cuda else None
+    print(f"done: {args.steps} steps in {time.perf_counter() - t0:.1f}s "
+          f"(first step {first_s or 0.0:.1f}s + run {run_s:.1f}s"
+          + (f", {tok_s:,.0f} tok/s after the first step" if tok_s else "")
+          + (f", peak device memory {peak / 2**30:.2f} GiB" if peak else "")
+          + ")", flush=True)
+    return {"losses": losses, "tok_per_s": tok_s, "peak_mem_bytes": peak}
+
+
+if __name__ == "__main__":
+    main()

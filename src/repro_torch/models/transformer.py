@@ -1,0 +1,191 @@
+"""Decoder-only LM, dense family (llama-style).
+
+Port of the dense training path of ``repro.models.transformer``: parameter
+declarations (:func:`build_groups`), the attention / MLP blocks and
+:class:`DecoderLM`'s forward and loss.  Layers run in a Python loop; each
+layer materializes its weights from the FSDP chunks inside the layer, and
+with ``remat`` the layer runs under ``torch.utils.checkpoint``
+(non-reentrant), the counterpart of the reference's ``jax.checkpoint`` over
+its layer scan: the recomputation regathers the layer's weights.
+
+Only what llama2-400m uses is ported (full causal attention, RMSNorm,
+SwiGLU, untied embeddings); other dense features and families wait
+(ROADMAP.md) and are refused at construction.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import torch
+from torch.utils.checkpoint import checkpoint
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.core.flatparam import ParamGroup, ParamInfo
+from repro_torch.models import common as C
+from repro_torch.models.common import HeadLayout
+
+LOCO_MIN_NUMEL = 2**16  # smaller tensors sync in bf16
+
+
+def _loco(shape) -> bool:
+    return math.prod(shape) >= LOCO_MIN_NUMEL
+
+
+def _pi(name, shape, tp_dim=None, init="normal", init_scale=None, decay=True):
+    return ParamInfo(name=name, shape=tuple(shape), tp_dim=tp_dim, init=init,
+                     init_scale=init_scale, loco=_loco(shape), decay=decay)
+
+
+def vocab_padded(cfg: ArchConfig, tp: int) -> int:
+    return C.pad_to_multiple(cfg.vocab, tp)
+
+
+def head_layout(cfg: ArchConfig, tp: int) -> HeadLayout:
+    return HeadLayout.make(cfg.n_heads, cfg.n_kv_heads, cfg.hd, tp)
+
+
+def check_supported(cfg: ArchConfig) -> None:
+    """Refuse what the port has not ported yet instead of ignoring it."""
+    unported = {
+        "family": cfg.family != "dense",
+        "attn_kind": cfg.attn_kind != "full",
+        "qk_norm": cfg.qk_norm,
+        "attn_softcap": cfg.attn_softcap is not None,
+        "final_softcap": cfg.final_softcap is not None,
+        "parallel_block": cfg.parallel_block,
+        "mlp": cfg.mlp != "swiglu",
+        "tied_embeddings": cfg.tied_embeddings,
+        "logit_scale": cfg.logit_scale is not None,
+        "emb_scale": cfg.emb_scale is not None,
+        "residual_scale": cfg.residual_scale is not None,
+    }
+    bad = [k for k, v in unported.items() if v]
+    if bad:
+        raise NotImplementedError(
+            f"{cfg.name}: {', '.join(bad)} not ported yet (ROADMAP.md)")
+
+
+# ---------------------------------------------------------------------------
+# parameter declarations
+# ---------------------------------------------------------------------------
+
+def _attn_infos(cfg: ArchConfig, lay: HeadLayout):
+    d, hd = cfg.d_model, lay.head_dim
+    kv_tp = 1 if lay.kv_sharded else None
+    return [
+        _pi("norm1", (d,), init="ones", decay=False),
+        _pi("wq", (d, lay.h_pad * hd), tp_dim=1),
+        _pi("wk", (d, lay.kv_pad * hd), tp_dim=kv_tp),
+        _pi("wv", (d, lay.kv_pad * hd), tp_dim=kv_tp),
+        _pi("wo", (lay.h_pad * hd, d), tp_dim=0),
+    ]
+
+
+def _mlp_infos(cfg: ArchConfig):
+    d, f = cfg.d_model, cfg.d_ff
+    return [
+        _pi("norm2", (d,), init="ones", decay=False),
+        _pi("w1", (d, f), tp_dim=1),
+        _pi("w2", (f, d), tp_dim=0),
+        _pi("w3", (d, f), tp_dim=1),
+    ]
+
+
+def build_groups(cfg: ArchConfig, tp: int) -> list[ParamGroup]:
+    check_supported(cfg)
+    vp = vocab_padded(cfg, tp)
+    d = cfg.d_model
+    lay = head_layout(cfg, tp)
+    return [
+        ParamGroup("embed", (
+            _pi("tok", (vp, d), tp_dim=0, init="embed", init_scale=0.02),)),
+        ParamGroup("final", (
+            _pi("norm_f", (d,), init="ones", decay=False),
+            _pi("head", (d, vp), tp_dim=1))),
+        ParamGroup("block", tuple(_attn_infos(cfg, lay) + _mlp_infos(cfg)),
+                   n_layers=cfg.n_layers),
+    ]
+
+
+# ---------------------------------------------------------------------------
+# block forwards
+# ---------------------------------------------------------------------------
+
+def _qkv(p, x, lay: HeadLayout, cfg: ArchConfig, positions):
+    B, S, _ = x.shape
+    hd = lay.head_dim
+    q = C.col_linear(x, p["wq"]).reshape(B, S, lay.hl, hd)
+    k = C.col_linear(x, p["wk"]).reshape(B, S, lay.kvl, hd)
+    v = C.col_linear(x, p["wv"]).reshape(B, S, lay.kvl, hd)
+    q = C.rope(q, positions, cfg.rope_theta)
+    k = C.rope(k, positions, cfg.rope_theta)
+    return q, k, v
+
+
+def attention_block(p, x, cfg: ArchConfig, lay: HeadLayout, positions):
+    """Returns the attention output (pre-residual)."""
+    h = C.norm(cfg.norm, x, p["norm1"])
+    B, S, _ = h.shape
+    q, k, v = _qkv(p, h, lay, cfg, positions)
+    kv_map = lay.kv_map(x.device)
+    out = C.causal_attention(q, C.expand_kv(k, kv_map), C.expand_kv(v, kv_map))
+    out = out.reshape(B, S, lay.hl * lay.head_dim)
+    return C.row_linear(out, p["wo"])
+
+
+def mlp_block(p, x, cfg: ArchConfig):
+    h = C.norm(cfg.norm, x, p["norm2"])
+    a = C.col_linear(h, p["w1"])
+    b = C.col_linear(h, p["w3"])
+    return C.row_linear(torch.nn.functional.silu(a) * b, p["w2"])
+
+
+def dense_block(p, x, cfg: ArchConfig, lay: HeadLayout, positions):
+    x = x + attention_block(p, x, cfg, lay, positions)
+    return x + mlp_block(p, x, cfg)
+
+
+# ---------------------------------------------------------------------------
+# the model
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class DecoderLM:
+    cfg: ArchConfig
+    tp: int = 1
+
+    def __post_init__(self):
+        if self.tp != 1:
+            raise NotImplementedError("tensor parallelism is not ported yet")
+        check_supported(self.cfg)
+
+    def groups(self) -> list[ParamGroup]:
+        return build_groups(self.cfg, self.tp)
+
+    def forward(self, store, tokens, *, remat: bool = True):
+        """tokens: (B, S) -> logits (B, S, V)."""
+        cfg = self.cfg
+        S = tokens.shape[1]
+        positions = torch.arange(S, device=tokens.device)
+        emb = store.group("embed")["tok"]
+        x = C.embed(emb, tokens)
+        lay = head_layout(cfg, self.tp)
+
+        for l in range(cfg.n_layers):
+            def body(xc, l=l):
+                p = store.layer("block", l)
+                return dense_block(p, xc, cfg, lay, positions)
+
+            x = checkpoint(body, x, use_reentrant=False) if remat else body(x)
+
+        fin = store.group("final")
+        x = C.norm(cfg.norm, x, fin["norm_f"])
+        return C.logits(x, fin["head"])
+
+    def loss_fn(self, store, batch, remat: bool = True):
+        tokens = batch["tokens"]
+        inputs, targets = tokens[:, :-1], tokens[:, 1:]
+        logits = self.forward(store, inputs, remat=remat)
+        loss = C.xent(logits, targets, self.cfg.vocab)
+        return loss, {"ce": loss}
