@@ -122,7 +122,7 @@ def register(cfg: ArchConfig) -> ArchConfig:
 
 
 def get_arch(name: str) -> ArchConfig:
-    from repro_torch.configs import llama2_400m  # noqa: F401  (registers)
+    from repro_torch.configs import deepseek_v3_moe, llama2_400m  # noqa: F401  (register)
 
     try:
         return _REGISTRY[name]

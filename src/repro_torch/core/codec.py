@@ -1,7 +1,7 @@
 """Wire-codec registry: one implementation per sync strategy.
 
 Port of ``repro.core.codec`` for the quantized strategies (``loco``,
-``ef``, ``naive4``):
+``ef``, ``naive4``) and ``onebit``:
 
 * ``encode(g, state) -> (wire, new_state)``: the per-node compressor;
   ``wire`` is a dict of tensors that crosses the all-to-all;
@@ -14,7 +14,8 @@ Where the reference dispatched Pallas fast paths on ``use_kernels``, the
 port always routes the cells that have a kernel -- encode for
 ``(loco, 4|8, block, f8)`` and ``(ef, 4|8, block, bf16)``, decode_mean for
 every quantized codec in block mode -- through
-:mod:`repro_torch.kernels.loco_quant`, whose wrappers launch the CUDA kernel
+:mod:`repro_torch.kernels.loco_quant`, and onebit's encode through
+:mod:`repro_torch.kernels.sign_pack`; their wrappers launch the CUDA kernel
 for a CUDA tensor and run the plain version for a CPU tensor.  The other
 cells (fixed/tensor modes, naive4 encode, stochastic rounding) run the
 codec's own plain ops (``encode_ref``/``decode_mean_ref``) on any device.
@@ -29,6 +30,7 @@ import torch
 from repro_torch.core import quantizer as Q
 from repro_torch.core.loco import SyncConfig, mean_rows
 from repro_torch.kernels import loco_quant as LQ
+from repro_torch.kernels import sign_pack as SP
 
 
 @dataclasses.dataclass(frozen=True)
@@ -258,3 +260,53 @@ class Naive4Codec(_QuantizedCodec):
         self._check_gen(gen)
         payload, scales = Q.compress(g.float(), self.cfg.quant, gen)
         return {"payload": payload, "scales": scales}, state
+
+
+# ---------------------------------------------------------------------------
+# onebit: sign compression, 8 signs per wire byte + per-segment L1 scale
+# ---------------------------------------------------------------------------
+
+@register_codec
+class OnebitCodec(Codec):
+    """1-bit Adam-style sign compression with error feedback.
+
+    Wire: ``n/8`` packed sign bytes (bit j of byte k = sign of element
+    ``8k+j``) plus one f32 L1 scale, all-gathered so every peer can
+    reconstruct ``sign(h) * scale_peer``.  Receivers decode ``bit -> +-1``;
+    an exact zero encodes as ``-1``.  ``encode`` computes ``h`` and its
+    scale here and packs through :func:`repro_torch.kernels.sign_pack.
+    onebit_pack`; ``decode_mean`` is plain ops (the reference has no kernel
+    for it).
+    """
+
+    strategy = "onebit"
+
+    def state_dtype(self):
+        return torch.bfloat16
+
+    def wire_shapes(self, n: int) -> dict[str, WireLeaf]:
+        if n % Q.SIGN_PACK:
+            raise ValueError(f"onebit needs a multiple of {Q.SIGN_PACK} "
+                             f"elements, got {n}")
+        return {"payload": WireLeaf((n // Q.SIGN_PACK,), torch.uint8),
+                "scales": WireLeaf((1,), torch.float32, comm="gather")}
+
+    @staticmethod
+    def _compensate(g, state):
+        h = g.float() + state.float()
+        return h, torch.mean(torch.abs(h))
+
+    def encode(self, g, state, gen=None):
+        h, scale = self._compensate(g, state)
+        packed, e_new = SP.onebit_pack(h, scale)
+        return {"payload": packed, "scales": scale.reshape(1)}, e_new
+
+    def encode_ref(self, g, state, gen=None):
+        h, scale = self._compensate(g, state)
+        packed, e_new = SP.onebit_pack_plain(h, scale)
+        return {"payload": packed, "scales": scale.reshape(1)}, e_new
+
+    def decode_mean_ref(self, recv):
+        D = recv["payload"].shape[0]
+        bits = Q.unpack_signs(recv["payload"]).float()
+        return mean_rows((2.0 * bits - 1.0) * recv["scales"].reshape(D, 1))

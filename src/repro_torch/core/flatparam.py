@@ -82,17 +82,19 @@ class ParamInfo:
 
 @dataclasses.dataclass(frozen=True, eq=False)
 class MeshTopo:
-    """Static topology facts: the dp group, its size and this rank."""
+    """Static topology facts: the dp group, its size and this rank, and the
+    ``model`` group (``launch.mesh.model_group``) the MoE exchange uses."""
 
     group: object       # torch.distributed process group over the dp ranks
     dp: int
     rank: int
     tp: int = 1
+    model: object = None  # process group over the tp ranks (None: no MoE)
 
     @staticmethod
-    def from_group(group) -> "MeshTopo":
+    def from_group(group, model=None) -> "MeshTopo":
         return MeshTopo(group=group, dp=dist.get_world_size(group),
-                        rank=dist.get_rank(group))
+                        rank=dist.get_rank(group), model=model)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -143,6 +143,35 @@ def unpack_int4(p: torch.Tensor) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
+# sign packing (onebit wire format: 8 signs per byte)
+# ---------------------------------------------------------------------------
+
+SIGN_PACK = 8  # signs per wire byte
+
+
+def pack_signs(bits: torch.Tensor) -> torch.Tensor:
+    """Pack 0/1 sign bits into uint8 bytes, 8 per byte.
+
+    Layout: bit j of byte k = element 8k + j (LSB first).
+    """
+    if bits.shape[-1] % SIGN_PACK:
+        raise ValueError(f"sign packing needs a multiple of {SIGN_PACK} "
+                         f"elements, got {tuple(bits.shape)}")
+    b = bits.to(torch.uint8)
+    out = b[..., 0::SIGN_PACK]
+    for j in range(1, SIGN_PACK):
+        out = out | (b[..., j::SIGN_PACK] << j)
+    return out
+
+
+def unpack_signs(p: torch.Tensor) -> torch.Tensor:
+    """Inverse of :func:`pack_signs`; returns uint8 values in {0, 1}."""
+    b = p.view(torch.uint8)
+    out = torch.stack([(b >> j) & 1 for j in range(SIGN_PACK)], dim=-1)
+    return out.reshape(*p.shape[:-1], p.shape[-1] * SIGN_PACK)
+
+
+# ---------------------------------------------------------------------------
 # 8-bit error codecs (paper Eqn. (7) and the f8 variant)
 # ---------------------------------------------------------------------------
 

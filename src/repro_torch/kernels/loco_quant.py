@@ -21,28 +21,22 @@ per element.  The kernels read each input once and write each output once
 thread per output pair), so the HBM rate is their limit; a call on a
 2.9M-element tensor is bounded near 6 us, where launch overhead matters.
 
-A wrapper launches its kernel for a CUDA tensor and uses the plain version
-for a CPU tensor; a tensor on any other device raises.  ``LAUNCHES`` counts
-kernel launches (never plain-version calls) per kernel name.
+Wrappers, launch counting and the device rule: :mod:`repro_torch.kernels.wrap`.
 """
 from __future__ import annotations
 
-import collections
 import ctypes
 import functools
 
 import torch
 
 from repro_torch.core.quantizer import F8_MAX, pack_int4, unpack_int4
+from repro_torch.kernels.wrap import (  # noqa: F401  (LAUNCHES re-exported)
+    LAUNCHES, check_aligned, device_kind, launched, reset_launches, stream)
 
 QBLOCK = 256          # quantizer block (elements per scale)
-LAUNCHES: collections.Counter = collections.Counter()
 _ERR_CODE = {"f8": 0, "bf16": 1}
 _ERR_DTYPE = {"f8": torch.float8_e4m3fn, "bf16": torch.bfloat16}
-
-
-def reset_launches() -> None:
-    LAUNCHES.clear()
 
 
 @functools.cache
@@ -56,25 +50,6 @@ def _lib() -> ctypes.CDLL:
     lib.loco_dequant_mean.argtypes = [vp, vp, vp, i, ll, i, vp]
     lib.loco_dequant_mean.restype = i
     return lib
-
-
-def _device_kind(t: torch.Tensor) -> str:
-    if t.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"no kernel or plain version for device {t.device}")
-    return t.device.type
-
-
-def _check_aligned(*ts: torch.Tensor) -> None:
-    for t in ts:
-        if not t.is_contiguous() or t.data_ptr() % 16:
-            raise ValueError("kernel inputs must be contiguous and 16-byte "
-                             f"aligned (shape {tuple(t.shape)}, "
-                             f"ptr {t.data_ptr():#x})")
-
-
-def _raise_on(rc: int, name: str) -> None:
-    if rc != 0:
-        raise RuntimeError(f"{name}: CUDA launch failed with error {rc}")
 
 
 # ---------------------------------------------------------------------------
@@ -107,23 +82,20 @@ def fused_compress(g: torch.Tensor, e: torch.Tensor, *, bits: int = 4,
     ``err="bf16"``).  n must be a multiple of 512.
     """
     _check_compress(g, e, bits, err)
-    if _device_kind(g) == "cpu":
+    if device_kind(g) == "cpu":
         return fused_compress_plain(g, e, bits=bits, beta=beta,
                                     escale=escale, err=err)
-    _check_aligned(g, e)
+    check_aligned(g, e)
     n = g.shape[0]
     payload = torch.empty(n // 2 if bits == 4 else n, dtype=torch.int8,
                           device=g.device)
     scales = torch.empty(n // QBLOCK, dtype=torch.float32, device=g.device)
     e_new = torch.empty_like(e)
-    with torch.cuda.device(g.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = _lib().loco_fused_compress(
-            g.data_ptr(), e.data_ptr(), payload.data_ptr(),
-            scales.data_ptr(), e_new.data_ptr(), n, bits, _ERR_CODE[err],
-            beta, 1.0 - beta, escale, stream)
-    LAUNCHES["fused_compress"] += 1
-    _raise_on(rc, "fused_compress")
+    rc = _lib().loco_fused_compress(
+        g.data_ptr(), e.data_ptr(), payload.data_ptr(), scales.data_ptr(),
+        e_new.data_ptr(), n, bits, _ERR_CODE[err], beta, 1.0 - beta, escale,
+        stream(g.device))
+    launched(rc, "fused_compress")
     return payload, scales, e_new
 
 
@@ -186,16 +158,14 @@ def dequant_mean(payload: torch.Tensor, scales: torch.Tensor, *,
     scales:  (D, n_chunk/256) f32.
     """
     D, n_chunk = _check_dequant(payload, scales, bits)
-    if _device_kind(payload) == "cpu":
+    if device_kind(payload) == "cpu":
         return dequant_mean_plain(payload, scales, bits=bits)
-    _check_aligned(payload, scales)
+    check_aligned(payload, scales)
     out = torch.empty(n_chunk, dtype=torch.float32, device=payload.device)
-    with torch.cuda.device(payload.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = _lib().loco_dequant_mean(payload.data_ptr(), scales.data_ptr(),
-                                      out.data_ptr(), D, n_chunk, bits, stream)
-    LAUNCHES["dequant_mean"] += 1
-    _raise_on(rc, "dequant_mean")
+    rc = _lib().loco_dequant_mean(payload.data_ptr(), scales.data_ptr(),
+                                  out.data_ptr(), D, n_chunk, bits,
+                                  stream(payload.device))
+    launched(rc, "dequant_mean")
     return out
 
 

@@ -3,8 +3,9 @@
 Port of ``repro.launch.mesh`` for ``tp = 1``: the reference's mesh axes
 ``(pod, data)`` become one ``torch.distributed`` group over every rank, rank
 ``r = pod * DATA + data`` (the order ``repro.core.comm`` chunks by), so a
-multi-pod layout is a flat group of the same size.  Tensor parallelism (the
-``model`` axis) is not ported yet.
+multi-pod layout is a flat group of the same size.  Tensor parallelism is
+not ported yet; :func:`model_group` builds the ``model`` axis's group (one
+singleton per rank at ``tp = 1``), on which the MoE exchange runs.
 
 On a CUDA device the group runs NCCL, on the CPU gloo.  Without an
 existing group and without ``torchrun``'s environment, :func:`dp_group`
@@ -54,6 +55,25 @@ def dp_group(device: torch.device):
             yield dist.group.WORLD
         finally:
             dist.destroy_process_group()
+
+
+def model_group(cfg):
+    """This rank's ``model`` process group, on which the MoE ``ep_a2a``
+    exchange runs its all-to-all; None when ``cfg`` has no such exchange
+    (dense models, ``tp_dense``).
+
+    At ``tp = 1`` (all the port has, ROADMAP 6b) that is a singleton group
+    per rank.  ``torch.distributed.new_group`` is collective over the
+    default group, so every rank creates every group, in the same order.
+    """
+    if cfg.family != "moe" or cfg.moe_impl != "ep_a2a":
+        return None
+    mine = None
+    for r in range(dist.get_world_size()):
+        g = dist.new_group([r])
+        if r == dist.get_rank():
+            mine = g
+    return mine
 
 
 def init_file_group(device: torch.device, rank: int, world_size: int,

@@ -101,10 +101,14 @@ def make_train_step(cfg: ArchConfig, run: RunConfig, topo: MeshTopo,
 
     ``batch["tokens"]`` is the global ``(global_batch, seq_len + 1)`` batch;
     each rank trains on its ``global_batch / dp`` rows in microbatches of
-    ``run.microbatch``.  ``metrics`` holds 0-dim tensors ``loss`` (mean
-    over the dp group), ``gnorm`` (pre-clip global norm) and ``lr``.
+    ``run.microbatch``.  ``metrics`` holds 0-dim tensors ``loss`` (the
+    total loss, router losses included, mean over the dp group), ``gnorm``
+    (pre-clip global norm) and ``lr``; MoE models add ``moe_aux`` and
+    ``moe_z``, the router losses summed over layers, which ride the loss's
+    one all-reduce and are divided by dp * tp like it.
     """
-    model = DecoderLM(cfg, topo.tp)
+    model = DecoderLM(cfg, topo.tp, model_group=topo.model)
+    moe_metrics = bool(cfg.n_experts)
     groups = model.groups()
     opt = _make_opt(run)
     sched = make_schedule(run.schedule, run.lr, run.total_steps,
@@ -127,14 +131,16 @@ def make_train_step(cfg: ArchConfig, run: RunConfig, topo: MeshTopo,
                                (topo.rank + 1) * local_batch]
         mbs = rows.to(device).reshape(accum, micro, -1)
         leaves = _leaves(ts.chunks, groups)
-        losses = []
+        losses, mvs = [], []
         for i in range(accum):
             store = FP.TrainStore(groups, leaves, ts.states, sync, topo,
                                   step=step)
-            loss, _ = model.loss_fn(store, {"tokens": mbs[i]},
-                                    remat=run.remat)
+            loss, aux = model.loss_fn(store, {"tokens": mbs[i]},
+                                      remat=run.remat)
             loss.backward()
             losses.append(loss.detach())
+            if moe_metrics:
+                mvs.append(torch.stack([aux["aux"], aux["z"]]).detach())
         grads = _grads(leaves, groups, accum)
         del leaves
 
@@ -157,8 +163,15 @@ def make_train_step(cfg: ArchConfig, run: RunConfig, topo: MeshTopo,
         ts.states = OPT.tree_map(lambda s: maybe_reset(s, step + 1, sync),
                                  ts.states)
 
-        loss = torch.stack(losses).mean()
-        dist.all_reduce(loss, group=topo.group)
-        return {"loss": loss / topo.dp, "gnorm": gnorm, "lr": lr}
+        parts = [torch.stack(losses).mean()[None]]
+        if moe_metrics:
+            parts.append(torch.stack(mvs).mean(0))   # [router aux, router z]
+        packed = torch.cat(parts)
+        dist.all_reduce(packed, group=topo.group)
+        packed = packed / (topo.dp * topo.tp)
+        metrics = {"loss": packed[0], "gnorm": gnorm, "lr": lr}
+        if moe_metrics:
+            metrics["moe_aux"], metrics["moe_z"] = packed[1], packed[2]
+        return metrics
 
     return step_fn

@@ -6,16 +6,22 @@
   PYTHONPATH=src python -m repro_torch.launch.train --arch llama2-400m \\
       --reduced --steps 3 --seq-len 32 --global-batch 8 --device cpu
 
+  PYTHONPATH=src python -m repro_torch.launch.train --arch deepseek-v3-moe \\
+      --sync loco --moe-a2a block8 --seq-len 1024 --global-batch 8 \\
+      --microbatch 4 --steps 6
+
 Runs on the CUDA card unless ``--device cpu`` is given; without a card it
 raises rather than fall back.  Under ``torchrun`` every rank joins one NCCL
 (or gloo) data-parallel group; otherwise the run is one rank in a
 world-size-1 group.  Prints the reference's ``step N loss=... gnorm=...
-lr=... tok/s=...`` lines; ``tok/s`` leaves out the first step, which pays
-the warm-up (kernel build, allocator growth).
+lr=... tok/s=...`` lines (MoE models add the router losses ``moe_aux`` and
+``moe_z``); ``tok/s`` leaves out the first step, which pays the warm-up
+(kernel build, allocator growth).
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import os
 import time
 
@@ -38,7 +44,12 @@ def build_args(argv=None):
     ap.add_argument("--global-batch", type=int, default=8)
     ap.add_argument("--microbatch", type=int, default=1)
     ap.add_argument("--sync", default="loco",
-                    choices=["fp", "loco", "ef", "naive4"])
+                    choices=["fp", "loco", "ef", "naive4", "onebit"])
+    ap.add_argument("--moe-a2a", default=None, choices=["fp", "block8"],
+                    help="codec for the ep_a2a MoE dispatch/combine "
+                         "all-to-all (core/act_comm): fp = raw bf16, "
+                         "block8 = stateless int8 block-absmax fwd+bwd "
+                         "(default: the config's own)")
     ap.add_argument("--beta", type=float, default=0.5)
     ap.add_argument("--reset-every", type=int, default=512)
     ap.add_argument("--optimizer", default="adam", choices=["adam", "adamw"])
@@ -68,15 +79,27 @@ def make_run(args) -> RunConfig:
                      microbatch=args.microbatch)
 
 
-def main(argv=None) -> dict:
-    """Train; returns ``{"losses": [...], "tok_per_s": float | None,
-    "peak_mem_bytes": int | None}`` (tok/s over the steps after the first,
-    peak device memory on a card)."""
-    args = build_args(argv)
-    device = resolve_device(args.device)
+def make_cfg(args):
+    """The architecture the arguments name (``--reduced``, ``--moe-a2a``)."""
     cfg = get_arch(args.arch)
     if args.reduced:
         cfg = reduced(cfg)
+    if args.moe_a2a:
+        if cfg.moe_impl != "ep_a2a" or not cfg.n_experts:
+            raise SystemExit(f"--moe-a2a: {cfg.name} has no ep_a2a MoE "
+                             "dispatch to compress")
+        cfg = dataclasses.replace(cfg, moe_a2a_codec=args.moe_a2a)
+    return cfg
+
+
+def main(argv=None) -> dict:
+    """Train; returns ``{"losses": [...], "moe_aux": [...], "moe_z": [...],
+    "tok_per_s": float | None, "peak_mem_bytes": int | None}`` (router
+    losses per step for MoE models, else empty; tok/s over the steps after
+    the first; peak device memory on a card)."""
+    args = build_args(argv)
+    device = resolve_device(args.device)
+    cfg = make_cfg(args)
     shape = ShapeConfig("cli", args.seq_len, args.global_batch, "train")
     run = make_run(args)
     batch_fn = make_batch_fn(DataConfig(vocab=cfg.vocab, seq_len=args.seq_len,
@@ -84,8 +107,9 @@ def main(argv=None) -> dict:
                                         seed=args.seed))
     cuda = device.type == "cuda"
     losses: list[float] = []
+    router: dict[str, list[float]] = {"moe_aux": [], "moe_z": []}
     with mesh.dp_group(device) as group:
-        topo = MeshTopo.from_group(group)
+        topo = MeshTopo.from_group(group, model=mesh.model_group(cfg))
         state = make_init(cfg, run, topo, device, args.seed)
         step_fn = make_train_step(cfg, run, topo, device, shape)
         if cuda:
@@ -96,6 +120,9 @@ def main(argv=None) -> dict:
             m = step_fn(state, step, batch_fn(step))
             loss = float(m["loss"])  # waits for the step to finish
             losses.append(loss)
+            for k in router:
+                if k in m:
+                    router[k].append(float(m[k]))
             if first_s is None:
                 first_s = time.perf_counter() - t0
                 t_run = time.perf_counter()
@@ -103,7 +130,9 @@ def main(argv=None) -> dict:
                 n_run = step
                 tok_s = (n_run * args.global_batch * args.seq_len
                          / max(time.perf_counter() - t_run, 1e-9))
-                print(f"step {step:5d} loss={loss:.4f} "
+                moe = "".join(f"{k}={v[-1]:.4f} " for k, v in router.items()
+                              if v)
+                print(f"step {step:5d} loss={loss:.4f} {moe}"
                       f"gnorm={float(m['gnorm']):.3f} lr={float(m['lr']):.2e} "
                       f"tok/s={tok_s:,.0f}", flush=True)
         run_s = time.perf_counter() - t_run
@@ -115,7 +144,8 @@ def main(argv=None) -> dict:
           + (f", {tok_s:,.0f} tok/s after the first step" if tok_s else "")
           + (f", peak device memory {peak / 2**30:.2f} GiB" if peak else "")
           + ")", flush=True)
-    return {"losses": losses, "tok_per_s": tok_s, "peak_mem_bytes": peak}
+    return {"losses": losses, **router, "tok_per_s": tok_s,
+            "peak_mem_bytes": peak}
 
 
 if __name__ == "__main__":

@@ -1,15 +1,16 @@
-"""Decoder-only LM, dense family (llama-style).
+"""Decoder-only LM, dense and MoE families (llama-style attention).
 
-Port of the dense training path of ``repro.models.transformer``: parameter
-declarations (:func:`build_groups`), the attention / MLP blocks and
-:class:`DecoderLM`'s forward and loss.  Layers run in a Python loop; each
+Port of the dense and MoE training paths of ``repro.models.transformer``:
+parameter declarations (:func:`build_groups`), the attention / MLP / MoE
+blocks and :class:`DecoderLM`'s forward and loss.  Layers run in a Python loop; each
 layer materializes its weights from the FSDP chunks inside the layer, and
 with ``remat`` the layer runs under ``torch.utils.checkpoint``
 (non-reentrant), the counterpart of the reference's ``jax.checkpoint`` over
 its layer scan: the recomputation regathers the layer's weights.
 
-Only what llama2-400m uses is ported (full causal attention, RMSNorm,
-SwiGLU, untied embeddings); other dense features and families wait
+Only what llama2-400m and deepseek-v3-moe use is ported (full causal GQA
+attention, RMSNorm, SwiGLU, untied embeddings; the MoE family with the
+``fp`` and ``block8`` activation codecs); other features and families wait
 (ROADMAP.md) and are refused at construction.
 """
 from __future__ import annotations
@@ -21,8 +22,10 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.core import act_comm as ACT
 from repro_torch.core.flatparam import ParamGroup, ParamInfo
 from repro_torch.models import common as C
+from repro_torch.models import moe as MOE
 from repro_torch.models.common import HeadLayout
 
 LOCO_MIN_NUMEL = 2**16  # smaller tensors sync in bf16
@@ -48,7 +51,7 @@ def head_layout(cfg: ArchConfig, tp: int) -> HeadLayout:
 def check_supported(cfg: ArchConfig) -> None:
     """Refuse what the port has not ported yet instead of ignoring it."""
     unported = {
-        "family": cfg.family != "dense",
+        "family": cfg.family not in ("dense", "moe"),
         "attn_kind": cfg.attn_kind != "full",
         "qk_norm": cfg.qk_norm,
         "attn_softcap": cfg.attn_softcap is not None,
@@ -60,6 +63,10 @@ def check_supported(cfg: ArchConfig) -> None:
         "emb_scale": cfg.emb_scale is not None,
         "residual_scale": cfg.residual_scale is not None,
     }
+    if cfg.family == "moe":
+        unported["moe_a2a_codec"] = \
+            cfg.moe_a2a_codec not in ACT.PORTED_CODECS
+        unported["moe_impl"] = cfg.moe_impl not in ("ep_a2a", "tp_dense")
     bad = [k for k, v in unported.items() if v]
     if bad:
         raise NotImplementedError(
@@ -92,18 +99,40 @@ def _mlp_infos(cfg: ArchConfig):
     ]
 
 
+def _moe_infos(cfg: ArchConfig):
+    d, f, E = cfg.d_model, cfg.d_ff, cfg.n_experts
+    # (w1/w3 tp_dim, w2 tp_dim): d_ff sliced (tp_dense) or experts sharded
+    w_tp = (2, 1) if cfg.moe_impl == "tp_dense" else (0, 0)
+    infos = [
+        _pi("norm2", (d,), init="ones", decay=False),
+        _pi("router", (d, E)),
+        _pi("w1", (E, d, f), tp_dim=w_tp[0], init_scale=1.0 / math.sqrt(d)),
+        _pi("w2", (E, f, d), tp_dim=w_tp[1], init_scale=1.0 / math.sqrt(f)),
+        _pi("w3", (E, d, f), tp_dim=w_tp[0], init_scale=1.0 / math.sqrt(d)),
+    ]
+    if cfg.n_shared_experts:
+        fs = cfg.n_shared_experts * f
+        infos += [
+            _pi("ws1", (d, fs), tp_dim=1, init_scale=1.0 / math.sqrt(d)),
+            _pi("ws2", (fs, d), tp_dim=0, init_scale=1.0 / math.sqrt(fs)),
+            _pi("ws3", (d, fs), tp_dim=1, init_scale=1.0 / math.sqrt(d)),
+        ]
+    return infos
+
+
 def build_groups(cfg: ArchConfig, tp: int) -> list[ParamGroup]:
     check_supported(cfg)
     vp = vocab_padded(cfg, tp)
     d = cfg.d_model
     lay = head_layout(cfg, tp)
+    ffn = _moe_infos(cfg) if cfg.family == "moe" else _mlp_infos(cfg)
     return [
         ParamGroup("embed", (
             _pi("tok", (vp, d), tp_dim=0, init="embed", init_scale=0.02),)),
         ParamGroup("final", (
             _pi("norm_f", (d,), init="ones", decay=False),
             _pi("head", (d, vp), tp_dim=1))),
-        ParamGroup("block", tuple(_attn_infos(cfg, lay) + _mlp_infos(cfg)),
+        ParamGroup("block", tuple(_attn_infos(cfg, lay) + ffn),
                    n_layers=cfg.n_layers),
     ]
 
@@ -146,6 +175,14 @@ def dense_block(p, x, cfg: ArchConfig, lay: HeadLayout, positions):
     return x + mlp_block(p, x, cfg)
 
 
+def moe_layer(p, x, cfg: ArchConfig, lay: HeadLayout, positions, group):
+    """Attention then the MoE FFN; returns (x, router aux, router z)."""
+    x = x + attention_block(p, x, cfg, lay, positions)
+    h = C.norm(cfg.norm, x, p["norm2"])
+    y, aux = MOE.moe_block(h, p, cfg, group)
+    return x + y, aux["aux"], aux["z"]
+
+
 # ---------------------------------------------------------------------------
 # the model
 # ---------------------------------------------------------------------------
@@ -154,6 +191,8 @@ def dense_block(p, x, cfg: ArchConfig, lay: HeadLayout, positions):
 class DecoderLM:
     cfg: ArchConfig
     tp: int = 1
+    # the ``model`` process group the MoE ep_a2a exchange runs on
+    model_group: object = dataclasses.field(default=None, compare=False)
 
     def __post_init__(self):
         if self.tp != 1:
@@ -164,28 +203,45 @@ class DecoderLM:
         return build_groups(self.cfg, self.tp)
 
     def forward(self, store, tokens, *, remat: bool = True):
-        """tokens: (B, S) -> logits (B, S, V)."""
+        """tokens: (B, S) -> (logits (B, S, V), aux {"aux", "z"}): the
+        router losses summed over layers (zeros for the dense family)."""
         cfg = self.cfg
         S = tokens.shape[1]
         positions = torch.arange(S, device=tokens.device)
         emb = store.group("embed")["tok"]
         x = C.embed(emb, tokens)
         lay = head_layout(cfg, self.tp)
+        aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
+        z = torch.zeros((), dtype=torch.float32, device=tokens.device)
 
         for l in range(cfg.n_layers):
             def body(xc, l=l):
                 p = store.layer("block", l)
+                if cfg.family == "moe":
+                    return moe_layer(p, xc, cfg, lay, positions,
+                                     self.model_group)
                 return dense_block(p, xc, cfg, lay, positions)
 
-            x = checkpoint(body, x, use_reentrant=False) if remat else body(x)
+            out = checkpoint(body, x, use_reentrant=False) if remat else body(x)
+            if cfg.family == "moe":
+                x, a_l, z_l = out
+                aux, z = aux + a_l, z + z_l
+            else:
+                x = out
 
         fin = store.group("final")
         x = C.norm(cfg.norm, x, fin["norm_f"])
-        return C.logits(x, fin["head"])
+        return C.logits(x, fin["head"]), {"aux": aux, "z": z}
 
     def loss_fn(self, store, batch, remat: bool = True):
+        """-> (total loss, {"ce", "aux", "z"}); the total adds the router
+        losses, weighted, for the MoE family."""
         tokens = batch["tokens"]
         inputs, targets = tokens[:, :-1], tokens[:, 1:]
-        logits = self.forward(store, inputs, remat=remat)
+        logits, aux = self.forward(store, inputs, remat=remat)
         loss = C.xent(logits, targets, self.cfg.vocab)
-        return loss, {"ce": loss}
+        total = loss
+        if self.cfg.n_experts:
+            total = (total + self.cfg.aux_loss_coef * aux["aux"]
+                     + self.cfg.router_z_coef * aux["z"])
+        return total, {"ce": loss, **aux}

@@ -44,3 +44,41 @@ def test_cuda_kernels_match_plain(cuda_device, bits):
             assert torch.equal(LQ.dequant_mean(p, s, bits=bits),
                                LQ.dequant_mean_plain(p, s, bits=bits))
     assert LQ.LAUNCHES == {"fused_compress": 2, "dequant_mean": 8}
+
+
+def _act_rows(gen, dev, rows=64):
+    h = torch.randn(rows, 512, generator=gen, device=dev)
+    h *= 10.0 ** (torch.rand(rows, 1, generator=gen, device=dev) * 8 - 5)
+    h[1] = 0.0
+    h[2, 5] = 3.0e38
+    h[3] *= 1e-39
+    return h
+
+
+def test_cuda_act_kernels_match_plain(cuda_device):
+    from repro_torch.kernels import act_quant as AQ
+
+    h = _act_rows(torch.Generator(device=cuda_device).manual_seed(3),
+                  cuda_device)
+    AQ.reset_launches()
+    q, s = AQ.act_encode(h)
+    pq, ps = AQ.act_encode_plain(h)
+    assert torch.equal(q, pq) and torch.equal(s, ps)
+    assert torch.equal(AQ.act_decode(q, s), AQ.act_decode_plain(q, s))
+    assert AQ.LAUNCHES == {"act_encode": 1, "act_decode": 1}
+
+
+def test_cuda_onebit_pack_matches_plain(cuda_device):
+    from repro_torch.kernels import sign_pack as SP
+
+    gen = torch.Generator(device=cuda_device).manual_seed(4)
+    h = torch.randn(64 * 512, generator=gen, device=cuda_device) * 1e-3
+    h[::97] = 0.0
+    h[1::89] = -0.0
+    scale = h.abs().mean()
+    SP.reset_launches()
+    p, e = SP.onebit_pack(h, scale)
+    pp, pe = SP.onebit_pack_plain(h, scale)
+    assert torch.equal(p, pp)
+    assert torch.equal(e.view(torch.int16), pe.view(torch.int16))
+    assert SP.LAUNCHES == {"onebit_pack": 1}

@@ -117,6 +117,47 @@ def test_dense_block_matches_reference():
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
 
 
+@pytest.mark.parametrize("kv", [2, 1])
+def test_gqa_dense_block_matches_reference(kv):
+    """Grouped-query attention (4 query heads over ``kv`` kv heads): the
+    port's ``expand_kv`` gather branch against the reference's, f32."""
+    jcfg = dataclasses.replace(JCFG, n_kv_heads=kv)
+    tcfg = dataclasses.replace(TCFG, n_kv_heads=kv)
+    rng = np.random.default_rng(30 + kv)
+    lay = JTF.head_layout(jcfg, 1)
+    tlay = TTF.head_layout(tcfg, 1)
+    assert (lay.hl, lay.kvl) == (tlay.hl, tlay.kvl) == (4, kv)
+    np.testing.assert_array_equal(tlay.kv_map("cpu").numpy(),
+                                  np.asarray(lay.kv_map()))
+    infos = [i for g in JTF.build_groups(jcfg, 1) if g.name == "block"
+             for i in g.infos]
+    assert [dataclasses.asdict(i) for i in infos] == [
+        dataclasses.asdict(i) for g in TTF.build_groups(tcfg, 1)
+        if g.name == "block" for i in g.infos]
+    p = {i.name: _f32(rng, *i.shape, scale=i.fan_scale()) if i.init == "normal"
+         else np.ones(i.shape, np.float32) for i in infos}
+    x = _f32(rng, 2, SEQ, jcfg.d_model)
+    mesh = make_local_mesh(dp=1, tp=1)
+
+    def body(p, x):
+        a, _ = JTF.attention_block(p, x, jcfg, lay, 0, jnp.arange(SEQ), None)
+        y, _, _ = JTF.dense_block(p, x, jcfg, lay, 0, jnp.arange(SEQ), None)
+        return a, y
+
+    want = jax.jit(jax.shard_map(
+        body, mesh=mesh, in_specs=(P(), P()), out_specs=(P(), P()),
+        check_vma=False))({k: jnp.asarray(v) for k, v in p.items()},
+                          jnp.asarray(x))
+    tp_ = {k: torch.from_numpy(v) for k, v in p.items()}
+    tx = torch.from_numpy(x)
+    got_a = TTF.attention_block(tp_, tx, tcfg, tlay, torch.arange(SEQ))
+    got_y = TTF.dense_block(tp_, tx, tcfg, tlay, torch.arange(SEQ))
+    np.testing.assert_allclose(got_a.numpy(), np.asarray(want[0]),
+                               rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(got_y.numpy(), np.asarray(want[1]),
+                               rtol=1e-5, atol=1e-5)
+
+
 @pytest.mark.parametrize("name", ["adam", "adamw"])
 def test_optimizer_and_clip_match_reference(name):
     from repro.optim import optimizers as JOPT
