@@ -2,6 +2,7 @@
 """GPU smoke test of the PyTorch/CUDA port (``src/repro_torch``).
 
     python3 chip_smoke.py            # needs one CUDA card; all phases
+    python3 chip_smoke.py --profile-only [--src OTHER/src]   # phase 4 only
 
 Phases, in order; any failure exits non-zero and prints no result:
 
@@ -11,11 +12,14 @@ Phases, in order; any failure exits non-zero and prints no result:
 2. kernels: each kernel against its plain PyTorch version on the card, bit
    for bit: ``fused_compress``/``dequant_mean`` at every chunk length the
    llama2-400m and deepseek-v3-moe LoCo backwards give them (derived from
-   the parameter declarations, ``loco_sizes``), ``act_encode``/
-   ``act_decode`` at the deepseek-v3-moe exchange (81,920 rows of 512),
-   ``onebit_pack`` at the onebit path's shapes; times (CUDA events) beside the HBM bound, the
-   plain version's time and, for ``act_decode``, the one PyTorch call that
-   computes the same function;
+   the parameter declarations, ``loco_sizes``) in every variant of their
+   interface (f32 or bf16 gradient, error out of place or in place, f32 or
+   bf16 shard, D = 1, 2, 4, 8), ``act_encode``/``act_decode`` at the
+   deepseek-v3-moe exchange (81,920 rows of 512), ``onebit_pack`` at the
+   onebit path's shapes; then each kernel's device time (torch.profiler)
+   and host time per call beside its HBM bound, the plain version's device
+   time and, for ``act_decode``, the one PyTorch call that computes the same
+   function;
 3. train, three paths through ``repro_torch.launch.train`` on a
    world-size-1 NCCL group, each with the launch counters zeroed just
    before it and read just after:
@@ -27,8 +31,8 @@ Phases, in order; any failure exits non-zero and prints no result:
    launched as often as the code says (counts derived from the parameter
    declarations and the layer structure, below);
 4. profile: one more full-width step of paths a and b under
-   torch.profiler: device busy time by kernel class and the idle share
-   (informational);
+   torch.profiler: device busy time (kernels, memcpys, memsets) by kernel
+   class, the idle share and the ``loco/*`` ranges (informational);
 5. reference: reduced llama2-400m (loco and onebit) and reduced
    deepseek-v3-moe (loco, block8) train 3 steps on the card and on the CPU
    (plain versions, gloo); the losses agree within 2e-3 relative at step 0
@@ -111,22 +115,66 @@ def nvidia_smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
-    """Median milliseconds of ``fn()`` over ``reps`` CUDA-event-timed runs."""
+def is_device_work(e) -> bool:
+    """A profiler event that is device work: a kernel, memcpy or memset.
+    GPU-side user-annotation ranges (``loco/*``) span such work and are
+    none of their own."""
+    from torch.autograd import DeviceType
+
+    return e.device_type == DeviceType.CUDA and not e.is_user_annotation
+
+
+def device_ms(fn, reps: int = 3, only: str | None = None,
+              before=None) -> float:
+    """Device time of one ``fn()``: the summed durations of the device work
+    it launched (only the kernels whose name holds ``only``, when given),
+    seen by torch.profiler over ``reps`` runs, divided by ``reps``.
+    ``before()`` runs ahead of each ``fn()`` inside the trace (an L2 flush;
+    ``only`` keeps it out of the sum).  Fails if the profiler saw no device
+    time."""
     import torch
 
-    for _ in range(warmup):
-        fn()
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(reps):
+            if before is not None:
+                before()
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if is_device_work(e) and (only is None or only in e.key))
+    if not us:
+        raise AssertionError(f"device_ms: the profiler saw no device time "
+                             f"(kernel filter {only!r})")
+    return us / 1e3 / reps
+
+
+def host_us(fn, calls: int, reps: int = 3) -> float:
+    """Host microseconds per call: wall time of ``fn()`` (``calls`` wrapper
+    calls, no synchronisation inside) over ``calls``, median of ``reps``."""
+    import torch
+
+    fn()
     times = []
     for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
         fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
-    return statistics.median(times)
+        times.append(time.perf_counter() - t)
+    torch.cuda.synchronize()
+    return statistics.median(times) / calls * 1e6
+
+
+def l2_flush(dev):
+    """A callable that overwrites 128 MB (above the 50 MB L2) so the next
+    kernel reads its inputs from HBM."""
+    import torch
+
+    buf = torch.empty(128 * 2**20, dtype=torch.uint8, device=dev)
+    return lambda: buf.fill_(1)
 
 
 # ---------------------------------------------------------------------------
@@ -170,122 +218,190 @@ def _same(a, b) -> bool:
 COMPRESS_CELLS = (("loco4-f8", 4, "f8", 0.5, 2.0**14),
                   ("loco8-f8", 8, "f8", 0.5, 2.0**14),
                   ("ef4-bf16", 4, "bf16", 1.0, 1.0))
+# Off the main path: an error scale that is no power of two and a peer
+# count that is none make the kernels divide where they otherwise multiply.
+DIVIDE_CELL = ("loco4-f8-escale3000", 4, "f8", 0.5, 3000.0)
+DIVIDE_N, DIVIDE_D = 3 * 64 * 512, 3
+NEG_ZERO_STRIDE = 331   # g and e both -0.0 here: the table's signed zeros
+
+
+def _check(name: str, what: str, got, want, worst: dict) -> None:
+    worst[name] = max(worst[name], _max_abs(got, want))
+    if not _same(got, want):
+        raise AssertionError(f"{name} {what}: differs from the plain version "
+                             f"(max |diff| {_max_abs(got, want)})")
 
 
 def check_kernels(LQ, dev) -> dict:
     """Bit-exact comparisons of both kernels with their plain versions on
     the card at every chunk length the llama and deepseek LoCo paths give
-    them (``loco_path_sizes``); returns the max |difference|."""
+    them (``loco_path_sizes``): ``fused_compress`` from an f32 and a bf16
+    gradient, with the error written out of place and in place, in each
+    error cell; ``dequant_mean`` at D = 1, 2, 4, 8 into f32 and bf16 (the
+    bf16 shard must be the plain f32 mean rounded to bf16); then the
+    dividing variants (``DIVIDE_CELL``, D = 3) at one small size.  Returns
+    the max |difference|."""
     import torch
 
     gen = torch.Generator(device=dev).manual_seed(0)
     worst = {"fused_compress": 0.0, "dequant_mean": 0.0}
-    for n in loco_path_sizes():
-        g = _grad(n, gen, dev)
-        for cell, bits, err, beta, escale in COMPRESS_CELLS:
+    runs = [(n, COMPRESS_CELLS, (1, 2, 4, 8)) for n in loco_path_sizes()]
+    runs.append((DIVIDE_N, (DIVIDE_CELL,), (DIVIDE_D,)))
+    for n, cells, peers in runs:
+        g32 = _grad(n, gen, dev)
+        g32[5::NEG_ZERO_STRIDE] = -0.0
+        for cell, bits, err, beta, escale in cells:
             e = _err(n, err, gen, dev)
+            e[5::NEG_ZERO_STRIDE] = -0.0
             kw = dict(bits=bits, beta=beta, escale=escale, err=err)
-            got = LQ.fused_compress(g, e, **kw)
-            want = LQ.fused_compress_plain(g, e, **kw)
-            torch.cuda.synchronize()
-            for k, w, what in zip(got, want, ("payload", "scales", "e_new")):
-                worst["fused_compress"] = max(worst["fused_compress"],
-                                              _max_abs(k, w))
-                if not _same(k, w):
-                    raise AssertionError(
-                        f"fused_compress {cell} n={n}: {what} differs from "
-                        f"the plain version (max |diff| {_max_abs(k, w)})")
+            for g in (g32, g32.to(torch.bfloat16)):
+                want = LQ.fused_compress_plain(g, e, **kw)
+                e_in = e.clone()
+                for how, got in (
+                        ("out of place", LQ.fused_compress(g, e, **kw)),
+                        ("in place", LQ.fused_compress(g, e_in, e_out=e_in,
+                                                       **kw))):
+                    torch.cuda.synchronize()
+                    for k, w, what in zip(got, want,
+                                          ("payload", "scales", "e_new")):
+                        _check("fused_compress", f"{cell} {g.dtype} g {how} "
+                               f"n={n}: {what}", k, w, worst)
+                if got[2].data_ptr() != e_in.data_ptr():
+                    raise AssertionError("fused_compress: e_out=e did not "
+                                         "write the error in place")
             if err != "f8":
                 continue
-            payload, scales, _ = got
-            for D in (1, 2, 4, 8):
+            payload, scales, _ = want
+            for D in peers:
                 p2, s2 = payload.reshape(D, -1), scales.reshape(D, -1)
-                out = LQ.dequant_mean(p2, s2, bits=bits)
                 ref = LQ.dequant_mean_plain(p2, s2, bits=bits)
-                torch.cuda.synchronize()
-                worst["dequant_mean"] = max(worst["dequant_mean"],
-                                            _max_abs(out, ref))
-                if not torch.equal(out, ref):
-                    raise AssertionError(
-                        f"dequant_mean {bits}-bit D={D} n_chunk={n // D}: "
-                        f"differs from the plain version "
-                        f"(max |diff| {_max_abs(out, ref)})")
-        print(f"kernels: n={n} bit-exact "
-              f"({', '.join(c[0] for c in COMPRESS_CELLS)}; dequant_mean "
-              f"D=1,2,4,8 at 4 and 8 bits)", flush=True)
+                for dt in (torch.float32, torch.bfloat16):
+                    out = LQ.dequant_mean(p2, s2, bits=bits, out_dtype=dt)
+                    torch.cuda.synchronize()
+                    _check("dequant_mean", f"{bits}-bit D={D} n_chunk="
+                           f"{n // D} into {dt}", out, ref.to(dt), worst)
+        print(f"kernels: n={n} bit-exact (fused_compress: "
+              f"{', '.join(c[0] for c in cells)}, f32 and bf16 g, error out "
+              f"of place and in place; dequant_mean D="
+              f"{','.join(map(str, peers))} into f32 and bf16)", flush=True)
     return worst
 
 
-def compress_bytes(n: int) -> float:
-    """Bytes fused_compress must move at 4 bits with f8 error: g f32 and e
-    f8 read once; payload, e_new and scales written once."""
-    return n * 4 + n + n / 2 + n + n / 256 * 4
+def compress_bytes(n: int, g_bytes: int = 2) -> float:
+    """Bytes fused_compress must move at 4 bits with f8 error: g (bf16 by
+    default, 4 for the f32 interface) and e f8 read once; payload, e_new
+    and scales written once."""
+    return n * g_bytes + n + n / 2 + n + n / 256 * 4
 
 
-def dequant_bytes(n: int, D: int = 1) -> float:
+def dequant_bytes(n: int, D: int = 1, out_bytes: int = 2) -> float:
     """Bytes dequant_mean must move at 4 bits: D payload rows and scale rows
-    read once, the f32 mean written once."""
-    return D * (n / 2 + n / 256 * 4) + n * 4
+    read once, the mean (bf16 by default, 4 for f32) written once."""
+    return D * (n / 2 + n / 256 * 4) + n * out_bytes
 
 
 def time_kernels(LQ, dev, rate: float) -> dict:
-    """Kernel and plain-version time for the calls one llama2-400m LoCo
-    backward makes (170 tensors, 4-bit, f8 error, D = 1), each call on its
-    own cold buffers, plus per-shape medians at every LoCo path's shapes."""
+    """Device time (torch.profiler), host time per call and the HBM bound of
+    both kernels on the main path's interface (bf16 g, error in place, D =
+    1, bf16 shard), for the calls one llama2-400m LoCo backward makes (170
+    tensors, each on its own cold buffers), then per call at every LoCo
+    path's shape after an L2 flush, beside the f32 interface and the plain
+    version."""
     import torch
 
+    bf16 = torch.bfloat16
     gen = torch.Generator(device=dev).manual_seed(1)
     calls = []
     for n, count in loco_sizes(TRAIN_ARGS).items():
         for _ in range(count):
-            g = torch.randn(n, generator=gen, device=dev) * 1e-3
+            g = (torch.randn(n, generator=gen, device=dev) * 1e-3).to(bf16)
             e = torch.zeros(n, dtype=torch.float8_e4m3fn, device=dev)
             calls.append((g, e))
     kw = dict(bits=4, beta=0.5, escale=2.0**14, err="f8")
     wires = [LQ.fused_compress(g, e, **kw)[:2] for g, e in calls]
     recv = [(p.reshape(1, -1), s.reshape(1, -1)) for p, s in wires]
+    sizes = [g.numel() for g, _ in calls]
 
-    def run(fn, args):
-        def go():
-            for a in args:
-                fn(*a)
-        return go
+    def compress():
+        for g, e in calls:
+            LQ.fused_compress(g, e, e_out=e, **kw)
+
+    def compress_plain():
+        for g, e in calls:
+            LQ.fused_compress_plain(g, e, **kw)
+
+    def dequant():
+        for p, s in recv:
+            LQ.dequant_mean(p, s, out_dtype=bf16)
+
+    def dequant_plain():
+        for p, s in recv:
+            LQ.dequant_mean_plain(p, s, out_dtype=bf16)
 
     out = {
         "fused_compress": dict(
-            ms=cuda_ms(run(lambda g, e: LQ.fused_compress(g, e, **kw), calls), 5),
-            plain_ms=cuda_ms(run(lambda g, e: LQ.fused_compress_plain(
-                g, e, **kw), calls), 3),
-            bound_ms=sum(compress_bytes(g.numel()) for g, _ in calls)
+            ms=device_ms(compress, only="fused_compress"),
+            host_us=host_us(compress, len(calls)),
+            plain_ms=device_ms(compress_plain, reps=1),
+            bound_ms=sum(map(compress_bytes, sizes)) / rate * 1e3,
+            bound_f32_ms=sum(compress_bytes(n, 4) for n in sizes)
             / rate * 1e3),
         "dequant_mean": dict(
-            ms=cuda_ms(run(lambda p, s: LQ.dequant_mean(p, s, bits=4), recv), 5),
-            plain_ms=cuda_ms(run(lambda p, s: LQ.dequant_mean_plain(
-                p, s, bits=4), recv), 3),
-            bound_ms=sum(dequant_bytes(p.numel() * 2) for p, _ in recv)
+            ms=device_ms(dequant, only="dequant_mean"),
+            host_us=host_us(dequant, len(calls)),
+            plain_ms=device_ms(dequant_plain, reps=1),
+            bound_ms=sum(map(dequant_bytes, sizes)) / rate * 1e3,
+            bound_f32_ms=sum(dequant_bytes(n, 1, 4) for n in sizes)
             / rate * 1e3),
     }
     for name, t in out.items():
         print(f"kernels: {name} one backward ({len(calls)} calls, 4-bit f8, "
-              f"D=1): "
+              f"bf16 g in place / bf16 shard at D=1): device "
               f"{t['ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
-              f"({t['bound_ms'] / t['ms']:.1%} of HBM rate), plain "
-              f"{t['plain_ms']:.4f} ms", flush=True)
+              f"({t['bound_ms'] / t['ms']:.1%} of HBM rate; f32 interface "
+              f"bound {t['bound_f32_ms']:.4f} ms); host {t['host_us']:.1f} "
+              f"us per call; plain {t['plain_ms']:.4f} ms device",
+              flush=True)
     del calls, wires, recv
+    flush = l2_flush(dev)
     for n in loco_path_sizes():
-        g = torch.randn(n, generator=gen, device=dev) * 1e-3
+        g = (torch.randn(n, generator=gen, device=dev) * 1e-3).to(bf16)
+        g32 = g.float()
         e = torch.zeros(n, dtype=torch.float8_e4m3fn, device=dev)
         p, s, _ = LQ.fused_compress(g, e, **kw)
         p, s = p.reshape(1, -1), s.reshape(1, -1)
-        tc = cuda_ms(lambda: LQ.fused_compress(g, e, **kw), 20)
-        tp = cuda_ms(lambda: LQ.fused_compress_plain(g, e, **kw), 5)
-        td = cuda_ms(lambda: LQ.dequant_mean(p, s, bits=4), 20)
-        tdp = cuda_ms(lambda: LQ.dequant_mean_plain(p, s, bits=4), 5)
-        print(f"kernels: n={n}: fused_compress {tc * 1e3:.1f} us "
-              f"(bound {compress_bytes(n) / rate * 1e6:.1f} us, plain "
-              f"{tp * 1e3:.1f} us); dequant_mean {td * 1e3:.1f} us (bound "
-              f"{dequant_bytes(n) / rate * 1e6:.1f} us, plain "
-              f"{tdp * 1e3:.1f} us)", flush=True)
+        t = {
+            "compress": device_ms(lambda: LQ.fused_compress(g, e, e_out=e,
+                                                            **kw),
+                                  only="fused_compress", before=flush),
+            "compress_f32": device_ms(lambda: LQ.fused_compress(g32, e, **kw),
+                                      only="fused_compress", before=flush),
+            "compress_plain": device_ms(
+                lambda: LQ.fused_compress_plain(g, e, **kw), reps=1),
+            "compress_host": host_us(
+                lambda: LQ.fused_compress(g, e, e_out=e, **kw), 1, reps=5),
+            "dequant": device_ms(lambda: LQ.dequant_mean(p, s, out_dtype=bf16),
+                                 only="dequant_mean", before=flush),
+            "dequant_f32": device_ms(lambda: LQ.dequant_mean(p, s),
+                                     only="dequant_mean", before=flush),
+            "dequant_plain": device_ms(
+                lambda: LQ.dequant_mean_plain(p, s, out_dtype=bf16), reps=1),
+            "dequant_host": host_us(
+                lambda: LQ.dequant_mean(p, s, out_dtype=bf16), 1, reps=5),
+        }
+        us = {k: v * 1e3 for k, v in t.items() if not k.endswith("host")}
+        print(f"kernels: n={n}: fused_compress device {us['compress']:.1f} us "
+              f"bf16 g in place (bound {compress_bytes(n) / rate * 1e6:.1f} "
+              f"us), {us['compress_f32']:.1f} us f32 g (bound "
+              f"{compress_bytes(n, 4) / rate * 1e6:.1f} us), host "
+              f"{t['compress_host']:.1f} us, plain "
+              f"{us['compress_plain']:.1f} us; dequant_mean device "
+              f"{us['dequant']:.1f} us bf16 out (bound "
+              f"{dequant_bytes(n) / rate * 1e6:.1f} us), "
+              f"{us['dequant_f32']:.1f} us f32 out (bound "
+              f"{dequant_bytes(n, 1, 4) / rate * 1e6:.1f} us), host "
+              f"{t['dequant_host']:.1f} us, plain "
+              f"{us['dequant_plain']:.1f} us", flush=True)
     return out
 
 
@@ -356,34 +472,36 @@ def kernel_act(AQ, dev, rate: float) -> dict:
     if not (q[7].abs().max() == 127 and torch.isfinite(out).all()):
         raise AssertionError("act wire: the 3e38 row did not round-trip")
     bound = act_bytes(rows) / rate * 1e3
+    calls = 10
 
-    def per_call(fn, *args, reps=5, calls=10):
-        # back-to-back calls between the events, so the card, not the
-        # host's per-call work, sets the time; the 168 MB input exceeds L2
+    def per_call(fn, *args, only=None, reps=3):
+        # device time per call over back-to-back calls (the 168 MB input
+        # exceeds L2), and host time per call
         def go():
             for _ in range(calls):
                 fn(*args)
-        return cuda_ms(go, reps) / calls
+        return (device_ms(go, reps, only=only) / calls,
+                host_us(go, calls) if only else None)
 
-    res = {
-        "act_encode": dict(
-            max_abs_err=max(_max_abs(q, pq), _max_abs(s, ps)),
-            ms=per_call(AQ.act_encode, h),
-            plain_ms=per_call(AQ.act_encode_plain, h, reps=3),
-            bound_ms=bound, library_ms=None),
-        "act_decode": dict(
-            max_abs_err=_max_abs(out, ref),
-            ms=per_call(AQ.act_decode, q, s),
-            plain_ms=per_call(AQ.act_decode_plain, q, s, reps=3),
-            bound_ms=bound,
-            library_ms=per_call(lambda a, b: a / b[:, None], q, s)),
-    }
+    res = {}
+    for name, fn, plain, args, err in (
+            ("act_encode", AQ.act_encode, AQ.act_encode_plain, (h,),
+             max(_max_abs(q, pq), _max_abs(s, ps))),
+            ("act_decode", AQ.act_decode, AQ.act_decode_plain, (q, s),
+             _max_abs(out, ref))):
+        ms, host = per_call(fn, *args, only=name)
+        res[name] = dict(max_abs_err=err, ms=ms, host_us=host,
+                         plain_ms=per_call(plain, *args, reps=1)[0],
+                         bound_ms=bound, library_ms=None)
+    res["act_decode"]["library_ms"] = per_call(lambda a, b: a / b[:, None],
+                                               q, s)[0]
     for name, t in res.items():
         lib_s = (f", q / scale {t['library_ms'] * 1e3:.1f} us"
                  if t["library_ms"] is not None else "")
-        print(f"kernels: {name} rows={rows} bit-exact; {t['ms'] * 1e3:.1f} us "
-              f"per call, bound {t['bound_ms'] * 1e3:.1f} us "
-              f"({t['bound_ms'] / t['ms']:.1%} of HBM rate), plain "
+        print(f"kernels: {name} rows={rows} bit-exact; device "
+              f"{t['ms'] * 1e3:.1f} us per call, bound "
+              f"{t['bound_ms'] * 1e3:.1f} us ({t['bound_ms'] / t['ms']:.1%} "
+              f"of HBM rate), host {t['host_us']:.1f} us per call, plain "
               f"{t['plain_ms'] * 1e3:.1f} us{lib_s}", flush=True)
     return res
 
@@ -422,14 +540,17 @@ def kernel_onebit(SP, dev, rate: float) -> dict:
                 fn(h, sc)
         return go
 
-    res = dict(max_abs_err=worst, ms=cuda_ms(run(SP.onebit_pack), 5),
-               plain_ms=cuda_ms(run(SP.onebit_pack_plain), 3),
+    res = dict(max_abs_err=worst,
+               ms=device_ms(run(SP.onebit_pack), only="onebit_pack"),
+               host_us=host_us(run(SP.onebit_pack), len(calls)),
+               plain_ms=device_ms(run(SP.onebit_pack_plain), reps=1),
                bound_ms=sum(onebit_bytes(h.numel()) for h, _ in calls)
                / rate * 1e3, library_ms=None)
-    print(f"kernels: onebit_pack one backward ({len(calls)} calls): "
+    print(f"kernels: onebit_pack one backward ({len(calls)} calls): device "
           f"{res['ms']:.4f} ms, bound {res['bound_ms']:.4f} ms "
-          f"({res['bound_ms'] / res['ms']:.1%} of HBM rate), plain "
-          f"{res['plain_ms']:.4f} ms", flush=True)
+          f"({res['bound_ms'] / res['ms']:.1%} of HBM rate), host "
+          f"{res['host_us']:.1f} us per call, plain {res['plain_ms']:.4f} ms",
+          flush=True)
     return res
 
 
@@ -446,29 +567,36 @@ KERNEL_ROWS = (  # name, CUDA source, the TPU kernel it replaces
 )
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+
     import torch
 
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--profile-only", action="store_true",
+                    help="build, then run only phase 4 (print no result)")
+    ap.add_argument("--src", default=str(ROOT / "src"),
+                    help="the package tree to import (with --profile-only: "
+                         "another checkout's src/, to compare two commits)")
+    opts = ap.parse_args(argv)
+    src = Path(opts.src).resolve()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this test "
               "needs a CUDA card", file=sys.stderr)
         return 1
-    if not (ROOT / "src" / "repro_torch").is_dir():
-        print(f"chip_smoke: {ROOT / 'src' / 'repro_torch'} not found; run "
-              "from a checkout of the repository", file=sys.stderr)
+    if not (src / "repro_torch").is_dir():
+        print(f"chip_smoke: {src / 'repro_torch'} not found; run from a "
+              "checkout of the repository", file=sys.stderr)
         return 1
-    sys.path.insert(0, str(ROOT / "src"))
+    sys.path.insert(0, str(src))
     card = nvidia_smi()
     print(f"card: {card}", flush=True)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, python "
-          f"{sys.version.split()[0]}", flush=True)
+          f"{sys.version.split()[0]}; package {src}", flush=True)
     dev = torch.device("cuda", 0)
     t_start = time.perf_counter()
 
-    from repro_torch.kernels import act_quant as AQ
     from repro_torch.kernels import build
-    from repro_torch.kernels import loco_quant as LQ
-    from repro_torch.kernels import sign_pack as SP
 
     t0 = time.perf_counter()
     built = build.build_all()
@@ -478,6 +606,14 @@ def main() -> int:
         for line in b.log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"build: {b.name}: {line.strip()}")
+    if opts.profile_only:
+        for args in (TRAIN_ARGS, MOE_ARGS):
+            profile_phase(args)
+        return 0
+
+    from repro_torch.kernels import act_quant as AQ
+    from repro_torch.kernels import loco_quant as LQ
+    from repro_torch.kernels import sign_pack as SP
 
     rate = hbm_rate(torch.cuda.get_device_name(0))
     worst = check_kernels(LQ, dev)
@@ -502,8 +638,9 @@ def main() -> int:
                      "source": f"src/repro_torch/kernels/csrc/{src}",
                      "replaces": replaces, "launches": launches[name],
                      "max_abs_err": t["max_abs_err"], "ms": t["ms"],
-                     "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-                     "bound_by": "bytes", "library_ms": t["library_ms"]})
+                     "host_us": t["host_us"], "plain_ms": t["plain_ms"],
+                     "bound_ms": t["bound_ms"], "bound_by": "bytes",
+                     "library_ms": t["library_ms"]})
     print(f"done: all phases in {time.perf_counter() - t_start:.0f} s",
           flush=True)
     print(f"card: {card}")
@@ -595,14 +732,18 @@ def _kernel_class(name: str) -> str:
         return "nccl"
     if any(k in low for k in ("gemm", "cutlass", "xmma", "sm90_", "cublas")):
         return "matmul (cuBLAS)"
-    return "other (elementwise, reductions, copies)"
+    if "copy" in low or low.startswith("memcpy"):
+        return "dtype copies and memcpy"
+    return "other (elementwise, reductions, fills)"
 
 
 def profile_phase(argv) -> None:
     """Where one full-width step spends device time: median wall time of
-    two unprofiled steps, then one step under torch.profiler; device busy
-    time is the sum of kernel times (informational: an empty trace is
-    reported, not failed)."""
+    two unprofiled steps, then one step under torch.profiler.  Device busy
+    time is the sum of its kernels, memcpys and memsets (``is_device_work``);
+    the GPU-side ``loco/*`` annotation ranges span that work, so they are
+    printed apart, with the sum that also counted them.  Informational: an
+    empty trace is reported, not failed."""
     import torch
     from torch.autograd import DeviceType
 
@@ -635,33 +776,46 @@ def profile_phase(argv) -> None:
         del ts
     torch.cuda.empty_cache()
     events = prof.key_averages()
-    kernels = [e for e in events if e.device_type == DeviceType.CUDA]
-    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    work = [e for e in events if is_device_work(e)]
+    annotations = [e for e in events if e.device_type == DeviceType.CUDA
+                   and e.is_user_annotation]
+    busy_ms = sum(e.self_device_time_total for e in work) / 1e3
+    counted_ms = busy_ms + sum(e.self_device_time_total
+                               for e in annotations) / 1e3
     print(f"{tag}: step {wall_ms:.1f} ms unprofiled (median of 2, "
           f"{args.global_batch * args.seq_len / wall_ms * 1e3:.0f} tok/s); "
-          f"kernels busy {busy_ms:.1f} ms in the profiled step; device idle "
-          f"share {max(0.0, 1 - busy_ms / wall_ms):.1%}", flush=True)
-    if not kernels:
+          f"device busy {busy_ms:.1f} ms in the profiled step "
+          f"({sum(e.count for e in work)} kernels, memcpys and memsets); "
+          f"device idle share {max(0.0, 1 - busy_ms / wall_ms):.1%}; a sum "
+          f"that also counts the GPU-side annotation ranges gives "
+          f"{counted_ms:.1f} ms", flush=True)
+    if not work:
         print(f"{tag}: the profiler saw no device time", flush=True)
         return
-    by_class: dict[str, float] = {}
-    for e in kernels:
-        c = _kernel_class(e.key)
-        by_class[c] = by_class.get(c, 0.0) + e.self_device_time_total / 1e3
-    for c, ms in sorted(by_class.items(), key=lambda kv: -kv[1]):
-        print(f"{tag}: {c}: {ms:.1f} ms ({ms / busy_ms:.1%} of busy)")
-    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]:
+    by_class: dict[str, list] = {}
+    for e in work:
+        c = by_class.setdefault(_kernel_class(e.key), [0.0, 0])
+        c[0] += e.self_device_time_total / 1e3
+        c[1] += e.count
+    for c, (ms, count) in sorted(by_class.items(), key=lambda kv: -kv[1][0]):
+        print(f"{tag}: {c}: {ms:.1f} ms x{count} ({ms / busy_ms:.1%} of "
+              f"busy)")
+    for e in sorted(work, key=lambda e: -e.self_device_time_total)[:10]:
         print(f"{tag}: kernel {e.key[:90]} x{e.count}: "
               f"{e.self_device_time_total / 1e3:.2f} ms")
-    for e in kernels:
+    for e in work:
         if any(k in e.key.lower() for k in KERNEL_NAMES):
             print(f"{tag}: kernel {e.key[:60]} x{e.count}: "
                   f"{e.self_device_time_total / 1e3:.2f} ms")
     for e in events:
-        if e.key.startswith("loco/"):
+        if not e.key.startswith("loco/"):
+            continue
+        if e.device_type == DeviceType.CUDA:
+            print(f"{tag}: annotation {e.key} x{e.count}: GPU-side span "
+                  f"{e.device_time_total / 1e3:.1f} ms (not device work)")
+        else:
             print(f"{tag}: range {e.key} x{e.count}: host "
-                  f"{e.cpu_time_total / 1e3:.1f} ms, device "
-                  f"{e.device_time_total / 1e3:.1f} ms", flush=True)
+                  f"{e.cpu_time_total / 1e3:.1f} ms", flush=True)
 
 
 # ---------------------------------------------------------------------------

@@ -86,13 +86,21 @@ class Codec:
 
     # ---- dispatching entry points ------------------------------------------
     def encode(self, g: torch.Tensor, state: torch.Tensor,
-               gen: torch.Generator | None = None):
-        """Compress one local segment -> (wire dict, new_state)."""
+               gen: torch.Generator | None = None, *, inplace: bool = False):
+        """Compress one local segment -> (wire dict, new_state).
+
+        ``g`` may be bf16 or f32 (the codecs compute in f32; the upcast is
+        exact).  ``inplace``: the caller no longer needs ``state``, so a
+        codec may write the new state into it and return ``state`` itself;
+        callers check identity, since a codec may also return a new tensor.
+        """
         return self.encode_ref(g, state, gen)
 
-    def decode_mean(self, recv: dict[str, torch.Tensor]) -> torch.Tensor:
-        """Received per-peer wire rows (leading axis D) -> averaged shard."""
-        return self.decode_mean_ref(recv)
+    def decode_mean(self, recv: dict[str, torch.Tensor],
+                    out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+        """Received per-peer wire rows (leading axis D) -> averaged shard,
+        computed in f32 and rounded to ``out_dtype``."""
+        return self.decode_mean_ref(recv).to(out_dtype)
 
     def roundtrip(self, g: torch.Tensor, state: torch.Tensor,
                   gen: torch.Generator | None = None):
@@ -161,23 +169,26 @@ class _QuantizedCodec(Codec):
             scales = WireLeaf((1,), torch.float32, comm="none")
         return {"payload": payload, "scales": scales}
 
-    def encode(self, g, state, gen=None):
+    def encode(self, g, state, gen=None, *, inplace=False):
         err = self._kernel_err()
         if err is None or not self._block_kernel_cell():
             return self.encode_ref(g, state, gen)
         qc = self.cfg.quant
         beta, escale = ((self.cfg.beta, qc.error_scale) if err == "f8"
                         else (1.0, 1.0))
+        # the kernel takes a bf16 or f32 gradient as it is: no f32 copy
+        if g.dtype not in LQ.DTYPES:
+            g = g.float()
         payload, scales, e_new = LQ.fused_compress(
-            g.float().contiguous(), state, bits=qc.bits, beta=beta,
-            escale=escale, err=err)
+            g.contiguous(), state, bits=qc.bits, beta=beta, escale=escale,
+            err=err, e_out=state if inplace else None)
         return {"payload": payload, "scales": scales}, e_new
 
-    def decode_mean(self, recv):
+    def decode_mean(self, recv, out_dtype=torch.float32):
         if not self._block_kernel_cell():
-            return self.decode_mean_ref(recv)
+            return self.decode_mean_ref(recv).to(out_dtype)
         return LQ.dequant_mean(recv["payload"], recv["scales"],
-                               bits=self.cfg.quant.bits)
+                               bits=self.cfg.quant.bits, out_dtype=out_dtype)
 
     def decode_mean_ref(self, recv):
         qc = self.cfg.quant
@@ -296,7 +307,7 @@ class OnebitCodec(Codec):
         h = g.float() + state.float()
         return h, torch.mean(torch.abs(h))
 
-    def encode(self, g, state, gen=None):
+    def encode(self, g, state, gen=None, *, inplace=False):
         h, scale = self._compensate(g, state)
         packed, e_new = SP.onebit_pack(h, scale)
         return {"payload": packed, "scales": scale.reshape(1)}, e_new

@@ -136,22 +136,31 @@ def dist_sync(
     group,
     gen: torch.Generator | None = None,
     step: int | None = None,
+    *,
+    out_dtype: torch.dtype = torch.float32,
+    inplace: bool = False,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Synchronize one flat gradient segment across the group.
 
-    g:     (n,) local gradient segment, n divisible by D * 2 * block;
-           element i belongs to peer ``i // (n/D)``'s shard.
+    g:     (n,) local gradient segment (bf16 or f32; the codecs compute in
+           f32 and the loco/ef kernels take it as it is), n divisible by
+           D * 2 * block; element i belongs to peer ``i // (n/D)``'s shard.
     state: this rank's compressor state (see loco.state_dtype).
     gen:   generator for stochastic rounding (required when
            ``cfg.quant.stochastic_rounding`` is set).
     step:  step index; when given and the codec is stateful, the cadence
            gate (``cfg.every``) applies (transparent at ``every == 1``).
-    returns (g_shard (n/D,) f32, new_state): the *averaged* gradient piece
-    this rank owns, and the updated local compressor state.
+    out_dtype: dtype of the returned shard: the f32 mean, rounded to
+           nearest-even for bf16 (by the decode kernel where there is one).
+    inplace: the caller no longer needs ``state``: on an on-cadence step
+           the codec may write the new state into it (off-cadence steps
+           read the old state after the encode, so they never do).
+    returns (g_shard (n/D,) in ``out_dtype``, new_state): the *averaged*
+    gradient piece this rank owns, and the updated local compressor state
+    (``state`` itself when written in place).
     """
     n = g.shape[0]
     D = axis_size(group)
-    g = g.float()
     if cfg.hierarchical or cfg.tiers:
         raise NotImplementedError(
             "hierarchical / multi-tier sync is not ported yet (ROADMAP.md)")
@@ -159,20 +168,25 @@ def dist_sync(
         # 16-bit-style baseline: reduce-scatter mean (bf16 wire)
         with PROF.phase("exchange"):
             g_shard = psum_scatter_flat(g.to(torch.bfloat16), group)
-        return g_shard.float() / D, state
+        return (g_shard.float() / D).to(out_dtype), state
     if cfg.strategy == "ef21":
         raise NotImplementedError(
             "ef21 has no distributed form (receiver-side state); use "
             "strategy='ef' or 'loco'")
 
     codec = codec_lib.get_codec(cfg)
+    gated = step is not None and cfg.needs_state()
+    if gated and cfg.every != 1:
+        # an off-cadence step folds g into the OLD state after the encode,
+        # so only an on-cadence step may overwrite it
+        inplace = inplace and cfg.every > 1 and _cadence_on(step, cfg.every)
     with PROF.phase("encode"):            # compensate + quantize (Alg. 1)
-        wire, new_state = codec.encode(g, state, gen)
+        wire, new_state = codec.encode(g, state, gen, inplace=inplace)
     with PROF.phase("exchange"):          # low-bit all-to-all (section 3.3)
         recv = exchange_wire(wire, codec.wire_shapes(n), D, group)
     with PROF.phase("decode"):            # dequant + f32 mean
-        shard = codec.decode_mean(recv)
-    if step is not None and cfg.needs_state():
+        shard = codec.decode_mean(recv, out_dtype)
+    if gated:
         shard, new_state = _cadence_select(g, state, cfg, step, shard,
                                            new_state)
     return shard, new_state

@@ -10,7 +10,10 @@ The reference returns the updated compensation error as the cotangent of
 the error input, because a JAX function cannot write its inputs.  Here the
 backward writes the new error into the state tensor in place, once per
 backward (also under ``torch.utils.checkpoint``, whose recomputation reruns
-the forward but not the backward).
+the forward but not the backward): on an on-cadence step the encode kernel
+writes it there directly, otherwise it is copied in.  The bf16 gradient
+reaches the codec as it is and the synced shard comes back in the
+gradient's dtype, so the backward adds no pass of its own over either.
 """
 from __future__ import annotations
 
@@ -42,12 +45,14 @@ class _GatherWithSync(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g_full):
-        g_shard, new_state = dist_sync(g_full, ctx.state, ctx.cfg, ctx.group,
-                                       step=ctx.step)
-        ctx.state.copy_(new_state)
         # the synced shard is rounded to the gradient's dtype (bf16) before
         # the optimizer sees it, as in the reference
-        return g_shard.to(g_full.dtype), None, None, None, None
+        g_shard, new_state = dist_sync(g_full, ctx.state, ctx.cfg, ctx.group,
+                                       step=ctx.step, out_dtype=g_full.dtype,
+                                       inplace=True)
+        if new_state is not ctx.state:
+            ctx.state.copy_(new_state)
+        return g_shard, None, None, None, None
 
 
 def gather_with_sync(w_chunk: torch.Tensor, state: torch.Tensor,

@@ -34,9 +34,11 @@ def check_aligned(*ts: torch.Tensor) -> None:
 
 
 def stream(device: torch.device) -> int:
-    """The current CUDA stream of ``device``, as the int ctypes passes."""
-    with torch.cuda.device(device):
-        return torch.cuda.current_stream().cuda_stream
+    """The current CUDA stream of ``device``, as the int ctypes passes.
+
+    No device switch: a kernel launches on the current device, which every
+    process of the port sets to its card (``launch/mesh.py``)."""
+    return torch.cuda.current_stream(device).cuda_stream
 
 
 def launched(rc: int, name: str) -> None:

@@ -46,6 +46,59 @@ def test_cuda_kernels_match_plain(cuda_device, bits):
     assert LQ.LAUNCHES == {"fused_compress": 2, "dequant_mean": 8}
 
 
+def _bytes(t):
+    return t.view(torch.uint8 if t.element_size() == 1 else torch.int16)
+
+
+@pytest.mark.parametrize("n", [64 * 512, 33554432])
+def test_cuda_loco_interface_variants(cuda_device, n):
+    """bf16 gradient in, error written in place, bf16 shard out: bit-exact
+    against the plain versions at a small shape and at the deepseek-v3-moe
+    expert shape (33,554,432 elements)."""
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+    g = (torch.randn(n, generator=gen, device=cuda_device) * 1e-3).to(
+        torch.bfloat16)
+    e = (torch.randn(n, generator=gen, device=cuda_device) * 200).clamp(
+        -448, 448).to(torch.float8_e4m3fn)
+    kw = dict(bits=4, beta=0.5, escale=2.0**14)
+    want = LQ.fused_compress_plain(g, e, **kw)
+    LQ.reset_launches()
+    assert all(torch.equal(_bytes(k), _bytes(w))
+               for k, w in zip(LQ.fused_compress(g.float(), e, **kw), want))
+    e_in = e.clone()
+    got = LQ.fused_compress(g, e_in, e_out=e_in, **kw)
+    assert got[2] is e_in
+    assert all(torch.equal(_bytes(k), _bytes(w)) for k, w in zip(got, want))
+    for D in (1, 2, 4, 8):
+        p, s = got[0].reshape(D, -1), got[1].reshape(D, -1)
+        ref = LQ.dequant_mean_plain(p, s)
+        out = LQ.dequant_mean(p, s, out_dtype=torch.bfloat16)
+        assert out.dtype == torch.bfloat16
+        assert torch.equal(_bytes(out), _bytes(ref.to(torch.bfloat16)))
+        assert torch.equal(LQ.dequant_mean(p, s), ref)
+    assert LQ.LAUNCHES == {"fused_compress": 2, "dequant_mean": 8}
+
+
+def test_cuda_loco_dividing_variants(cuda_device):
+    """An error scale that is no power of two and D = 3 peers: the kernels
+    divide where the main path multiplies, bit-exact all the same."""
+    gen = torch.Generator(device=cuda_device).manual_seed(6)
+    n = 3 * 64 * 512
+    g = (torch.randn(n, generator=gen, device=cuda_device) * 1e-3).to(
+        torch.bfloat16)
+    e = (torch.randn(n, generator=gen, device=cuda_device) * 200).clamp(
+        -448, 448).to(torch.float8_e4m3fn)
+    kw = dict(bits=4, beta=0.5, escale=3000.0)
+    got = LQ.fused_compress(g, e, **kw)
+    want = LQ.fused_compress_plain(g, e, **kw)
+    assert all(torch.equal(_bytes(k), _bytes(w)) for k, w in zip(got, want))
+    p, s = got[0].reshape(3, -1), got[1].reshape(3, -1)
+    ref = LQ.dequant_mean_plain(p, s)
+    assert torch.equal(LQ.dequant_mean(p, s), ref)
+    assert torch.equal(_bytes(LQ.dequant_mean(p, s, out_dtype=torch.bfloat16)),
+                       _bytes(ref.to(torch.bfloat16)))
+
+
 def _act_rows(gen, dev, rows=64):
     h = torch.randn(rows, 512, generator=gen, device=dev)
     h *= 10.0 ** (torch.rand(rows, 1, generator=gen, device=dev) * 8 - 5)

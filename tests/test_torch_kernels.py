@@ -79,15 +79,25 @@ def test_cpu_tensors_never_count_launches():
     LQ.fused_compress(g, torch.zeros(1024, dtype=torch.bfloat16), beta=1.0,
                       escale=1.0, err="bf16")
     LQ.dequant_mean(q[None], s[None])
+    e = torch.zeros(1024).to(torch.float8_e4m3fn)
+    LQ.fused_compress(g.to(torch.bfloat16), e, beta=0.5, escale=2.0**14,
+                      e_out=e)
+    LQ.dequant_mean(q[None], s[None], out_dtype=torch.bfloat16)
     assert sum(LQ.LAUNCHES.values()) == 0
 
 
 @pytest.mark.parametrize("case", ["dtype", "length", "err", "bits",
-                                  "scales", "device"])
+                                  "scales", "device", "dtype_f16",
+                                  "e_out_dtype", "e_out_shape",
+                                  "e_out_device", "align", "strided",
+                                  "out_dtype", "payload_align"])
 def test_wrappers_reject_bad_inputs(case):
+    """Shape, dtype, alignment and device are checked on every device (the
+    CPU runs the plain version, but takes only what the kernel takes)."""
     g = torch.randn(1024)
     e = torch.zeros(1024).to(torch.float8_e4m3fn)
     kw = dict(beta=0.5, escale=2.0**14)
+    pay, sc = torch.zeros(1, 512, dtype=torch.int8), torch.ones(1, 4)
     with pytest.raises(ValueError):
         if case == "dtype":
             LQ.fused_compress(g.double(), e, **kw)
@@ -100,5 +110,22 @@ def test_wrappers_reject_bad_inputs(case):
         elif case == "scales":
             LQ.dequant_mean(torch.zeros(1, 512, dtype=torch.int8),
                             torch.ones(1, 3))
-        else:
+        elif case == "device":
             LQ.fused_compress(g.to("meta"), e.to("meta"), **kw)
+        elif case == "dtype_f16":
+            LQ.fused_compress(g.half(), e, **kw)
+        elif case == "e_out_dtype":
+            LQ.fused_compress(g, e, e_out=e.to(torch.bfloat16), **kw)
+        elif case == "e_out_shape":
+            LQ.fused_compress(g, e, e_out=torch.zeros(2048).to(e.dtype), **kw)
+        elif case == "e_out_device":
+            LQ.fused_compress(g, e, e_out=e.to("meta"), **kw)
+        elif case == "align":
+            LQ.fused_compress(torch.randn(1025)[1:], e, **kw)
+        elif case == "strided":
+            LQ.fused_compress(torch.randn(2048)[::2], e, **kw)
+        elif case == "out_dtype":
+            LQ.dequant_mean(pay, sc, out_dtype=torch.float16)
+        else:
+            LQ.dequant_mean(torch.zeros(1, 1024 + 1, dtype=torch.int8)
+                            [:, 1:], sc)
