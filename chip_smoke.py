@@ -10,9 +10,10 @@ Phases, in order; any failure exits non-zero and prints no result:
    kernel from ``src/repro_torch/kernels/csrc`` with nvcc (one process per
    source, all at once);
 2. kernels: each kernel against its plain PyTorch version on the card, bit
-   for bit: ``fused_compress``/``dequant_mean`` at every chunk length the
-   llama2-400m and deepseek-v3-moe LoCo backwards give them (derived from
-   the parameter declarations, ``loco_sizes``) in every variant of their
+   for bit: ``fused_compress``/``dequant_mean`` at every segment length
+   the llama2-400m, deepseek-v3-moe and bucketed llama2-400m LoCo backwards
+   give them (derived from the parameter declarations and the sync plans,
+   ``sync_runs``) in every variant of their
    interface (f32 or bf16 gradient, error out of place or in place, f32 or
    bf16 shard, D = 1, 2, 4, 8), ``act_encode``/``act_decode`` at the
    deepseek-v3-moe exchange (81,920 rows of 512), ``onebit_pack`` at the
@@ -20,23 +21,32 @@ Phases, in order; any failure exits non-zero and prints no result:
    and host time per call beside its HBM bound, the plain version's device
    time and, for ``act_decode``, the one PyTorch call that computes the same
    function;
-3. train, three paths through ``repro_torch.launch.train`` on a
+3. train, four paths through ``repro_torch.launch.train`` on a
    world-size-1 NCCL group, each with the launch counters zeroed just
    before it and read just after:
    a. full-width llama2-400m, ``--sync loco``, 6 steps;
    b. full-width, full-depth deepseek-v3-moe, ``--sync loco --moe-a2a
       block8``, 6 steps;
    c. full-width llama2-400m, ``--sync onebit``, 3 steps;
+   d. full-width llama2-400m, ``--sync loco --bucket-mb 4 --policy
+      "embed=loco8,min=1048576"``, 3 steps: the bucketed, coalesced sync
+      with loco8, loco4 and fp buckets (its wire report is printed first);
    losses finite (and falling on a and b), and every kernel of the path
    launched as often as the code says (counts derived from the parameter
-   declarations and the layer structure, below);
+   declarations, the sync plan's encode runs and the layer structure,
+   below), split by bit width;
 4. profile: one more full-width step of paths a and b under
    torch.profiler: device busy time (kernels, memcpys, memsets) by kernel
    class, the idle share and the ``loco/*`` ranges (informational);
-5. reference: reduced llama2-400m (loco and onebit) and reduced
+5. reference: reduced llama2-400m (loco, onebit, and loco bucketed with
+   ``--bucket-mb 0.1 --policy "embed=loco8,min=16384"``) and reduced
    deepseek-v3-moe (loco, block8) train 3 steps on the card and on the CPU
    (plain versions, gloo); the losses agree within 2e-3 relative at step 0
-   and 2e-2 at every step.
+   and 2e-2 at every step.  On the card, reduced llama2-400m with
+   ``--bucket-mb 0.0625`` under a uniform policy gives the monolithic
+   run's losses bit for bit.
+
+Each phase prints its wall time.
 
 The last lines are the card, one ``{"kernels": [...]}`` JSON object and the
 ``{"ok": true, "device": ...}`` JSON object.
@@ -63,6 +73,12 @@ def _train_args(arch, sync, steps, *extra):
 TRAIN_ARGS = _train_args("llama2-400m", "loco", 6)
 MOE_ARGS = _train_args("deepseek-v3-moe", "loco", 6, "--moe-a2a", "block8")
 ONEBIT_ARGS = _train_args("llama2-400m", "onebit", 3)
+# At dp = 1 a 4 MiB bucket is 1,048,576 elements: the embedding syncs at
+# loco8, the 786,432-element tails of the MLP tensors and the 262,144-element
+# tails of the embedding and the head ride the fp reduce-scatter, the rest
+# is loco4 in fused runs.
+BUCKET_ARGS = _train_args("llama2-400m", "loco", 3, "--bucket-mb", "4",
+                          "--policy", "embed=loco8,min=1048576")
 # Each MoE layer exchanges its slot buffer twice (dispatch, combine); each
 # exchange runs once in the forward, once in the checkpoint's recomputation
 # and once in the backward (the cotangent rides the same wire), and calls
@@ -70,30 +86,53 @@ ONEBIT_ARGS = _train_args("llama2-400m", "onebit", 3)
 EXCHANGES_PER_MOE_LAYER = 2 * 3
 
 
-def loco_sizes(argv) -> dict[int, int]:
-    """Chunk length -> how many tensors of that length one backward of the
-    training run ``argv`` hands the gradient codec (fused_compress and
-    dequant_mean, or onebit_pack), from the parameter declarations. At dp =
-    1 a chunk is the whole padded tensor: llama2-400m gives 1,048,576 (x96),
-    2,883,584 (x72) and 32,768,000 (x2); deepseek-v3-moe adds 33,554,432
-    (the 64 x 1024 x 512 experts), 262,144 (GQA wk, wv) and 65,536 (the
-    router)."""
-    from repro_torch.launch import train
+def sync_runs(argv) -> dict[tuple[int, int], int]:
+    """(segment length, bits) -> how many stateful encode runs one backward
+    of the training run ``argv`` hands the gradient codec (fused_compress
+    and dequant_mean, or onebit_pack), from the parameter declarations and
+    the run's sync plan (the monolithic plan, one run per LoCo tensor,
+    without --bucket-mb/--policy).  At dp = 1 a run is its whole chunk
+    slice: llama2-400m gives 1,048,576 (x96), 2,883,584 (x72) and
+    32,768,000 (x2); deepseek-v3-moe adds 33,554,432 (the 64 x 1024 x 512
+    experts), 262,144 (GQA wk, wv) and 65,536 (the router); the bucketed
+    path d gives 32,505,856 at 8 bits (the embedding), 32,505,856 at 4
+    (the head), 2,097,152 (x72, the MLP tensors' two full buckets) and
+    1,048,576 (x96)."""
+    import types
+
+    from repro_torch.core import buckets, wirepack
+    from repro_torch.launch import steps, train
     from repro_torch.models.transformer import build_groups
 
+    args = train.build_args(argv)
+    run = train.make_run(args)
+    groups = build_groups(train.make_cfg(args), 1)
+    topo = types.SimpleNamespace(tp=1, dp=1)
+    plan = (steps.build_sync_plan(run, groups, topo)
+            or buckets.monolithic_sync_plan(groups, topo, run.sync))
+    out: dict[tuple[int, int], int] = {}
+    for pp in plan.params:
+        for r in wirepack.encode_runs(pp):
+            if r.sync.needs_state():
+                key = (r.chunk_total, r.sync.quant.bits)
+                out[key] = out.get(key, 0) + pp.layers
+    return dict(sorted(out.items()))
+
+
+def loco_sizes(argv) -> dict[int, int]:
+    """Segment length -> stateful encode runs per backward (``sync_runs``
+    summed over bit widths)."""
     sizes: dict[int, int] = {}
-    for g in build_groups(train.make_cfg(train.build_args(argv)), 1):
-        for i in g.infos:
-            if i.loco:
-                n = i.chunklen(1, 1)
-                sizes[n] = sizes.get(n, 0) + (g.n_layers or 1)
-    return dict(sorted(sizes.items()))
+    for (n, _), count in sync_runs(argv).items():
+        sizes[n] = sizes.get(n, 0) + count
+    return sizes
 
 
 def loco_path_sizes() -> list[int]:
-    """Every chunk length the two LoCo paths (llama, deepseek) launch
-    fused_compress and dequant_mean at."""
-    return sorted(set(loco_sizes(TRAIN_ARGS)) | set(loco_sizes(MOE_ARGS)))
+    """Every segment length the LoCo paths (llama, deepseek, bucketed
+    llama) launch fused_compress and dequant_mean at."""
+    return sorted(set(loco_sizes(TRAIN_ARGS)) | set(loco_sizes(MOE_ARGS))
+                  | set(loco_sizes(BUCKET_ARGS)))
 
 # Device-memory rate by card (NVIDIA data sheets); peak FLOP/s are not
 # needed: every kernel does a few flops per byte.
@@ -623,13 +662,20 @@ def main(argv=None) -> int:
     timing.update(kernel_act(AQ, dev, rate))
     timing["onebit_pack"] = kernel_onebit(SP, dev, rate)
     torch.cuda.empty_cache()
-    print(f"kernels: phase done at {time.perf_counter() - t_start:.0f} s",
+    print(f"kernels: phase done at {time.perf_counter() - t_start:.1f} s",
           flush=True)
 
+    t0 = time.perf_counter()
     launches = train_phase(LQ)
+    print(f"train: phase took {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
     for args in (TRAIN_ARGS, MOE_ARGS):
         profile_phase(args)
+    print(f"profile: phase took {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
     reference_phase()
+    print(f"reference: phase took {time.perf_counter() - t0:.1f} s",
+          flush=True)
 
     rows = []
     for name, src, replaces in KERNEL_ROWS:
@@ -655,19 +701,33 @@ def main(argv=None) -> int:
 # phase 3: the main paths, through the training CLI
 # ---------------------------------------------------------------------------
 
+def launches_by_bits(argv) -> dict[int, int]:
+    """fused_compress (and dequant_mean) launches of a LoCo training run by
+    bit width: its stateful encode runs per backward times the backwards."""
+    from repro_torch.launch import train
+
+    args = train.build_args(argv)
+    backwards = args.steps * (args.global_batch // args.microbatch)
+    out: dict[int, int] = {}
+    for (_, bits), count in sync_runs(argv).items():
+        out[bits] = out.get(bits, 0) + count * backwards
+    return out
+
+
 def expected_launches(argv) -> dict:
     """Launches each kernel of a training run must make, from the code: per
-    microbatch backward one fused_compress and one dequant_mean per LoCo
-    tensor (one onebit_pack with --sync onebit), and per MoE layer and
+    microbatch backward one fused_compress and one dequant_mean per stateful
+    encode run of the sync plan (one per LoCo tensor on the monolithic
+    path; one onebit_pack with --sync onebit), and per MoE layer and
     microbatch EXCHANGES_PER_MOE_LAYER act_encode and act_decode."""
     from repro_torch.launch import train
 
     args = train.build_args(argv)
     cfg = train.make_cfg(args)
     runs = args.steps * (args.global_batch // args.microbatch)
-    loco = sum(loco_sizes(argv).values())
-    want = ({"onebit_pack": loco * runs} if args.sync == "onebit" else
-            {"fused_compress": loco * runs, "dequant_mean": loco * runs})
+    loco = sum(launches_by_bits(argv).values())
+    want = ({"onebit_pack": loco} if args.sync == "onebit" else
+            {"fused_compress": loco, "dequant_mean": loco})
     if cfg.family == "moe" and cfg.moe_a2a_codec == "block8":
         acts = EXCHANGES_PER_MOE_LAYER * cfg.n_layers * runs
         want.update(act_encode=acts, act_decode=acts)
@@ -699,20 +759,24 @@ def train_path(LQ, argv, falls: bool) -> dict:
                              f"(derived from the code; see expected_launches)")
     router = (f"; moe_aux {res['moe_aux']}; moe_z {res['moe_z']}"
               if res["moe_aux"] else "")
+    bits = ""
+    if "fused_compress" in want:
+        bits = " by bit width " + ", ".join(
+            f"{b}-bit {n}" for b, n in sorted(launches_by_bits(argv).items()))
     print(f"train: losses {losses}{router}; {res['tok_per_s']:.1f} tok/s "
           f"after the first step; peak device memory "
           f"{res['peak_mem_bytes'] / 2**30:.2f} GiB; launches {launches} "
-          f"(as derived); {secs:.0f} s", flush=True)
+          f"(as derived{bits}); {secs:.1f} s", flush=True)
     torch.cuda.empty_cache()
     return launches
 
 
 def train_phase(LQ) -> dict:
-    """The three main paths; returns every kernel's launches summed over
+    """The four main paths; returns every kernel's launches summed over
     them."""
     total: dict[str, int] = {}
     for argv, falls in ((TRAIN_ARGS, True), (MOE_ARGS, True),
-                        (ONEBIT_ARGS, False)):
+                        (ONEBIT_ARGS, False), (BUCKET_ARGS, True)):
         for k, v in train_path(LQ, argv, falls).items():
             total[k] = total.get(k, 0) + v
     missing = [name for name, _, _ in KERNEL_ROWS if not total.get(name)]
@@ -828,21 +892,43 @@ def _ref_args(arch, sync, *extra):
             "--warmup", "2", "--lr", "2e-3", "--log-every", "1", *extra]
 
 
+# The reduced model's own mix: at dp = 1 a 0.1 MiB bucket is 26,112
+# elements, so every tensor keeps one fp tail (13,312 elements for the
+# attention weights, 512 for the MLP, the embedding and the head) and the
+# embedding runs at loco8 (path d's min=1048576 would send every bucket of
+# the reduced model to fp).
 REF_RUNS = {"llama2-400m loco": _ref_args("llama2-400m", "loco"),
             "deepseek-v3-moe loco block8": _ref_args(
                 "deepseek-v3-moe", "loco", "--moe-a2a", "block8"),
-            "llama2-400m onebit": _ref_args("llama2-400m", "onebit")}
+            "llama2-400m onebit": _ref_args("llama2-400m", "onebit"),
+            "llama2-400m loco bucketed mix": _ref_args(
+                "llama2-400m", "loco", "--bucket-mb", "0.1", "--policy",
+                "embed=loco8,min=16384")}
 REF_STEP0_RTOL, REF_ATOL = 2e-3, 2e-2
+UNIFORM_BUCKETS = ["--bucket-mb", "0.0625"]
 
 
 def reference_phase() -> None:
     """Same seed, same batches, same weights (the init draws on the CPU):
     the card's run (CUDA kernels, NCCL, cuBLAS) must track the CPU run
-    (plain versions, gloo) within the port's model-level tolerance."""
+    (plain versions, gloo) within the port's model-level tolerance; and on
+    the card, the bucketed sync under a uniform policy must give the
+    monolithic run's losses bit for bit."""
     from repro_torch.launch import train
 
+    mono = train.main(REF_RUNS["llama2-400m loco"]
+                      + ["--device", "cuda"])["losses"]
+    buck = train.main(REF_RUNS["llama2-400m loco"] + UNIFORM_BUCKETS
+                      + ["--device", "cuda"])["losses"]
+    print(f"reference: reduced llama2-400m loco on the card, "
+          f"{' '.join(UNIFORM_BUCKETS)} uniform {buck} vs monolithic {mono}",
+          flush=True)
+    if buck != mono:
+        raise AssertionError("reference: the uniform bucketed run's losses "
+                             "differ from the monolithic run's on the card")
     for label, argv in REF_RUNS.items():
-        gpu = train.main(argv + ["--device", "cuda"])["losses"]
+        gpu = (mono if label == "llama2-400m loco" else
+               train.main(argv + ["--device", "cuda"])["losses"])
         cpu = train.main(argv + ["--device", "cpu"])["losses"]
         gaps = [abs(a - b) for a, b in zip(gpu, cpu)]
         print(f"reference: reduced {label}, card {gpu} vs cpu {cpu}; "

@@ -23,6 +23,7 @@ codec's own plain ops (``encode_ref``/``decode_mean_ref``) on any device.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Literal
 
 import torch
@@ -45,6 +46,10 @@ class WireLeaf:
     shape: tuple[int, ...]
     dtype: torch.dtype
     comm: Literal["split", "gather", "none"] = "split"
+
+    @property
+    def nbytes(self) -> int:
+        return math.prod(self.shape) * self.dtype.itemsize
 
 
 class Codec:

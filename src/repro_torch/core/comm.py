@@ -20,7 +20,9 @@ import torch.distributed as dist
 from repro_torch.core import codec as codec_lib
 from repro_torch.core import loco as loco_lib
 from repro_torch.core import wirepack as WP
+from repro_torch.core.buckets import ParamPlan
 from repro_torch.core.loco import SyncConfig
+from repro_torch.kernels import loco_quant as LQ
 from repro_torch.telemetry import profiler as PROF
 
 # torch renamed the tensor-in/tensor-out collectives; take whichever exists
@@ -63,6 +65,18 @@ def all_to_all_chunks(x: torch.Tensor, group) -> torch.Tensor:
     out = torch.empty_like(x)
     dist.all_to_all_single(out, x, group=group)
     return out
+
+
+def fp_mean(summed: torch.Tensor, D: int) -> torch.Tensor:
+    """The f32 mean ``summed / D`` of a reduce-scatter sum over ``D`` peers,
+    rounded as one IEEE division on every device, as the reference computes
+    it.  On CUDA torch divides by a Python scalar as ``x * (1/D)``, which
+    rounds otherwise unless ``D`` is a power of two; any other ``D``
+    divides by a device tensor."""
+    x = summed.float()
+    if LQ.exact_inverse(D):
+        return x / D
+    return x / torch.tensor(float(D), dtype=torch.float32, device=x.device)
 
 
 # ---------------------------------------------------------------------------
@@ -168,7 +182,7 @@ def dist_sync(
         # 16-bit-style baseline: reduce-scatter mean (bf16 wire)
         with PROF.phase("exchange"):
             g_shard = psum_scatter_flat(g.to(torch.bfloat16), group)
-        return (g_shard.float() / D).to(out_dtype), state
+        return fp_mean(g_shard, D).to(out_dtype), state
     if cfg.strategy == "ef21":
         raise NotImplementedError(
             "ef21 has no distributed form (receiver-side state); use "
@@ -190,3 +204,243 @@ def dist_sync(
         shard, new_state = _cadence_select(g, state, cfg, step, shard,
                                            new_state)
     return shard, new_state
+
+
+# ---------------------------------------------------------------------------
+# bucketed dispatch: many segments, each with its own config + state
+# ---------------------------------------------------------------------------
+
+def _none_leaves(codec: codec_lib.Codec, n: int,
+                 wire: dict[str, torch.Tensor],
+                 peers: int) -> dict[str, torch.Tensor]:
+    """Broadcast the never-exchanged (``comm == "none"``) leaves to the
+    peer-axis layout ``decode_mean`` expects."""
+    return {name: wire[name].expand(peers, *wire[name].shape)
+            for name, leaf in codec.wire_shapes(n).items()
+            if leaf.comm == "none"}
+
+
+def _fused_state(codec: codec_lib.Codec, states: tuple, run: WP.EncodeRun,
+                 D: int) -> torch.Tensor:
+    """Member bucket states -> the run segment's peer-major state vector."""
+    if not codec.needs_state():
+        return states[run.positions[0]]  # dummy; encode passes it through
+    return WP.fuse_run_state(run, [states[p] for p in run.positions], D)
+
+
+def _split_state(codec: codec_lib.Codec, ns: torch.Tensor, states: tuple,
+                 run: WP.EncodeRun, D: int) -> list:
+    """Inverse of :func:`_fused_state`: per-member updated state buffers."""
+    if not codec.needs_state():
+        return [states[pos] for pos in run.positions]
+    return WP.split_run_state(run, ns, D)
+
+
+def _exchange_stage(gplan: WP.WireGroupPlan,
+                    wires: dict[int, dict[str, torch.Tensor]],
+                    group) -> dict[int, dict[str, torch.Tensor]]:
+    """Run the flat stage's packed collectives: at most one u8 all-to-all
+    for the ``split`` leaves and one all-gather for the ``gather`` leaves.
+    Returns the received leaves per run (leading peer axis), bit-identical
+    to what the per-bucket :func:`exchange_wire` would deliver."""
+    recv: dict[int, dict[str, torch.Tensor]] = {}
+    ga = gplan.group("flat", "a2a")
+    if ga is not None:
+        buf = all_to_all_chunks(WP.pack_a2a(ga, wires), group)
+        for slot, leaves in WP.unpack_a2a(ga, buf).items():
+            recv.setdefault(slot, {}).update(leaves)
+    gg = gplan.group("flat", "gather")
+    if gg is not None:
+        buf = all_gather_flat(WP.pack_gather(gg, wires), group)
+        shapes: dict[int, dict[str, tuple]] = {}
+        for l in gg.leaves:
+            shapes.setdefault(l.bucket, {})[l.name] = \
+                wires[l.bucket][l.name].shape
+        for slot, leaves in WP.unpack_gather(
+                gg, buf.reshape(gg.peers, -1), shapes).items():
+            recv.setdefault(slot, {}).update(leaves)
+    return recv
+
+
+def _grad_view(g: torch.Tensor, plan: ParamPlan, group) -> torch.Tensor:
+    """The local full gradient as ``(D, C)``: row i is peer i's chunk."""
+    D, C = axis_size(group), plan.chunklen
+    if g.shape != (D * C,):
+        raise ValueError(f"{plan.qualname}: gradient of shape "
+                         f"{tuple(g.shape)}, plan wants ({D * C},)")
+    return g.reshape(D, C)
+
+
+def dist_sync_buckets(
+    g: torch.Tensor,
+    states: tuple[torch.Tensor, ...],
+    plan: ParamPlan,
+    group,
+    coalesce: bool = True,
+    step: int | None = None,
+    *,
+    out_dtype: torch.dtype = torch.float32,
+    inplace: bool = False,
+) -> tuple[torch.Tensor, tuple[torch.Tensor, ...]]:
+    """Synchronize a full local gradient bucket by bucket.
+
+    g:      (padlen,) local full gradient of one parameter (bf16 or f32;
+            the kernels take it as it is, the codecs upcast exactly)
+    states: one compressor state per bucket of ``plan`` (``(1,)`` dummies
+            for stateless buckets)
+    returns (g_shard (padlen/D,) in ``out_dtype``, new_states): this rank's
+    chunk of the averaged gradient (the per-bucket shards in offset order)
+    and the per-bucket updated states.
+
+    With ``coalesce`` (the default) the plan's buckets encode as fused runs
+    and cross the network in one packed collective per comm group
+    (:func:`repro_torch.core.wirepack.build_group_plan`); ``coalesce=False``
+    runs :func:`dist_sync` once per bucket, the parity oracle.  Both give
+    the same bits.  ``inplace`` and ``step`` as in :func:`dist_sync`.
+    """
+    if len(states) != len(plan.buckets):
+        raise ValueError(f"{plan.qualname}: {len(states)} states for "
+                         f"{len(plan.buckets)} buckets")
+    gm = _grad_view(g, plan, group)
+    if coalesce:
+        return _dist_sync_coalesced(gm, states, plan, group, run_space=False,
+                                    step=step, out_dtype=out_dtype,
+                                    inplace=inplace)
+    shards, new_states = [], []
+    for b, st in zip(plan.buckets, states):
+        sh, ns = dist_sync(gm[:, b.offset:b.chunk_end].reshape(-1), st,
+                           b.sync, group, step=step, out_dtype=out_dtype,
+                           inplace=inplace)
+        shards.append(sh)
+        new_states.append(ns)
+    return torch.cat(shards), tuple(new_states)
+
+
+def dist_sync_runs(
+    g: torch.Tensor,
+    run_states: tuple[torch.Tensor, ...],
+    plan: ParamPlan,
+    group,
+    step: int | None = None,
+    *,
+    out_dtype: torch.dtype = torch.float32,
+    inplace: bool = False,
+) -> tuple[torch.Tensor, tuple[torch.Tensor, ...]]:
+    """:func:`dist_sync_buckets` (coalesced) with RUN-space states.
+
+    ``run_states`` holds one peer-major buffer per encode run
+    (:func:`repro_torch.core.flatparam.fuse_run_states`) instead of one
+    per bucket: a run's state is the exact peer-major concatenation of its
+    members', so the result is the same, and under a uniform policy the
+    train state carries one buffer per parameter, as on the monolithic
+    path.  With ``inplace`` an on-cadence run's new state is written into
+    its buffer by the encode kernel.
+    """
+    return _dist_sync_coalesced(_grad_view(g, plan, group), run_states, plan,
+                                group, run_space=True, step=step,
+                                out_dtype=out_dtype, inplace=inplace)
+
+
+def _dist_sync_coalesced(
+    gm: torch.Tensor,
+    states: tuple[torch.Tensor, ...],
+    plan: ParamPlan,
+    group,
+    run_space: bool,
+    step: int | None,
+    out_dtype: torch.dtype,
+    inplace: bool,
+) -> tuple[torch.Tensor, tuple[torch.Tensor, ...]]:
+    """The coalesced schedule over ``gm`` (the ``(D, C)`` gradient view).
+    ``states`` and the returned new states are per run when ``run_space``,
+    else per bucket (fused members are stitched through peer-major views
+    around each encode).
+
+    A run's segment is ``gm[:, off:off + c]`` in the gradient's own dtype:
+    a contiguous view at D = 1, one copy at D > 1.  Tier-0 cadence
+    (``every > 1``) is gated per run: an off-cadence run folds its gradient
+    into its state (``e <- e + g``) and contributes a zero shard, and only
+    an on-cadence run may have its state written in place."""
+    D = gm.shape[0]
+    runs = WP.encode_runs(plan)
+    gplan = WP.build_group_plan(plan, D)
+    want = len(runs) if run_space else len(plan.buckets)
+    if len(states) != want:
+        raise ValueError(f"{plan.qualname}: {len(states)} states, want "
+                         f"{want} ({'runs' if run_space else 'buckets'})")
+
+    wires: dict[int, dict[str, torch.Tensor]] = {}
+    fp_segs: dict[int, torch.Tensor] = {}
+    off_cadence: list[int] = []
+    new_states = list(states)
+    with PROF.phase("encode"):
+        for ri, run in enumerate(runs):
+            cfg = run.sync
+            seg = gm[:, run.offset:run.offset + run.chunk_total].reshape(-1)
+            if cfg.strategy == "fp":
+                fp_segs[run.slot] = seg.to(torch.bfloat16)
+                continue
+            if cfg.strategy == "ef21":
+                raise NotImplementedError(
+                    "ef21 has no distributed form (receiver-side state); "
+                    "use strategy='ef' or 'loco'")
+            codec = codec_lib.get_codec(cfg)
+            on = True
+            if step is not None and cfg.every > 1:
+                loco_lib.validate_cadence(cfg)
+                on = _cadence_on(step, cfg.every)
+                if not on:
+                    off_cadence.append(run.slot)
+
+            def select(ns, st):
+                """Off-cadence: the state accumulates this step's gradient
+                instead of keeping the exchanged update."""
+                if on:
+                    return ns
+                acc = codec.state_encode(seg.float() + codec.state_decode(st))
+                return acc.to(ns.dtype)
+
+            if run_space:
+                wire, ns = codec.encode(seg, states[ri],
+                                        inplace=inplace and on)
+                new_states[ri] = select(ns, states[ri])
+            elif run.fused:
+                fs = _fused_state(codec, states, run, D)
+                wire, ns = codec.encode(seg, fs)
+                ns = select(ns, fs)
+                for pos, s in zip(run.positions,
+                                  _split_state(codec, ns, states, run, D)):
+                    new_states[pos] = s
+            else:
+                pos = run.positions[0]
+                wire, ns = codec.encode(seg, states[pos],
+                                        inplace=inplace and on)
+                new_states[pos] = select(ns, states[pos])
+            wires[run.slot] = wire
+
+    # --- one packed collective per comm group ------------------------------
+    shards: dict[int, torch.Tensor] = {}
+    with PROF.phase("exchange"):
+        rg = gplan.group("flat", "reduce")
+        if rg is not None:
+            summed = psum_scatter_flat(WP.pack_reduce(rg, fp_segs), group)
+            shards.update(WP.unpack_reduce(
+                rg, fp_mean(summed, D).to(out_dtype)))
+        recv = _exchange_stage(gplan, wires, group)
+
+    with PROF.phase("decode"):
+        for run in runs:
+            if run.sync.strategy == "fp":
+                continue
+            codec = codec_lib.get_codec(run.sync)
+            r = dict(recv.get(run.slot, {}))
+            r.update(_none_leaves(codec, D * run.chunk_total,
+                                  wires[run.slot], D))
+            shards[run.slot] = codec.decode_mean(r, out_dtype)
+    for slot in off_cadence:
+        shards[slot] = torch.zeros_like(shards[slot])
+
+    # runs are in chunk-space offset order, each shard spans its whole run
+    parts = [shards[run.slot] for run in runs]
+    out = parts[0] if len(parts) == 1 else torch.cat(parts)
+    return out, tuple(new_states)

@@ -13,7 +13,9 @@ dimensions dropped):
 =================  ==========================
 object             shape on one rank
 param chunk        (L?, chunklen) f32
-compressor state   (L?, padlen) state dtype, or (L?, 1) f32 dummy
+compressor state   (L?, padlen) state dtype, or (L?, 1) f32 dummy; under
+                   a sync plan a tuple with one such tensor per state
+                   unit (:func:`state_units`)
 optimizer state    like the param chunk
 =================  ==========================
 
@@ -32,7 +34,11 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.core import loco as loco_lib
-from repro_torch.core.hijack import gather_fp, gather_with_sync
+from repro_torch.core import wirepack as WP
+from repro_torch.core.buckets import ParamPlan, SyncPlan
+from repro_torch.core.hijack import (gather_fp, gather_with_sync,
+                                     gather_with_sync_buckets,
+                                     gather_with_sync_runs)
 from repro_torch.core.loco import SyncConfig
 
 GRAIN = 512  # dp chunks stay divisible by 2 (int4 pack) * 256 (quant block)
@@ -146,6 +152,74 @@ def init_sync_state(info: ParamInfo, cfg: SyncConfig, topo: MeshTopo,
     return torch.zeros(1, dtype=torch.float32, device=device)
 
 
+def bucket_state_struct(b) -> tuple[int, torch.dtype]:
+    """(length, dtype) of one bucket's (or state unit's) stored compressor
+    state: its full ``(seg_elems,)`` segment in the codec's state dtype,
+    or a ``(1,)`` f32 dummy when stateless."""
+    if b.sync.needs_state():
+        return b.seg_elems, loco_lib.state_dtype(b.sync)
+    return 1, torch.float32
+
+
+def state_units(pplan: ParamPlan, coalesce: bool = True):
+    """The state-leaf units of one param's stored train state.
+
+    The coalesced runtime stores ONE buffer per encode run, expressed as
+    :class:`~repro_torch.core.buckets.Bucket`-like units spanning the run's
+    members (under a uniform policy: one per parameter, the monolithic
+    layout); ``coalesce=False`` keeps one leaf per bucket.
+    """
+    if not coalesce:
+        return pplan.buckets
+    D = pplan.buckets[0].seg_elems // pplan.buckets[0].chunk_elems
+    return tuple(
+        dataclasses.replace(pplan.buckets[run.positions[0]],
+                            index=ri, offset=run.offset,
+                            chunk_elems=run.chunk_total,
+                            seg_elems=D * run.chunk_total)
+        for ri, run in enumerate(WP.encode_runs(pplan)))
+
+
+def init_sync_state_units(pplan: ParamPlan, device: torch.device,
+                          coalesce: bool = True) -> tuple[torch.Tensor, ...]:
+    """Per-state-unit compressor states (see :func:`state_units`)."""
+    return tuple(torch.zeros(n, dtype=dt, device=device)
+                 for n, dt in map(bucket_state_struct,
+                                  state_units(pplan, coalesce)))
+
+
+def fuse_run_states(pplan: ParamPlan, states: Sequence[torch.Tensor],
+                    dp: int) -> tuple[torch.Tensor, ...]:
+    """Per-bucket state buffers ``(L?, seg_b)`` -> per-encode-run
+    peer-major buffers ``(L?, D * c_run)`` (stateless runs keep their
+    first member's dummy)."""
+    out = []
+    for run in WP.encode_runs(pplan):
+        if len(run.positions) == 1 or not run.sync.needs_state():
+            out.append(states[run.positions[0]])
+            continue
+        out.append(WP.fuse_run_state(
+            run, [states[pos] for pos in run.positions], dp))
+    return tuple(out)
+
+
+def split_run_states(pplan: ParamPlan, run_states: Sequence[torch.Tensor],
+                     dp: int) -> tuple[torch.Tensor, ...]:
+    """Inverse of :func:`fuse_run_states` (stateless members share the
+    run's dummy)."""
+    out: list = [None] * len(pplan.buckets)
+    for ri, run in enumerate(WP.encode_runs(pplan)):
+        rs = run_states[ri]
+        if len(run.positions) == 1 or not run.sync.needs_state():
+            for pos in run.positions:
+                out[pos] = rs
+            continue
+        for pos, piece in zip(run.positions,
+                              WP.split_run_state(run, rs, dp)):
+            out[pos] = piece
+    return tuple(out)
+
+
 def _param_gen(seed: int, name: str, layer: int) -> torch.Generator:
     key = (seed * 1_000_003 + (zlib.crc32(name.encode()) & 0x7FFFFFFF)
            + 7919 * layer) & 0x7FFFFFFFFFFFFFFF
@@ -153,24 +227,37 @@ def _param_gen(seed: int, name: str, layer: int) -> torch.Generator:
 
 
 def init_train_state(groups: Sequence[ParamGroup], cfg: SyncConfig,
-                     topo: MeshTopo, device: torch.device, seed: int):
+                     topo: MeshTopo, device: torch.device, seed: int,
+                     plan: SyncPlan | None = None, coalesce: bool = True):
     """Returns (chunks, states): {group: {name: tensor}} per-rank storage
-    (stacked groups carry a leading layer axis)."""
+    (stacked groups carry a leading layer axis).
+
+    With a ``plan``, each loco param's state is a tuple of per-unit states:
+    one per encode run under ``coalesce``, one per bucket otherwise (see
+    :func:`state_units`), each stacked over layers like the chunk.
+    """
     chunks, states = {}, {}
     for g in groups:
         cg, sg = {}, {}
         for info in g.infos:
             name = f"{g.name}/{info.name}"
+            if plan is not None and info.loco:
+                s = init_sync_state_units(plan.lookup(g.name, info.name),
+                                          device, coalesce)
+            else:
+                s = init_sync_state(info, cfg, topo, device)
             if g.stacked:
                 cg[info.name] = torch.stack([
                     init_chunk(info, _param_gen(seed, name, l), topo, device)
                     for l in range(g.n_layers)])
-                sg[info.name] = torch.stack(
-                    [init_sync_state(info, cfg, topo, device)] * g.n_layers)
+                sg[info.name] = (
+                    tuple(torch.stack([u] * g.n_layers) for u in s)
+                    if isinstance(s, tuple)
+                    else torch.stack([s] * g.n_layers))
             else:
                 cg[info.name] = init_chunk(info, _param_gen(seed, name, 0),
                                            topo, device)
-                sg[info.name] = init_sync_state(info, cfg, topo, device)
+                sg[info.name] = s
         chunks[g.name], states[g.name] = cg, sg
     return chunks, states
 
@@ -179,13 +266,25 @@ def init_train_state(groups: Sequence[ParamGroup], cfg: SyncConfig,
 # chunk -> logical tensor
 # ---------------------------------------------------------------------------
 
-def materialize(chunk: torch.Tensor, state: torch.Tensor, info: ParamInfo,
+def materialize(chunk: torch.Tensor, state, info: ParamInfo,
                 cfg: SyncConfig, topo: MeshTopo,
                 compute_dtype: torch.dtype = torch.bfloat16,
-                step: int | None = None) -> torch.Tensor:
-    """f32 chunk -> logical bf16 tensor (FSDP gather with the LoCo backward)."""
+                step: int | None = None, pplan: ParamPlan | None = None,
+                coalesce: bool = True) -> torch.Tensor:
+    """f32 chunk -> logical bf16 tensor (FSDP gather with the LoCo backward).
+
+    With a ``pplan`` the backward runs the bucketed schedule: under
+    ``coalesce`` (default) ``state`` is the run-space tuple and the exchange
+    is packed per comm group; otherwise ``state`` is the per-bucket tuple
+    and every bucket syncs on its own.
+    """
     w = chunk.to(compute_dtype)
-    if info.loco:
+    if info.loco and pplan is not None and coalesce:
+        flat = gather_with_sync_runs(w, state, pplan, topo.group, step=step)
+    elif info.loco and pplan is not None:
+        flat = gather_with_sync_buckets(w, state, pplan, topo.group,
+                                        coalesce=False, step=step)
+    elif info.loco:
         flat = gather_with_sync(w, state, cfg, topo.group, step=step)
     else:
         flat = gather_fp(w, topo.group)
@@ -198,13 +297,17 @@ class TrainStore:
 
     ``chunks[group][name]`` is a chunk tensor, or for a stacked group a
     sequence with one chunk per layer (the autograd leaves of a step);
-    ``states`` holds the per-rank compressor states, which the backward
-    updates in place.
+    ``states`` holds the per-rank compressor states (a tuple per planned
+    param, see :func:`init_train_state`), which the backward updates in
+    place.  ``plan``: the bucketed sync plan (None = monolithic sync per
+    param); ``coalesce``: its packed exchange (run-space states) or one
+    sync per bucket (bucket-space states).
     """
 
     def __init__(self, groups, chunks, states, cfg: SyncConfig,
                  topo: MeshTopo, compute_dtype: torch.dtype = torch.bfloat16,
-                 step: int | None = None):
+                 step: int | None = None, plan: SyncPlan | None = None,
+                 coalesce: bool = True):
         self.groups = {g.name: g for g in groups}
         self.chunks = chunks
         self.states = states
@@ -212,22 +315,31 @@ class TrainStore:
         self.topo = topo
         self.compute_dtype = compute_dtype
         self.step = step
+        self.plan = plan
+        self.coalesce = coalesce
 
-    def _materialize(self, info, chunk, state):
+    def _materialize(self, gname, info, chunk, state):
+        pplan = (self.plan.lookup(gname, info.name)
+                 if self.plan is not None and info.loco else None)
         return materialize(chunk, state, info, self.cfg, self.topo,
-                           self.compute_dtype, step=self.step)
+                           self.compute_dtype, step=self.step, pplan=pplan,
+                           coalesce=self.coalesce)
 
     def group(self, gname: str) -> dict[str, torch.Tensor]:
         g = self.groups[gname]
         if g.stacked:
             raise ValueError(f"group {gname!r} is stacked: use layer()")
-        return {i.name: self._materialize(i, self.chunks[gname][i.name],
+        return {i.name: self._materialize(gname, i, self.chunks[gname][i.name],
                                           self.states[gname][i.name])
                 for i in g.infos}
 
     def layer(self, gname: str, l: int) -> dict[str, torch.Tensor]:
         """Layer ``l`` of a stacked group (``materialize_slice``)."""
         g = self.groups[gname]
-        return {i.name: self._materialize(i, self.chunks[gname][i.name][l],
-                                          self.states[gname][i.name][l])
-                for i in g.infos}
+        out = {}
+        for i in g.infos:
+            s = self.states[gname][i.name]
+            s = tuple(u[l] for u in s) if isinstance(s, tuple) else s[l]
+            out[i.name] = self._materialize(
+                gname, i, self.chunks[gname][i.name][l], s)
+        return out

@@ -4,22 +4,29 @@ Port of ``repro.core.hijack``'s monolithic gathers as
 ``torch.autograd.Function``s.  The forward is the FSDP all-gather of a flat
 parameter chunk; the backward replaces the full-precision reduce-scatter
 with LoCo's compensate -> quantize -> all-to-all -> dequant-mean
-(:func:`repro_torch.core.comm.dist_sync`).
+(:func:`repro_torch.core.comm.dist_sync`), or with the bucketed schedule of
+a :class:`~repro_torch.core.buckets.ParamPlan`
+(:func:`gather_with_sync_buckets`, :func:`gather_with_sync_runs`).
 
 The reference returns the updated compensation error as the cotangent of
 the error input, because a JAX function cannot write its inputs.  Here the
 backward writes the new error into the state tensor in place, once per
 backward (also under ``torch.utils.checkpoint``, whose recomputation reruns
 the forward but not the backward): on an on-cadence step the encode kernel
-writes it there directly, otherwise it is copied in.  The bf16 gradient
+writes it there directly, otherwise it is copied in; the bucketed gathers
+do so per bucket or encode run.  The bf16 gradient
 reaches the codec as it is and the synced shard comes back in the
 gradient's dtype, so the backward adds no pass of its own over either.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 
+from repro_torch.core.buckets import ParamPlan
 from repro_torch.core.comm import (all_gather_flat, axis_size, dist_sync,
+                                   dist_sync_buckets, dist_sync_runs, fp_mean,
                                    psum_scatter_flat)
 from repro_torch.core.loco import SyncConfig
 
@@ -70,6 +77,64 @@ def gather_with_sync(w_chunk: torch.Tensor, state: torch.Tensor,
                                  0 if step is None else step)
 
 
+class _GatherWithSyncPlan(torch.autograd.Function):
+    """Gather whose backward runs ``sync``, a bucketed sync of one
+    ParamPlan (:func:`~repro_torch.core.comm.dist_sync_runs` or
+    ``dist_sync_buckets`` with the plan and group bound), and stores each
+    unit's new state in its buffer where the encode kernel did not."""
+
+    @staticmethod
+    def forward(ctx, w_chunk, states, sync, group, step):
+        ctx.states, ctx.sync, ctx.step = states, sync, step
+        return all_gather_flat(w_chunk, group)
+
+    @staticmethod
+    def backward(ctx, g_full):
+        g_shard, new_states = ctx.sync(g_full, ctx.states, step=ctx.step,
+                                       out_dtype=g_full.dtype, inplace=True)
+        for st, ns in zip(ctx.states, new_states):
+            if ns is not st:
+                st.copy_(ns)
+        return g_shard, None, None, None, None
+
+
+def _reject_plan_stochastic_rounding(plan: ParamPlan) -> None:
+    for b in plan.buckets:
+        _reject_stochastic_rounding(b.sync)
+
+
+def gather_with_sync_buckets(w_chunk: torch.Tensor, states: tuple,
+                             plan: ParamPlan, group, coalesce: bool = True,
+                             step: int | None = None) -> torch.Tensor:
+    """FSDP all-gather whose backward runs the bucketed sync schedule.
+
+    w_chunk: (C,) local flat parameter chunk (C = plan.chunklen)
+    states:  per-bucket compressor states, bucket b's of shape
+             (seg_elems,) in its resolved state dtype (or a (1,) dummy
+             when stateless), updated in place by the backward.
+    coalesce: packed per-comm-group exchange (default), or one
+             :func:`~repro_torch.core.comm.dist_sync` per bucket.
+    """
+    _reject_plan_stochastic_rounding(plan)
+    sync = functools.partial(dist_sync_buckets, plan=plan, group=group,
+                             coalesce=coalesce)
+    return _GatherWithSyncPlan.apply(w_chunk, tuple(states), sync, group,
+                                     0 if step is None else step)
+
+
+def gather_with_sync_runs(w_chunk: torch.Tensor, run_states: tuple,
+                          plan: ParamPlan, group,
+                          step: int | None = None) -> torch.Tensor:
+    """FSDP all-gather whose backward runs the coalesced bucketed schedule
+    over run-space compressor states (one buffer per encode run, updated
+    in place by the backward); the same result as
+    :func:`gather_with_sync_buckets` in another state layout."""
+    _reject_plan_stochastic_rounding(plan)
+    sync = functools.partial(dist_sync_runs, plan=plan, group=group)
+    return _GatherWithSyncPlan.apply(w_chunk, tuple(run_states), sync, group,
+                                     0 if step is None else step)
+
+
 class _GatherFp(torch.autograd.Function):
     @staticmethod
     def forward(ctx, w_chunk, group):
@@ -81,7 +146,7 @@ class _GatherFp(torch.autograd.Function):
         # bf16 wire (the paper's "16-bit Adam" baseline); mean in f32
         D = axis_size(ctx.group)
         g = psum_scatter_flat(g_full.to(torch.bfloat16), ctx.group)
-        return (g.float() / D).to(g_full.dtype), None
+        return fp_mean(g, D).to(g_full.dtype), None
 
 
 def gather_fp(w_chunk: torch.Tensor, group) -> torch.Tensor:

@@ -60,6 +60,56 @@ class SyncConfig:
     def needs_state(self) -> bool:
         return self.strategy in ("loco", "ef", "ef21", "onebit", "topk")
 
+    def stage2_sync(self) -> "SyncConfig":
+        """Resolved stage-2 (inter-pod) wire config of the two-stage
+        exchange: the first outer tier of an explicit ``tiers`` schedule,
+        else ``stage2``, else 8-bit block naive4."""
+        if self.tiers:
+            return self.tiers[0].sync
+        if self.stage2 is not None:
+            return self.stage2
+        return SyncConfig(
+            strategy="naive4",
+            quant=dataclasses.replace(self.quant, bits=8, mode="block",
+                                      stochastic_rounding=False))
+
+
+def sync_schedule(cfg: SyncConfig) -> tuple[SyncTier, ...]:
+    """Resolve a config's outer-tier schedule (empty = flat single-tier):
+    ``tiers`` when set, else the classic two-stage schedule (one outer tier
+    running ``stage2_sync()`` every step) when ``hierarchical``."""
+    if cfg.tiers is not None:
+        return cfg.tiers
+    if cfg.hierarchical:
+        return (SyncTier(cfg.stage2_sync(), every=1),)
+    return ()
+
+
+def validate_tier_codec(s2: SyncConfig) -> SyncConfig:
+    """Check one outer-tier (stage-2 / pod / WAN) wire config: a registered
+    codec that is stateless (``topk`` allowed: tiers run it from a fresh
+    zero error), not itself hierarchical, without stochastic rounding.
+    Returns the config unchanged."""
+    from repro_torch.core import codec as codec_lib
+
+    if (s2.strategy not in codec_lib.CODECS and s2.strategy != "topk") or (
+            s2.needs_state() and s2.strategy != "topk"):
+        raise ValueError(
+            f"stage-2 codec {s2.strategy!r} must be a stateless registered "
+            "codec (the pod mean is recomputed every step; there is nothing "
+            "for error feedback to persist against); use naive4-style "
+            "direct quantization or topk")
+    if s2.hierarchical or s2.stage2 is not None or s2.tiers:
+        raise ValueError(
+            "stage-2 config must not itself be hierarchical: there is no "
+            "third network to stage over, and the flags would be silently "
+            "ignored. Clear hierarchical/stage2 on the stage2 config.")
+    if s2.quant.stochastic_rounding:
+        raise ValueError(
+            "stage-2 stochastic_rounding is not supported (no PRNG key "
+            "reaches the stage-2 encode). Disable it on the stage2 config.")
+    return s2
+
 
 def validate_cadence(cfg: SyncConfig) -> None:
     """Check the cadence knobs of one sync config.

@@ -1,14 +1,53 @@
-"""Byte views for the coalesced wire exchange.
+"""Wire coalescer: one packed collective per comm group, not per bucket-leaf.
 
-Port of ``repro.core.wirepack.to_bytes``/``from_bytes``: every wire leaf is
-viewed as ``uint8`` so that all leaves of one exchange ride one packed
-collective; the views are exact (no arithmetic), so the packed exchange is
-bit-identical to one collective per leaf.
+Port of the flat stage of ``repro.core.wirepack``.  The bucketed scheduler
+(:mod:`repro_torch.core.buckets`) buys per-bucket wire policies at the price
+of launches: each bucket would issue its own collective per wire leaf.
+This module groups a plan's buckets, when the step is built, by exchange
+kind and lays every (encode run, wire leaf) of a group out at a fixed byte
+offset inside one packed buffer:
+
+* ``a2a``: each leaf's per-peer rows side by side in a ``(peers,
+  row_bytes)`` ``uint8`` buffer, ONE all-to-all over the dp group;
+* ``gather``: per-node metadata leaves in one flat ``uint8`` buffer, ONE
+  all-gather;
+* ``reduce``: the ``fp`` buckets' bf16 segments, ONE reduce-scatter
+  (elements, not bytes: the network adds here).
+
+The byte views are exact and collectives move bytes verbatim, so the
+packed exchange is bit-identical to one collective per bucket-leaf; the
+512-aligned chunk geometry of :mod:`repro_torch.core.buckets` keeps every
+leaf's per-peer row a whole number of bytes (checked here).
+
+Adjacent buckets with the same fusible config also *encode* as one segment
+(:class:`EncodeRun`): under a uniform policy a parameter has one run, one
+encode and one decode, as on the monolithic path.
+
+Not ported yet: the backward-overlap schedule (``StagePiece`` ...
+``merge_state_pieces``; ROADMAP item 8), ragged leaves and
+``mask_by_count`` (top-k) and the hierarchical ``hier1``/``hier2`` stages
+(ROADMAP item 11).  A plan that needs them is refused here with
+``NotImplementedError``.
 """
 from __future__ import annotations
 
+import dataclasses
+import math
+from functools import lru_cache
+from typing import Literal
+
 import torch
 
+from repro_torch.core import codec as codec_lib
+from repro_torch.core.buckets import ParamPlan
+from repro_torch.core.loco import SyncConfig
+
+Kind = Literal["a2a", "gather", "reduce"]
+
+
+# ---------------------------------------------------------------------------
+# byte views
+# ---------------------------------------------------------------------------
 
 def to_bytes(a: torch.Tensor) -> torch.Tensor:
     """Flat ``uint8`` view of a tensor's bytes (bit-exact, no arithmetic)."""
@@ -29,3 +68,309 @@ def from_bytes(buf: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
         raise ValueError(f"{buf.shape[-1]} bytes is not a whole number of "
                          f"{dtype} elements")
     return buf.contiguous().view(dtype)
+
+
+def dtype_name(dtype: torch.dtype) -> str:
+    """``torch.bfloat16`` -> ``"bfloat16"`` (numpy's names, as the
+    reference's plans store them)."""
+    return str(dtype).removeprefix("torch.")
+
+
+_DTYPES = {dtype_name(d): d for d in (torch.int8, torch.uint8, torch.float32,
+                                      torch.bfloat16, torch.float8_e4m3fn)}
+
+
+# ---------------------------------------------------------------------------
+# encode runs: adjacent same-config buckets encoded as ONE segment
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class EncodeRun:
+    """Maximal run of adjacent buckets that encode and decode as one segment.
+
+    ``block``/``fixed`` quantization, the error codecs and the receiver mean
+    are elementwise per 256-block, and bucket edges are 512-aligned, so
+    ``encode(concat) == concat(encode)``.  ``tensor``/``onebit`` scales and
+    stochastic rounding depend on the whole segment and never fuse;
+    hierarchical buckets stay singleton runs.  ``slot`` (the first member's
+    bucket index) keys the run's wire tensors in the packed buffers.
+    """
+
+    slot: int
+    buckets: tuple[int, ...]      # member bucket indices, in offset order
+    positions: tuple[int, ...]    # member positions in plan.buckets
+    offset: int                   # chunk-space start of the run
+    chunk_elems: tuple[int, ...]  # per-member per-rank lengths
+    sync: SyncConfig
+
+    @property
+    def chunk_total(self) -> int:
+        return sum(self.chunk_elems)
+
+    @property
+    def fused(self) -> bool:
+        return len(self.buckets) > 1
+
+
+def fusible(cfg: SyncConfig) -> bool:
+    """Whether adjacent buckets of this exact config may encode as one
+    segment.  ``fp`` buckets always fuse: their wire is an elementwise
+    bf16 sum."""
+    if cfg.strategy == "fp":
+        return True
+    return (cfg.strategy in ("loco", "ef", "naive4")
+            and cfg.quant.mode in ("block", "fixed")
+            and not cfg.quant.stochastic_rounding
+            and not cfg.hierarchical)
+
+
+def fuse_run_state(run: EncodeRun, members: list, dp: int) -> torch.Tensor:
+    """Member bucket states (position order, each ``(L?, D*c_b)``) -> the
+    run's one peer-major buffer ``(L?, D*c_run)``.  Stateful runs only."""
+    lead = members[0].shape[:-1]
+    segs = [m.reshape(*lead, dp, c) for m, c in zip(members, run.chunk_elems)]
+    return torch.cat(segs, dim=-1).reshape(*lead, dp * run.chunk_total)
+
+
+def split_run_state(run: EncodeRun, rs: torch.Tensor, dp: int) -> list:
+    """Exact inverse of :func:`fuse_run_state`."""
+    lead = rs.shape[:-1]
+    rsm = rs.reshape(*lead, dp, run.chunk_total)
+    out, off = [], 0
+    for c in run.chunk_elems:
+        out.append(rsm[..., off:off + c].reshape(*lead, dp * c))
+        off += c
+    return out
+
+
+@lru_cache(maxsize=None)
+def encode_runs(plan: ParamPlan) -> tuple[EncodeRun, ...]:
+    """Partition a plan's buckets into maximal fusible runs, offset order."""
+    runs: list[EncodeRun] = []
+    cur: list = []
+
+    def flush():
+        if cur:
+            runs.append(EncodeRun(
+                slot=cur[0][1].index,
+                buckets=tuple(b.index for _, b in cur),
+                positions=tuple(p for p, _ in cur),
+                offset=cur[0][1].offset,
+                chunk_elems=tuple(b.chunk_elems for _, b in cur),
+                sync=cur[0][1].sync))
+        cur.clear()
+
+    for pos, b in enumerate(plan.buckets):
+        if cur and not (fusible(b.sync) and b.sync == cur[-1][1].sync
+                        and b.offset == cur[-1][1].chunk_end):
+            flush()
+        cur.append((pos, b))
+        if not fusible(b.sync):
+            flush()
+    flush()
+    return tuple(runs)
+
+
+# ---------------------------------------------------------------------------
+# static group plan
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class PackedLeaf:
+    """One (encode run, wire leaf) slot inside a packed group buffer.
+
+    For ``a2a`` groups ``offset``/``nbytes`` are per-peer row bytes; for
+    ``gather`` groups they index the flat local send buffer; for ``reduce``
+    groups they are bf16 bytes of the per-peer row.
+    """
+
+    bucket: int          # run slot (== bucket index for singleton runs)
+    name: str            # wire-leaf name ("payload", "scales", ...) / "seg"
+    offset: int
+    nbytes: int
+    elems: int           # leaf elements per peer row (a2a/reduce) or total (gather)
+    dtype: str           # dtype name (a string keeps the dataclass hashable)
+
+
+@dataclasses.dataclass(frozen=True)
+class WireGroup:
+    """All the wire tensors that ride one packed collective."""
+
+    stage: str           # "flat": the port has no hierarchical stages yet
+    kind: Kind
+    peers: int
+    row_bytes: int       # per-peer bytes (a2a/reduce: row; gather: local buffer)
+    leaves: tuple[PackedLeaf, ...]
+
+
+@dataclasses.dataclass(frozen=True)
+class WireGroupPlan:
+    """Static packing layout of one ParamPlan's coalesced exchange."""
+
+    groups: tuple[WireGroup, ...]
+
+    def group(self, stage: str, kind: Kind) -> "WireGroup | None":
+        for g in self.groups:
+            if g.stage == stage and g.kind == kind:
+                return g
+        return None
+
+    def launches(self) -> int:
+        """Collectives issued per sync: one per group (the port's dp group
+        is one process group, so each group crosses it once)."""
+        return len(self.groups)
+
+
+def _leaf_entries(cfg, n: int) -> list[tuple[str, "codec_lib.WireLeaf"]]:
+    """(name, WireLeaf) pairs of a codec's wire, in stable dict order."""
+    return list(codec_lib.get_codec(cfg).wire_shapes(n).items())
+
+
+def refuse_unported(where: str, cfg: SyncConfig) -> None:
+    """Raise ``NotImplementedError`` for a config the port's bucketed sync
+    cannot run yet: top-k and multi-tier (hierarchical, ``tiers``) sync."""
+    if cfg.strategy == "topk":
+        raise NotImplementedError(
+            f"{where}: the topk codec (ragged wire leaves) is not ported "
+            "yet (ROADMAP item 11)")
+    if cfg.hierarchical or cfg.tiers:
+        raise NotImplementedError(
+            f"{where}: hierarchical / multi-tier sync is not ported yet "
+            "(ROADMAP item 11)")
+
+
+def _plan_groups(qualname: str, segs, D: int) -> WireGroupPlan:
+    """Group-layout walk over offset-ordered encode runs."""
+    builders: dict[tuple, list[PackedLeaf]] = {}
+    offs: dict[tuple, int] = {}
+
+    def add(kind: Kind, bucket: int, name: str, nbytes: int, elems: int,
+            dtype) -> None:
+        sig = ("flat", kind, D)
+        off = offs.get(sig, 0)
+        builders.setdefault(sig, []).append(PackedLeaf(
+            bucket=bucket, name=name, offset=off, nbytes=nbytes,
+            elems=elems, dtype=dtype_name(dtype)))
+        offs[sig] = off + nbytes
+
+    for run in segs:
+        cfg = run.sync
+        seg = D * run.chunk_total
+        if cfg.strategy == "fp":
+            # summed on the wire: bf16 elements, one reduce-scatter for
+            # every fp run of the plan
+            add("reduce", run.slot, "seg", nbytes=2 * run.chunk_total,
+                elems=run.chunk_total, dtype=torch.bfloat16)
+            continue
+        refuse_unported(f"{qualname}[{run.slot}]", cfg)
+        for name, leaf in _leaf_entries(cfg, seg):
+            if leaf.comm == "split":
+                row, rem = divmod(leaf.nbytes, D)
+                erow, erem = divmod(math.prod(leaf.shape), D)
+                if rem or erem:
+                    raise ValueError(
+                        f"{qualname}[{run.slot}].{name}: leaf of "
+                        f"{leaf.nbytes} bytes does not split over "
+                        f"{D} peers; bucket edges must stay "
+                        "512-aligned (see buckets.ALIGN)")
+                add("a2a", run.slot, name, nbytes=row, elems=erow,
+                    dtype=leaf.dtype)
+            elif leaf.comm == "gather":
+                add("gather", run.slot, name, nbytes=leaf.nbytes,
+                    elems=math.prod(leaf.shape), dtype=leaf.dtype)
+            # comm == "none": static metadata, never exchanged
+
+    groups = tuple(
+        WireGroup(stage=sig[0], kind=sig[1], peers=sig[2],
+                  row_bytes=offs[sig], leaves=tuple(leaves))
+        for sig, leaves in builders.items())
+    return WireGroupPlan(groups=groups)
+
+
+@lru_cache(maxsize=None)
+def build_group_plan(plan: ParamPlan, D: int) -> WireGroupPlan:
+    """Group one parameter's encode runs by exchange kind.
+
+    ``D`` is the dp-group size.  Raises if a leaf's bytes do not divide
+    evenly over the group (the 512-aligned bucket geometry guarantees they
+    do for every codec), and ``NotImplementedError`` for runs the port
+    cannot exchange yet (top-k, hierarchical).
+    """
+    return _plan_groups(plan.qualname, encode_runs(plan), D)
+
+
+# ---------------------------------------------------------------------------
+# pack / unpack (local; core/comm issues the collectives)
+# ---------------------------------------------------------------------------
+
+def pack_a2a(group: WireGroup,
+             wires: dict[int, dict[str, torch.Tensor]]) -> torch.Tensor:
+    """Pack an a2a group's wire tensors into one ``(peers, row_bytes)`` u8
+    buffer; row *i* concatenates every member leaf's piece for peer *i*."""
+    rows = [to_bytes(wires[l.bucket][l.name]).reshape(group.peers, l.nbytes)
+            for l in group.leaves]
+    return torch.cat(rows, dim=1)
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t``, or a copy of it when its data does not start on a 16-byte
+    boundary (what the kernels take).  Leaves are packed back to back, so
+    a leaf after 8*k bytes of scales can start at 8 mod 16."""
+    if t.data_ptr() % 16:
+        return t.clone(memory_format=torch.contiguous_format)
+    return t
+
+
+def unpack_a2a(group: WireGroup,
+               recv: torch.Tensor) -> dict[int, dict[str, torch.Tensor]]:
+    """Received ``(peers, row_bytes)`` buffer -> per-run recv leaves, each
+    ``(peers, row_elems)``, bit-identical to the per-leaf exchange."""
+    out: dict[int, dict[str, torch.Tensor]] = {}
+    for l in group.leaves:
+        piece = recv[:, l.offset:l.offset + l.nbytes]
+        out.setdefault(l.bucket, {})[l.name] = _aligned(
+            from_bytes(piece, _DTYPES[l.dtype]))
+    return out
+
+
+def pack_gather(group: WireGroup,
+                wires: dict[int, dict[str, torch.Tensor]]) -> torch.Tensor:
+    """Pack a gather group's per-node metadata into one flat u8 buffer."""
+    return torch.cat([to_bytes(wires[l.bucket][l.name])
+                      for l in group.leaves])
+
+
+def unpack_gather(group: WireGroup, recv: torch.Tensor,
+                  shapes: dict[int, dict[str, tuple]]
+                  ) -> dict[int, dict[str, torch.Tensor]]:
+    """``(peers, row_bytes)`` gathered buffer -> per-run ``(peers, *shape)``
+    recv leaves (``shapes[slot][name]`` is the leaf's local shape)."""
+    out: dict[int, dict[str, torch.Tensor]] = {}
+    for l in group.leaves:
+        arr = from_bytes(recv[:, l.offset:l.offset + l.nbytes],
+                         _DTYPES[l.dtype])
+        out.setdefault(l.bucket, {})[l.name] = arr.reshape(
+            (group.peers, *shapes[l.bucket][l.name]))
+    return out
+
+
+def pack_reduce(group: WireGroup,
+                segs: dict[int, torch.Tensor]) -> torch.Tensor:
+    """Pack fp runs' ``(D * c,)`` bf16 segments into one ``(D * sum_c,)``
+    buffer whose per-peer tiles concatenate the runs' per-peer rows, so one
+    reduce-scatter returns the concatenation of the per-run shards."""
+    if len(group.leaves) == 1:
+        return segs[group.leaves[0].bucket].reshape(-1)
+    rows = [segs[l.bucket].reshape(group.peers, l.elems)
+            for l in group.leaves]
+    return torch.cat(rows, dim=1).reshape(-1)
+
+
+def unpack_reduce(group: WireGroup,
+                  shard: torch.Tensor) -> dict[int, torch.Tensor]:
+    """``(sum_c,)`` reduce-scattered shard -> per-run ``(c,)`` shards."""
+    out = {}
+    for l in group.leaves:
+        off = l.offset // 2  # offsets are bf16 bytes; the shard is elements
+        out[l.bucket] = shard[off:off + l.elems]
+    return out

@@ -7,7 +7,8 @@ global arrays over its mesh; with ``tp = 1`` rank ``r`` of ``dp`` owns
 
 * master chunk ``[..., 0, r*C:(r+1)*C]`` of the ``(L?, TP, padlen)`` chunk
   (``C = padlen / dp``), and likewise each Adam moment;
-* compressor state ``[..., 0, r, :]`` of the ``(L?, TP, D, padlen)`` state.
+* compressor state ``[..., 0, r, :]`` of the ``(L?, TP, D, padlen)`` state
+  (under a sync plan, of each state unit's ``(L?, TP, D, n)`` array).
 
 float8_e4m3fn and bfloat16 arrays (numpy's ``ml_dtypes`` types) cross as
 raw bytes and are viewed as the torch dtype, so the values are exact.  Both
@@ -51,8 +52,12 @@ def from_reference(chunks, states, opt, *, groups, rank: int, dp: int,
                                                       rank, dp), device)
                          for i in g.infos} for g in groups}
 
-    st = {g.name: {i.name: to_torch(np.asarray(states[g.name][i.name])
-                                    [..., 0, rank, :], device)
-                   for i in g.infos} for g in groups}
+    def state(a):
+        if isinstance(a, (tuple, list)):     # per state unit (sync plans)
+            return tuple(state(u) for u in a)
+        return to_torch(np.asarray(a)[..., 0, rank, :], device)
+
+    st = {g.name: {i.name: state(states[g.name][i.name]) for i in g.infos}
+          for g in groups}
     return TrainState(chunk_tree(chunks), st,
                       tuple(chunk_tree(t) for t in opt))

@@ -1,6 +1,8 @@
-"""Train-state init and the monolithic train step.
+"""Train-state init and the train step.
 
-Port of the monolithic path of ``repro.launch.steps.make_train_step``:
+Port of ``repro.launch.steps.make_train_step`` with the monolithic sync or
+the bucketed one (``RunConfig.bucket_bytes``/``policy``/``coalesce``; its
+schedule is the reference's non-overlapped one):
 
   FSDP flat-param chunks (core/flatparam) -> per-layer gather with the LoCo
   backward (core/hijack) -> model forward/backward -> microbatch
@@ -21,7 +23,12 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.configs.base import ArchConfig, ShapeConfig
+from repro_torch.core import buckets as BK
+from repro_torch.core import codec as codec_lib
 from repro_torch.core import flatparam as FP
+from repro_torch.core import loco as loco_lib
+from repro_torch.core import policy as POL
+from repro_torch.core import wirepack as WP
 from repro_torch.core.flatparam import MeshTopo
 from repro_torch.core.loco import SyncConfig, maybe_reset
 from repro_torch.models.transformer import DecoderLM
@@ -32,8 +39,7 @@ from repro_torch.telemetry import profiler as PROF
 
 @dataclasses.dataclass(frozen=True)
 class RunConfig:
-    """The fields of the reference's ``RunConfig`` that the monolithic
-    dense path reads."""
+    """The fields of the reference's ``RunConfig`` that the port reads."""
 
     sync: SyncConfig = dataclasses.field(default_factory=SyncConfig)
     optimizer: str = "adam"
@@ -45,6 +51,68 @@ class RunConfig:
     clip_norm: float = 1.0
     microbatch: int = 1          # per-rank microbatch size
     remat: bool = True
+    # Bucketed sync scheduler (core/buckets + core/policy).  bucket_bytes > 0
+    # partitions every loco param's gradient into size-targeted buckets;
+    # `policy` resolves per-bucket wire configs (None = every bucket uses
+    # `sync`).  Both unset = the monolithic path.
+    bucket_bytes: int = 0
+    policy: "POL.SyncPolicy | None" = None
+    # Coalesced wire exchange (core/wirepack): one packed collective per
+    # comm group per sync instead of one per bucket; the same bits.
+    coalesce: bool = True
+
+    def wants_buckets(self) -> bool:
+        return self.bucket_bytes > 0 or self.policy is not None
+
+
+def build_sync_plan(run: RunConfig, groups,
+                    topo: MeshTopo) -> "BK.SyncPlan | None":
+    """Resolve RunConfig's bucketing knobs into a static SyncPlan."""
+    if not run.wants_buckets():
+        return None
+    pol = run.policy if run.policy is not None else POL.uniform(run.sync)
+    bcfg = BK.BucketConfig(
+        target_bytes=run.bucket_bytes or BK.DEFAULT_TARGET_BYTES)
+    return BK.make_sync_plan(groups, topo, bcfg, pol)
+
+
+def _validate_sync_configs(run: RunConfig, plan: "BK.SyncPlan | None",
+                           topo: MeshTopo) -> None:
+    """Reject, when the step is built and with the bucket named, the
+    configs the in-backward sync cannot honor: stochastic rounding (no
+    generator reaches the backward), strategies without a wire codec,
+    cadence without state or off period boundaries, and what the port has
+    not ported yet (top-k, hierarchical and multi-tier sync:
+    ``NotImplementedError``).  Under ``run.coalesce`` the wire-group plans
+    are built here too, so a packing problem names its parameter."""
+    cfgs = ([(f"{p.qualname}[{b.index}]", b.sync)
+             for p in plan.params for b in p.buckets]
+            if plan is not None else [("sync", run.sync)])
+    for where, c in cfgs:
+        WP.refuse_unported(where, c)
+        if c.strategy != "fp" and c.quant.stochastic_rounding:
+            raise ValueError(
+                f"{where}: stochastic_rounding cannot run inside the "
+                "training step (the hijack backward has no generator to "
+                "thread; it would silently round to nearest). Use the "
+                "post-grad dist_sync/sim_sync with an explicit generator, "
+                "or disable stochastic_rounding.")
+        if c.strategy != "fp" and c.strategy not in codec_lib.CODECS:
+            raise ValueError(
+                f"{where}: strategy {c.strategy!r} has no wire codec and "
+                "cannot run in the training step (ef21 needs a "
+                "receiver-side mean-estimate shard; use the post-grad "
+                f"loco.sim_sync). Registered: {sorted(codec_lib.CODECS)}.")
+        try:
+            loco_lib.validate_cadence(c)
+        except ValueError as e:
+            raise ValueError(f"{where}: {e}") from None
+    if plan is not None and run.coalesce:
+        for p in plan.params:
+            try:
+                WP.build_group_plan(p, topo.dp)
+            except ValueError as e:
+                raise ValueError(f"{p.qualname}: {e}") from None
 
 
 @dataclasses.dataclass
@@ -64,8 +132,34 @@ def _make_opt(run: RunConfig) -> OPT.Optimizer:
 def make_init(cfg: ArchConfig, run: RunConfig, topo: MeshTopo,
               device: torch.device, seed: int = 0) -> TrainState:
     groups = DecoderLM(cfg, topo.tp).groups()
-    chunks, states = FP.init_train_state(groups, run.sync, topo, device, seed)
+    chunks, states = FP.init_train_state(
+        groups, run.sync, topo, device, seed,
+        plan=build_sync_plan(run, groups, topo), coalesce=run.coalesce)
     return TrainState(chunks, states, _make_opt(run).init(chunks))
+
+
+def reset_states(states: dict, step: int, groups, run: RunConfig,
+                 plan: "BK.SyncPlan | None") -> dict:
+    """Error reset (Eqn. 7) per state unit, each under its own resolved
+    config (under the coalesced runtime a unit is one encode run, whose
+    members share one config); the dummy states of non-loco params are
+    left alone."""
+    out = {}
+    for g in groups:
+        og = {}
+        for info in g.infos:
+            s = states[g.name][info.name]
+            if plan is not None and info.loco:
+                pp = plan.lookup(g.name, info.name)
+                og[info.name] = tuple(
+                    maybe_reset(sb, step, u.sync)
+                    for sb, u in zip(s, FP.state_units(pp, run.coalesce)))
+            elif info.loco:
+                og[info.name] = maybe_reset(s, step, run.sync)
+            else:
+                og[info.name] = s
+        out[g.name] = og
+    return out
 
 
 def _leaves(chunks: dict, groups) -> dict:
@@ -114,6 +208,8 @@ def make_train_step(cfg: ArchConfig, run: RunConfig, topo: MeshTopo,
     sched = make_schedule(run.schedule, run.lr, run.total_steps,
                           run.warmup_steps)
     sync = run.sync
+    plan = build_sync_plan(run, groups, topo)
+    _validate_sync_configs(run, plan, topo)
     if shape.global_batch % topo.dp:
         raise ValueError(f"global batch {shape.global_batch} does not split "
                          f"over dp={topo.dp}")
@@ -134,7 +230,8 @@ def make_train_step(cfg: ArchConfig, run: RunConfig, topo: MeshTopo,
         losses, mvs = [], []
         for i in range(accum):
             store = FP.TrainStore(groups, leaves, ts.states, sync, topo,
-                                  step=step)
+                                  step=step, plan=plan,
+                                  coalesce=run.coalesce)
             loss, aux = model.loss_fn(store, {"tokens": mbs[i]},
                                       remat=run.remat)
             loss.backward()
@@ -160,8 +257,7 @@ def make_train_step(cfg: ArchConfig, run: RunConfig, topo: MeshTopo,
         with PROF.phase("apply"):
             ts.chunks, ts.opt = opt.update(grads, ts.opt, ts.chunks,
                                            torch.tensor(step), lr, mask)
-        ts.states = OPT.tree_map(lambda s: maybe_reset(s, step + 1, sync),
-                                 ts.states)
+        ts.states = reset_states(ts.states, step + 1, groups, run, plan)
 
         parts = [torch.stack(losses).mean()[None]]
         if moe_metrics:

@@ -10,13 +10,21 @@
       --sync loco --moe-a2a block8 --seq-len 1024 --global-batch 8 \\
       --microbatch 4 --steps 6
 
+  PYTHONPATH=src python -m repro_torch.launch.train --arch llama2-400m \\
+      --sync loco --bucket-mb 4 --policy "embed=loco8,min=1048576" \\
+      --seq-len 1024 --global-batch 8 --microbatch 4 --steps 3
+
 Runs on the CUDA card unless ``--device cpu`` is given; without a card it
 raises rather than fall back.  Under ``torchrun`` every rank joins one NCCL
 (or gloo) data-parallel group; otherwise the run is one rank in a
 world-size-1 group.  Prints the reference's ``step N loss=... gnorm=...
 lr=... tok/s=...`` lines (MoE models add the router losses ``moe_aux`` and
 ``moe_z``); ``tok/s`` leaves out the first step, which pays the warm-up
-(kernel build, allocator growth).
+(kernel build, allocator growth).  With ``--bucket-mb`` or ``--policy`` the
+gradient sync runs bucketed (``core/buckets``, ``core/policy``, packed by
+``core/wirepack`` unless ``--no-coalesce``), and the plan's wire report
+(``telemetry/wire``) is printed first.  There is no ``--overlap``: the
+bucketed schedule is the reference's non-overlapped one.
 """
 from __future__ import annotations
 
@@ -30,9 +38,13 @@ import torch
 from repro_torch.configs.base import ShapeConfig, get_arch, reduced
 from repro_torch.core.flatparam import MeshTopo
 from repro_torch.core.loco import SyncConfig
+from repro_torch.core.policy import parse_policy
 from repro_torch.data.synthetic import DataConfig, make_batch_fn
 from repro_torch.launch import mesh
-from repro_torch.launch.steps import RunConfig, make_init, make_train_step
+from repro_torch.launch.steps import (RunConfig, build_sync_plan, make_init,
+                                      make_train_step)
+from repro_torch.models.transformer import build_groups
+from repro_torch.telemetry import wire as WIRE
 
 
 def build_args(argv=None):
@@ -50,6 +62,22 @@ def build_args(argv=None):
                          "all-to-all (core/act_comm): fp = raw bf16, "
                          "block8 = stateless int8 block-absmax fwd+bwd "
                          "(default: the config's own)")
+    ap.add_argument("--bucket-mb", type=float, default=0.0,
+                    help="bucketed sync: target MiB of fp32 gradient per "
+                         "bucket (0 = monolithic path)")
+    ap.add_argument("--policy", default="",
+                    help="per-bucket wire policy, e.g. "
+                         "'embed=loco8,norm=fp,min=65536' (see "
+                         "repro_torch.core.policy.parse_policy); a policy "
+                         "alone buckets at the default 4 MiB")
+    ap.add_argument("--coalesce", action=argparse.BooleanOptionalAction,
+                    default=True,
+                    help="pack the bucketed sync's wire by exchange kind and "
+                         "launch one collective per comm group (the same "
+                         "bits; --no-coalesce syncs each bucket on its own). "
+                         "The port has no --overlap: its schedule is the "
+                         "reference's --no-overlap one, which the reference "
+                         "keeps bit-exact with the overlapped schedule")
     ap.add_argument("--beta", type=float, default=0.5)
     ap.add_argument("--reset-every", type=int, default=512)
     ap.add_argument("--optimizer", default="adam", choices=["adam", "adamw"])
@@ -74,9 +102,12 @@ def resolve_device(name: str) -> torch.device:
 def make_run(args) -> RunConfig:
     sync = SyncConfig(strategy=args.sync, beta=args.beta,
                       reset_every=args.reset_every)
+    policy = parse_policy(args.policy, sync) if args.policy else None
     return RunConfig(sync=sync, optimizer=args.optimizer, lr=args.lr,
                      warmup_steps=args.warmup, total_steps=args.steps,
-                     microbatch=args.microbatch)
+                     microbatch=args.microbatch,
+                     bucket_bytes=int(args.bucket_mb * (1 << 20)),
+                     policy=policy, coalesce=args.coalesce)
 
 
 def make_cfg(args):
@@ -110,8 +141,11 @@ def main(argv=None) -> dict:
     router: dict[str, list[float]] = {"moe_aux": [], "moe_z": []}
     with mesh.dp_group(device) as group:
         topo = MeshTopo.from_group(group, model=mesh.model_group(cfg))
-        state = make_init(cfg, run, topo, device, args.seed)
         step_fn = make_train_step(cfg, run, topo, device, shape)
+        plan = build_sync_plan(run, build_groups(cfg, topo.tp), topo)
+        if plan is not None:
+            print(WIRE.format_report(WIRE.plan_report(plan)), flush=True)
+        state = make_init(cfg, run, topo, device, args.seed)
         if cuda:
             torch.cuda.reset_peak_memory_stats(device)
         t0 = t_run = time.perf_counter()

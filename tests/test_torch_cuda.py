@@ -135,3 +135,21 @@ def test_cuda_onebit_pack_matches_plain(cuda_device):
     assert torch.equal(p, pp)
     assert torch.equal(e.view(torch.int16), pe.view(torch.int16))
     assert SP.LAUNCHES == {"onebit_pack": 1}
+
+
+@pytest.mark.parametrize("D", [3, 5, 2])
+def test_cuda_fp_mean_is_ieee_division(cuda_device, D):
+    """The fp wire's mean over D peers, on the card: the f64 quotient
+    rounded to f32 (one IEEE division), also where D is no power of two
+    and torch would multiply by 1/D for a Python-scalar divisor."""
+    from repro_torch.core.comm import fp_mean
+
+    gen = torch.Generator(device=cuda_device).manual_seed(D)
+    summed = (torch.randn(1 << 16, generator=gen, device=cuda_device)
+              * 1e-2).to(torch.bfloat16)
+    got = fp_mean(summed, D)
+    assert got.dtype == torch.float32
+    want = (summed.double() / D).float()
+    assert torch.equal(got, want)
+    if D == 3:   # what the repair avoids: a multiply rounds otherwise
+        assert not torch.equal(summed.float() / D, want)
