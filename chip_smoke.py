@@ -12,16 +12,17 @@ Phases, in order; any failure exits non-zero and prints no result:
 2. kernels: each kernel against its plain PyTorch version on the card, bit
    for bit: ``fused_compress``/``dequant_mean`` at every segment length
    the llama2-400m, deepseek-v3-moe and bucketed llama2-400m LoCo backwards
-   give them (derived from the parameter declarations and the sync plans,
-   ``sync_runs``) in every variant of their
+   give them (derived from the parameter declarations, the sync plans and
+   the overlap schedules, ``sync_runs``) in every variant of their
    interface (f32 or bf16 gradient, error out of place or in place, f32 or
-   bf16 shard, D = 1, 2, 4, 8), ``act_encode``/``act_decode`` at the
+   bf16 shard, D = 1, 2, 4, 8), ``fused_compress`` in place into the run
+   error views of path d's stage pieces, ``act_encode``/``act_decode`` at the
    deepseek-v3-moe exchange (81,920 rows of 512), ``onebit_pack`` at the
    onebit path's shapes; then each kernel's device time (torch.profiler)
    and host time per call beside its HBM bound, the plain version's device
    time and, for ``act_decode``, the one PyTorch call that computes the same
    function;
-3. train, four paths through ``repro_torch.launch.train`` on a
+3. train, five paths through ``repro_torch.launch.train`` on a
    world-size-1 NCCL group, each with the launch counters zeroed just
    before it and read just after:
    a. full-width llama2-400m, ``--sync loco``, 6 steps;
@@ -30,14 +31,24 @@ Phases, in order; any failure exits non-zero and prints no result:
    c. full-width llama2-400m, ``--sync onebit``, 3 steps;
    d. full-width llama2-400m, ``--sync loco --bucket-mb 4 --policy
       "embed=loco8,min=1048576"``, 3 steps: the bucketed, coalesced sync
-      with loco8, loco4 and fp buckets (its wire report is printed first);
-   losses finite (and falling on a and b), and every kernel of the path
+      with loco8, loco4 and fp buckets on the default backward-overlapped
+      stage schedule (its wire report is printed first);
+   d'. the same with ``--no-overlap``; d and d' run twice each, in the
+      order d d' d' d, and all four give the same losses bit for bit;
+   losses finite (and falling on a, b and d), every kernel of the path
    launched as often as the code says (counts derived from the parameter
-   declarations, the sync plan's encode runs and the layer structure,
-   below), split by bit width;
-4. profile: one more full-width step of paths a and b under
+   declarations, the sync plan's encode runs or stage pieces and the
+   layer structure, below), split by bit width, and the bucketed sync's
+   packed collectives as many as its schedule has groups;
+3b. checkpoint: path d's command at full width, cut to CKPT_LAYERS layers:
+   4 steps; the same 4 steps saving every 2 (``--ckpt-dir``,
+   ``--ckpt-every 2``; the same losses); the step-4 file cut short; a new
+   process resumes from step 2 and its steps 2-3 give the uninterrupted
+   run's losses bit for bit (npz size, save and restore times printed);
+4. profile: one more full-width step of paths a, b and d under
    torch.profiler: device busy time (kernels, memcpys, memsets) by kernel
-   class, the idle share and the ``loco/*`` ranges (informational);
+   class, the idle share and the ``loco/*`` ranges, per overlap stage on
+   path d (``loco/encode/g1`` ...) (informational);
 5. reference: reduced llama2-400m (loco, onebit, and loco bucketed with
    ``--bucket-mb 0.1 --policy "embed=loco8,min=16384"``) and reduced
    deepseek-v3-moe (loco, block8) train 3 steps on the card and on the CPU
@@ -53,6 +64,7 @@ The last lines are the card, one ``{"kernels": [...]}`` JSON object and the
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import statistics
@@ -79,6 +91,9 @@ ONEBIT_ARGS = _train_args("llama2-400m", "onebit", 3)
 # is loco4 in fused runs.
 BUCKET_ARGS = _train_args("llama2-400m", "loco", 3, "--bucket-mb", "4",
                           "--policy", "embed=loco8,min=1048576")
+# The same run on the flat schedule (the overlapped one is the default):
+# its losses must be path d's bit for bit.
+FLAT_ARGS = BUCKET_ARGS + ["--no-overlap"]
 # Each MoE layer exchanges its slot buffer twice (dispatch, combine); each
 # exchange runs once in the forward, once in the checkpoint's recomputation
 # and once in the backward (the cotangent rides the same wire), and calls
@@ -86,21 +101,12 @@ BUCKET_ARGS = _train_args("llama2-400m", "loco", 3, "--bucket-mb", "4",
 EXCHANGES_PER_MOE_LAYER = 2 * 3
 
 
-def sync_runs(argv) -> dict[tuple[int, int], int]:
-    """(segment length, bits) -> how many stateful encode runs one backward
-    of the training run ``argv`` hands the gradient codec (fused_compress
-    and dequant_mean, or onebit_pack), from the parameter declarations and
-    the run's sync plan (the monolithic plan, one run per LoCo tensor,
-    without --bucket-mb/--policy).  At dp = 1 a run is its whole chunk
-    slice: llama2-400m gives 1,048,576 (x96), 2,883,584 (x72) and
-    32,768,000 (x2); deepseek-v3-moe adds 33,554,432 (the 64 x 1024 x 512
-    experts), 262,144 (GQA wk, wv) and 65,536 (the router); the bucketed
-    path d gives 32,505,856 at 8 bits (the embedding), 32,505,856 at 4
-    (the head), 2,097,152 (x72, the MLP tensors' two full buckets) and
-    1,048,576 (x96)."""
+def _plan(argv):
+    """(RunConfig, sync plan at dp = 1) of the training run ``argv``: the
+    monolithic plan (one run per LoCo tensor) without --bucket-mb/--policy."""
     import types
 
-    from repro_torch.core import buckets, wirepack
+    from repro_torch.core import buckets
     from repro_torch.launch import steps, train
     from repro_torch.models.transformer import build_groups
 
@@ -108,15 +114,58 @@ def sync_runs(argv) -> dict[tuple[int, int], int]:
     run = train.make_run(args)
     groups = build_groups(train.make_cfg(args), 1)
     topo = types.SimpleNamespace(tp=1, dp=1)
-    plan = (steps.build_sync_plan(run, groups, topo)
-            or buckets.monolithic_sync_plan(groups, topo, run.sync))
+    return run, (steps.build_sync_plan(run, groups, topo)
+                 or buckets.monolithic_sync_plan(groups, topo, run.sync))
+
+
+def sync_units(run, pp) -> list:
+    """The encode units of one parameter's sync under ``run``: the stage
+    pieces of its overlap schedule when the bucketed sync runs overlapped
+    (the default), else its encode runs."""
+    from repro_torch.core import wirepack
+
+    if run.wants_buckets() and run.coalesce and run.overlap:
+        sched = wirepack.build_overlap_schedule(pp, 1)
+        return [p for st in sched.stages for p in st.pieces]
+    return list(wirepack.encode_runs(pp))
+
+
+def sync_runs(argv) -> dict[tuple[int, int], int]:
+    """(segment length, bits) -> how many stateful encodes one backward of
+    the training run ``argv`` hands the gradient codec (fused_compress and
+    dequant_mean, or onebit_pack), from the parameter declarations, the
+    run's sync plan and, on the overlapped bucketed schedule, the plan's
+    overlap schedule (``sync_units``).  At dp = 1 a monolithic run is its
+    whole chunk slice: llama2-400m gives 1,048,576 (x96), 2,883,584 (x72)
+    and 32,768,000 (x2); deepseek-v3-moe adds 33,554,432 (the 64 x 1024 x
+    512 experts), 262,144 (GQA wk, wv) and 65,536 (the router).  The
+    bucketed path d gives 2,097,152 (x72, the MLP tensors' two full
+    buckets) and 1,048,576 (x96), and its embedding (8 bits) and head (4
+    bits) runs of 32,505,856: one encode each on the flat schedule (d'),
+    two on the overlapped one (d), cut at bucket 16 into 16,777,216 +
+    15,728,640."""
+    run, plan = _plan(argv)
     out: dict[tuple[int, int], int] = {}
     for pp in plan.params:
-        for r in wirepack.encode_runs(pp):
-            if r.sync.needs_state():
-                key = (r.chunk_total, r.sync.quant.bits)
+        for u in sync_units(run, pp):
+            if u.sync.needs_state():
+                key = (u.chunk_total, u.sync.quant.bits)
                 out[key] = out.get(key, 0) + pp.layers
     return dict(sorted(out.items()))
+
+
+def sync_collectives(argv) -> int:
+    """Packed collectives one backward of the training run ``argv`` issues
+    through the bucketed sync (``telemetry/wire.plan_launches``: the
+    overlap schedule's per-stage groups on path d, 246; the flat groups on
+    d', 244; none on the monolithic paths)."""
+    from repro_torch.telemetry import wire
+
+    run, plan = _plan(argv)
+    if not run.wants_buckets():
+        return 0
+    return wire.plan_launches(plan)["overlapped" if run.overlap
+                                    else "coalesced"]
 
 
 def loco_sizes(argv) -> dict[int, int]:
@@ -130,9 +179,10 @@ def loco_sizes(argv) -> dict[int, int]:
 
 def loco_path_sizes() -> list[int]:
     """Every segment length the LoCo paths (llama, deepseek, bucketed
-    llama) launch fused_compress and dequant_mean at."""
+    llama overlapped and flat; the checkpoint phase runs path d) launch
+    fused_compress and dequant_mean at."""
     return sorted(set(loco_sizes(TRAIN_ARGS)) | set(loco_sizes(MOE_ARGS))
-                  | set(loco_sizes(BUCKET_ARGS)))
+                  | set(loco_sizes(BUCKET_ARGS)) | set(loco_sizes(FLAT_ARGS)))
 
 # Device-memory rate by card (NVIDIA data sheets); peak FLOP/s are not
 # needed: every kernel does a few flops per byte.
@@ -324,6 +374,49 @@ def check_kernels(LQ, dev) -> dict:
               f"of place and in place; dequant_mean D="
               f"{','.join(map(str, peers))} into f32 and bf16)", flush=True)
     return worst
+
+
+def check_piece_views(LQ, dev, worst: dict) -> None:
+    """fused_compress on each stage piece that path d's overlap schedule
+    cuts from a stateful run past its start (the embedding's and the
+    head's second pieces), as the overlapped sync calls it at D = 1: the
+    gradient and the error are views into the run's buffers at the
+    piece's ``col_off``, the error written in place.  Payload, scales and
+    the run's error buffer must equal the whole-run call's slices; the
+    columns before the piece stay as they were."""
+    import torch
+
+    run, plan = _plan(BUCKET_ARGS)
+    gen = torch.Generator(device=dev).manual_seed(4)
+    for pp in plan.params:
+        for p in sync_units(run, pp):
+            if p.whole or not p.sync.needs_state():
+                continue
+            total, a = p.run_total, p.col_off
+            bits = p.sync.quant.bits
+            kw = dict(bits=bits, beta=p.sync.beta,
+                      escale=p.sync.quant.error_scale, err="f8")
+            g = _grad(total, gen, dev).to(torch.bfloat16)
+            e = _err(total, "f8", gen, dev)
+            whole = LQ.fused_compress(g, e, **kw)
+            buf = e.clone()
+            view = buf[a:a + p.chunk_total]
+            got = LQ.fused_compress(g[a:a + p.chunk_total], view, e_out=view,
+                                    **kw)
+            torch.cuda.synchronize()
+            pb = a // 2 if bits == 4 else a
+            what = (f"{pp.qualname} run {p.run_index} piece at col_off {a} "
+                    f"of {total}")
+            _check("fused_compress", f"{what}: payload", got[0],
+                   whole[0][pb:pb + got[0].numel()], worst)
+            _check("fused_compress", f"{what}: scales", got[1],
+                   whole[1][a // 256:a // 256 + got[1].numel()], worst)
+            want = e.clone()
+            want[a:a + p.chunk_total] = whole[2][a:a + p.chunk_total]
+            _check("fused_compress", f"{what}: e_new in place", buf, want,
+                   worst)
+            print(f"kernels: {what} ({bits}-bit): in place into the run's "
+                  "error view, bit-exact with the whole run", flush=True)
 
 
 def compress_bytes(n: int, g_bytes: int = 2) -> float:
@@ -656,6 +749,7 @@ def main(argv=None) -> int:
 
     rate = hbm_rate(torch.cuda.get_device_name(0))
     worst = check_kernels(LQ, dev)
+    check_piece_views(LQ, dev, worst)
     timing = time_kernels(LQ, dev, rate)
     for name in timing:
         timing[name].update(max_abs_err=worst[name], library_ms=None)
@@ -669,7 +763,14 @@ def main(argv=None) -> int:
     launches = train_phase(LQ)
     print(f"train: phase took {time.perf_counter() - t0:.1f} s", flush=True)
     t0 = time.perf_counter()
-    for args in (TRAIN_ARGS, MOE_ARGS):
+    _add(launches, checkpoint_phase(LQ, src))
+    print(f"checkpoint: phase took {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    missing = [name for name, _, _ in KERNEL_ROWS if not launches.get(name)]
+    if missing:
+        raise AssertionError(f"train: kernels never launched: {missing}")
+    t0 = time.perf_counter()
+    for args in (TRAIN_ARGS, MOE_ARGS, BUCKET_ARGS):
         profile_phase(args)
     print(f"profile: phase took {time.perf_counter() - t0:.1f} s", flush=True)
     t0 = time.perf_counter()
@@ -701,51 +802,83 @@ def main(argv=None) -> int:
 # phase 3: the main paths, through the training CLI
 # ---------------------------------------------------------------------------
 
-def launches_by_bits(argv) -> dict[int, int]:
-    """fused_compress (and dequant_mean) launches of a LoCo training run by
-    bit width: its stateful encode runs per backward times the backwards."""
+def _backwards(argv, steps: int | None = None) -> int:
+    """Microbatch backwards of ``steps`` steps (default: all) of ``argv``."""
     from repro_torch.launch import train
 
     args = train.build_args(argv)
-    backwards = args.steps * (args.global_batch // args.microbatch)
+    steps = args.steps if steps is None else steps
+    return steps * (args.global_batch // args.microbatch)
+
+
+def launches_by_bits(argv, steps: int | None = None) -> dict[int, int]:
+    """fused_compress (and dequant_mean) launches of a LoCo training run by
+    bit width: its stateful encodes per backward times the backwards."""
     out: dict[int, int] = {}
     for (_, bits), count in sync_runs(argv).items():
-        out[bits] = out.get(bits, 0) + count * backwards
+        out[bits] = out.get(bits, 0) + count * _backwards(argv, steps)
     return out
 
 
-def expected_launches(argv) -> dict:
-    """Launches each kernel of a training run must make, from the code: per
-    microbatch backward one fused_compress and one dequant_mean per stateful
-    encode run of the sync plan (one per LoCo tensor on the monolithic
-    path; one onebit_pack with --sync onebit), and per MoE layer and
-    microbatch EXCHANGES_PER_MOE_LAYER act_encode and act_decode."""
+def expected_launches(argv, steps: int | None = None) -> dict:
+    """Launches each kernel of a training run (of ``steps`` steps, default
+    all) must make, from the code: per microbatch backward one
+    fused_compress and one dequant_mean per stateful encode of the sync
+    (one per LoCo tensor on the monolithic path, one per encode run or, on
+    the overlapped bucketed schedule, per stage piece; one onebit_pack
+    with --sync onebit), and per MoE layer and microbatch
+    EXCHANGES_PER_MOE_LAYER act_encode and act_decode."""
     from repro_torch.launch import train
 
     args = train.build_args(argv)
     cfg = train.make_cfg(args)
-    runs = args.steps * (args.global_batch // args.microbatch)
-    loco = sum(launches_by_bits(argv).values())
+    loco = sum(launches_by_bits(argv, steps).values())
     want = ({"onebit_pack": loco} if args.sync == "onebit" else
             {"fused_compress": loco, "dequant_mean": loco})
     if cfg.family == "moe" and cfg.moe_a2a_codec == "block8":
-        acts = EXCHANGES_PER_MOE_LAYER * cfg.n_layers * runs
+        acts = EXCHANGES_PER_MOE_LAYER * cfg.n_layers * _backwards(argv,
+                                                                   steps)
         want.update(act_encode=acts, act_decode=acts)
     return want
 
 
-def train_path(LQ, argv, falls: bool) -> dict:
+@contextlib.contextmanager
+def count_sync_collectives():
+    """Count the packed collectives the bucketed sync issues (each stage
+    of each sync issues its reduce-scatter, all-to-all and all-gather
+    through ``core/comm``'s one issuing method, which is wrapped here)."""
+    from repro_torch.core import comm
+
+    issued = [0]
+    issue = comm._SyncPass.issue
+
+    def counting(self, gplan, wires, fp_segs):
+        inflight = issue(self, gplan, wires, fp_segs)
+        issued[0] += len(inflight.works)
+        return inflight
+
+    comm._SyncPass.issue = counting
+    try:
+        yield issued
+    finally:
+        comm._SyncPass.issue = issue
+
+
+def train_path(LQ, argv, falls: bool) -> tuple[dict, dict]:
     """Train once through the CLI with the launch counters zeroed just
-    before and read just after; returns that run's launch counts."""
+    before and read just after; returns that run's launch counts and its
+    result.  Also asserts the bucketed sync's collectives per backward."""
     import torch
     from repro_torch.launch import train
 
     print(f"train: python -m repro_torch.launch.train {' '.join(argv)}",
           flush=True)
     want = expected_launches(argv)
+    want_coll = sync_collectives(argv) * _backwards(argv)
     t0 = time.perf_counter()
     LQ.reset_launches()
-    res = train.main(argv)
+    with count_sync_collectives() as issued:
+        res = train.main(argv)
     launches = dict(LQ.LAUNCHES)
     secs = time.perf_counter() - t0
     losses = res["losses"]
@@ -757,31 +890,185 @@ def train_path(LQ, argv, falls: bool) -> dict:
     if launches != want:
         raise AssertionError(f"train: launches {launches}, want {want} "
                              f"(derived from the code; see expected_launches)")
+    if issued[0] != want_coll:
+        raise AssertionError(f"train: the bucketed sync issued {issued[0]} "
+                             f"collectives, want {want_coll} (sync_"
+                             "collectives x backwards)")
     router = (f"; moe_aux {res['moe_aux']}; moe_z {res['moe_z']}"
               if res["moe_aux"] else "")
     bits = ""
     if "fused_compress" in want:
         bits = " by bit width " + ", ".join(
             f"{b}-bit {n}" for b, n in sorted(launches_by_bits(argv).items()))
+    coll = (f"; {issued[0]} sync collectives ({want_coll // _backwards(argv)}"
+            " per backward, as derived)" if want_coll else "")
     print(f"train: losses {losses}{router}; {res['tok_per_s']:.1f} tok/s "
           f"after the first step; peak device memory "
           f"{res['peak_mem_bytes'] / 2**30:.2f} GiB; launches {launches} "
-          f"(as derived{bits}); {secs:.1f} s", flush=True)
+          f"(as derived{bits}){coll}; {secs:.1f} s", flush=True)
     torch.cuda.empty_cache()
-    return launches
+    return launches, res
+
+
+def _add(total: dict, launches: dict) -> None:
+    for k, v in launches.items():
+        total[k] = total.get(k, 0) + v
 
 
 def train_phase(LQ) -> dict:
-    """The four main paths; returns every kernel's launches summed over
-    them."""
+    """The main paths a-c, then d and d' (path d on the flat schedule) in
+    turns, d d' d' d, so that their throughputs compare within one call;
+    every d and d' run must give the same losses bit for bit.  Returns
+    every kernel's launches summed over the runs."""
     total: dict[str, int] = {}
-    for argv, falls in ((TRAIN_ARGS, True), (MOE_ARGS, True),
-                        (ONEBIT_ARGS, False), (BUCKET_ARGS, True)):
-        for k, v in train_path(LQ, argv, falls).items():
-            total[k] = total.get(k, 0) + v
-    missing = [name for name, _, _ in KERNEL_ROWS if not total.get(name)]
-    if missing:
-        raise AssertionError(f"train: kernels never launched: {missing}")
+    runs: dict[str, list] = {"d": [], "d'": []}
+    for name, argv, falls in (("a", TRAIN_ARGS, True), ("b", MOE_ARGS, True),
+                              ("c", ONEBIT_ARGS, False),
+                              ("d", BUCKET_ARGS, True),
+                              ("d'", FLAT_ARGS, True),
+                              ("d'", FLAT_ARGS, True),
+                              ("d", BUCKET_ARGS, True)):
+        launches, res = train_path(LQ, argv, falls)
+        _add(total, launches)
+        if name in runs:
+            runs[name].append(res)
+    over = [r["tok_per_s"] for r in runs["d"]]
+    flat = [r["tok_per_s"] for r in runs["d'"]]
+    print(f"train: path d overlapped {over} tok/s, d' flat {flat} tok/s "
+          f"(runs in the order d d' d' d); mean ratio d/d' "
+          f"{statistics.mean(over) / statistics.mean(flat):.3f}", flush=True)
+    losses = [r["losses"] for v in runs.values() for r in v]
+    if any(x != losses[0] for x in losses):
+        raise AssertionError(f"train: the overlapped and the flat schedule's "
+                             f"losses differ: {losses}")
+    return total
+
+
+# ---------------------------------------------------------------------------
+# phase 3b: checkpoint and resume in a new process
+# ---------------------------------------------------------------------------
+
+# llama2-400m at full width on path d's policy, cut to CKPT_LAYERS layers
+# (dataclasses.replace on the config, here only): the full depth's npz
+# (f32 chunks, two Adam moments, f8 errors) is about 5 GB per save.
+CKPT_LAYERS = 4
+CKPT_ARGS = _train_args("llama2-400m", "loco", 4, "--bucket-mb", "4",
+                        "--policy", "embed=loco8,min=1048576")
+
+
+@contextlib.contextmanager
+def cut_depth(layers: int):
+    """Train (and derive counts for) ``layers`` layers of the CLI's model."""
+    import dataclasses
+
+    from repro_torch.launch import train
+
+    make_cfg = train.make_cfg
+    train.make_cfg = lambda args: dataclasses.replace(make_cfg(args),
+                                                      n_layers=layers)
+    try:
+        yield
+    finally:
+        train.make_cfg = make_cfg
+
+
+@contextlib.contextmanager
+def timed_calls(module, name: str):
+    """Record the wall time of each call of ``module.name``."""
+    fn, times = getattr(module, name), []
+
+    def timed(*args, **kw):
+        t = time.perf_counter()
+        try:
+            return fn(*args, **kw)
+        finally:
+            times.append(time.perf_counter() - t)
+
+    setattr(module, name, timed)
+    try:
+        yield times
+    finally:
+        setattr(module, name, fn)
+
+
+def resume_run(argv) -> None:
+    """A new process's side of the checkpoint phase: train ``argv`` (which
+    restores from its --ckpt-dir) at CKPT_LAYERS layers; print one JSON
+    line with the losses, the restored step, the launches, the sync's
+    collectives and the restore time."""
+    from repro_torch.checkpoint import checkpoint as CKPT
+    from repro_torch.kernels import loco_quant as LQ
+    from repro_torch.launch import train
+
+    with cut_depth(CKPT_LAYERS), timed_calls(CKPT, "resume") as restore_s, \
+            count_sync_collectives() as issued:
+        LQ.reset_launches()
+        res = train.main(argv)
+    print(json.dumps({"losses": res["losses"], "start": res["start"],
+                      "launches": dict(LQ.LAUNCHES), "collectives": issued[0],
+                      "restore_s": restore_s}))
+
+
+def checkpoint_phase(LQ, src: Path) -> dict:
+    """4 steps uninterrupted; the same 4 steps saving every 2 (the losses
+    must not move); the step-4 file then cut short, as a save killed by
+    preemption leaves it; a new process with the same --ckpt-dir falls
+    back to step 2, restores it and trains steps 2-3, whose losses must be
+    the uninterrupted run's bit for bit.  Returns the launches of all
+    three runs (each asserted as derived)."""
+    import tempfile
+
+    from repro_torch.checkpoint import checkpoint as CKPT
+
+    total: dict[str, int] = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as tmp, \
+            cut_depth(CKPT_LAYERS):
+        argv = CKPT_ARGS + ["--ckpt-dir", tmp]
+        print(f"checkpoint: {CKPT_LAYERS} of llama2-400m's 24 layers at "
+              "full width", flush=True)
+        launches, full = train_path(LQ, CKPT_ARGS, True)
+        _add(total, launches)
+        with timed_calls(CKPT, "save_train_state") as save_s:
+            launches, saved = train_path(LQ, argv + ["--ckpt-every", "2"],
+                                         True)
+        _add(total, launches)
+        if saved["losses"] != full["losses"]:
+            raise AssertionError("checkpoint: saving moved the losses: "
+                                 f"{saved['losses']} vs {full['losses']}")
+        files = sorted(Path(tmp).glob("ckpt_*.npz"))
+        sizes = [f.stat().st_size for f in files]
+        if [f.name for f in files] != ["ckpt_00000002.npz",
+                                       "ckpt_00000004.npz"]:
+            raise AssertionError(f"checkpoint: files {files}")
+        with open(files[-1], "r+b") as f:
+            f.truncate(sizes[-1] // 2)
+        code = ("import sys; sys.path[:0] = [sys.argv[1], sys.argv[2]]; "
+                "import chip_smoke; chip_smoke.resume_run(sys.argv[3:])")
+        t = time.perf_counter()
+        out = subprocess.run([sys.executable, "-c", code, str(ROOT), str(src),
+                              *argv], capture_output=True, text=True,
+                             timeout=600)
+        child_s = time.perf_counter() - t
+        if out.returncode:
+            raise AssertionError(f"checkpoint: the resumed process failed "
+                                 f"(rc {out.returncode}):\n{out.stderr[-4000:]}")
+        got = json.loads(out.stdout.strip().splitlines()[-1])
+        want = expected_launches(argv, steps=2)
+        want_coll = sync_collectives(argv) * _backwards(argv, 2)
+    print(f"checkpoint: npz {sizes[0]:,} bytes per save; saves "
+          f"{', '.join(f'{x:.2f}' for x in save_s)} s; restore "
+          f"{got['restore_s'][0]:.2f} s in a new process ({child_s:.1f} s "
+          f"for the process); restored step {got['start']}; losses "
+          f"{got['losses']} vs uninterrupted {full['losses'][2:]}",
+          flush=True)
+    if got["start"] != 2 or got["losses"] != full["losses"][2:]:
+        raise AssertionError("checkpoint: the resumed run's losses differ "
+                             "from the uninterrupted run's steps 2-3")
+    if got["launches"] != want or got["collectives"] != want_coll:
+        raise AssertionError(f"checkpoint: the resumed run launched "
+                             f"{got['launches']} and {got['collectives']} "
+                             f"collectives, want {want} and {want_coll}")
+    _add(total, got["launches"])
     return total
 
 
@@ -822,7 +1109,7 @@ def profile_phase(argv) -> None:
     shape = ShapeConfig("smoke", args.seq_len, args.global_batch, "train")
     batch_fn = make_batch_fn(DataConfig(cfg.vocab, args.seq_len,
                                         args.global_batch, args.seed))
-    tag = f"profile[{cfg.name}]"
+    tag = f"profile[{cfg.name}{' bucketed' if run.wants_buckets() else ''}]"
     with mesh.dp_group(dev) as group:
         topo = MeshTopo.from_group(group, model=mesh.model_group(cfg))
         ts = steps.make_init(cfg, run, topo, dev, args.seed)

@@ -10,9 +10,14 @@ inverse in chunk order.
 ``dist_sync`` is the distributed form of the strategies in
 :mod:`repro_torch.core.loco`: quantize locally, exchange the low-bit payload
 with one packed u8 all-to-all over the group, decompress and average
-**locally in f32** (paper section 3.3).
+**locally in f32** (paper section 3.3).  ``dist_sync_buckets`` and
+``dist_sync_runs`` do so per bucketed plan, coalesced into one packed
+collective per comm group, flat or pipelined over the plan's overlap
+stages with asynchronous collectives.
 """
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 import torch.distributed as dist
@@ -36,35 +41,41 @@ def axis_size(group) -> int:
     return dist.get_world_size(group)
 
 
-def all_gather_flat(x: torch.Tensor, group) -> torch.Tensor:
-    """Gather 1-D chunks from every rank, in rank order."""
+def all_gather_flat(x: torch.Tensor, group, async_op: bool = False):
+    """Gather 1-D chunks from every rank, in rank order.  With
+    ``async_op``: ``(out, work)``, ``out`` valid after ``work.wait()``."""
     D = axis_size(group)
+    x = x.contiguous()
     out = torch.empty(D * x.shape[0], dtype=x.dtype, device=x.device)
-    _ALL_GATHER(out, x.contiguous(), group=group)
-    return out
+    work = _ALL_GATHER(out, x, group=group, async_op=async_op)
+    return (out, work) if async_op else out
 
 
-def psum_scatter_flat(x: torch.Tensor, group) -> torch.Tensor:
-    """Inverse of :func:`all_gather_flat` composed with a sum over peers."""
+def psum_scatter_flat(x: torch.Tensor, group, async_op: bool = False):
+    """Inverse of :func:`all_gather_flat` composed with a sum over peers
+    (``async_op`` as there)."""
     D = axis_size(group)
+    x = x.contiguous()
     out = torch.empty(x.shape[0] // D, dtype=x.dtype, device=x.device)
-    _REDUCE_SCATTER(out, x.contiguous(), op=dist.ReduceOp.SUM, group=group)
-    return out
+    work = _REDUCE_SCATTER(out, x, op=dist.ReduceOp.SUM, group=group,
+                           async_op=async_op)
+    return (out, work) if async_op else out
 
 
-def all_to_all_chunks(x: torch.Tensor, group) -> torch.Tensor:
+def all_to_all_chunks(x: torch.Tensor, group, async_op: bool = False):
     """Full personalized exchange over the group.
 
     x: (N, c, ...) with N the group size; row i is the payload for peer i.
-    Returns (N, c, ...): row j is what peer j sent for *my* chunk.
+    Returns (N, c, ...): row j is what peer j sent for *my* chunk
+    (``async_op`` as in :func:`all_gather_flat`).
     """
     if x.shape[0] != axis_size(group):
         raise ValueError(f"{x.shape[0]} rows for a group of "
                          f"{axis_size(group)}")
     x = x.contiguous()
     out = torch.empty_like(x)
-    dist.all_to_all_single(out, x, group=group)
-    return out
+    work = dist.all_to_all_single(out, x, group=group, async_op=async_op)
+    return (out, work) if async_op else out
 
 
 def fp_mean(summed: torch.Tensor, D: int) -> torch.Tensor:
@@ -236,32 +247,6 @@ def _split_state(codec: codec_lib.Codec, ns: torch.Tensor, states: tuple,
     return WP.split_run_state(run, ns, D)
 
 
-def _exchange_stage(gplan: WP.WireGroupPlan,
-                    wires: dict[int, dict[str, torch.Tensor]],
-                    group) -> dict[int, dict[str, torch.Tensor]]:
-    """Run the flat stage's packed collectives: at most one u8 all-to-all
-    for the ``split`` leaves and one all-gather for the ``gather`` leaves.
-    Returns the received leaves per run (leading peer axis), bit-identical
-    to what the per-bucket :func:`exchange_wire` would deliver."""
-    recv: dict[int, dict[str, torch.Tensor]] = {}
-    ga = gplan.group("flat", "a2a")
-    if ga is not None:
-        buf = all_to_all_chunks(WP.pack_a2a(ga, wires), group)
-        for slot, leaves in WP.unpack_a2a(ga, buf).items():
-            recv.setdefault(slot, {}).update(leaves)
-    gg = gplan.group("flat", "gather")
-    if gg is not None:
-        buf = all_gather_flat(WP.pack_gather(gg, wires), group)
-        shapes: dict[int, dict[str, tuple]] = {}
-        for l in gg.leaves:
-            shapes.setdefault(l.bucket, {})[l.name] = \
-                wires[l.bucket][l.name].shape
-        for slot, leaves in WP.unpack_gather(
-                gg, buf.reshape(gg.peers, -1), shapes).items():
-            recv.setdefault(slot, {}).update(leaves)
-    return recv
-
-
 def _grad_view(g: torch.Tensor, plan: ParamPlan, group) -> torch.Tensor:
     """The local full gradient as ``(D, C)``: row i is peer i's chunk."""
     D, C = axis_size(group), plan.chunklen
@@ -279,6 +264,7 @@ def dist_sync_buckets(
     coalesce: bool = True,
     step: int | None = None,
     *,
+    overlap: bool = False,
     out_dtype: torch.dtype = torch.float32,
     inplace: bool = False,
 ) -> tuple[torch.Tensor, tuple[torch.Tensor, ...]]:
@@ -295,17 +281,25 @@ def dist_sync_buckets(
     With ``coalesce`` (the default) the plan's buckets encode as fused runs
     and cross the network in one packed collective per comm group
     (:func:`repro_torch.core.wirepack.build_group_plan`); ``coalesce=False``
-    runs :func:`dist_sync` once per bucket, the parity oracle.  Both give
-    the same bits.  ``inplace`` and ``step`` as in :func:`dist_sync`.
+    runs :func:`dist_sync` once per bucket, the parity oracle.  ``overlap``
+    pipelines the coalesced schedule over the stages of
+    :func:`repro_torch.core.wirepack.build_overlap_schedule` (see
+    :func:`_dist_sync_overlapped`) and requires ``coalesce``.  All give the
+    same bits.  ``inplace`` and ``step`` as in :func:`dist_sync`.
     """
     if len(states) != len(plan.buckets):
         raise ValueError(f"{plan.qualname}: {len(states)} states for "
                          f"{len(plan.buckets)} buckets")
+    if overlap and not coalesce:
+        raise ValueError(
+            "overlap pipelines the *packed* exchange; overlap=True requires "
+            "coalesce=True (the per-bucket schedule has no packed stages to "
+            "pipeline)")
     gm = _grad_view(g, plan, group)
     if coalesce:
         return _dist_sync_coalesced(gm, states, plan, group, run_space=False,
                                     step=step, out_dtype=out_dtype,
-                                    inplace=inplace)
+                                    inplace=inplace, overlap=overlap)
     shards, new_states = [], []
     for b, st in zip(plan.buckets, states):
         sh, ns = dist_sync(gm[:, b.offset:b.chunk_end].reshape(-1), st,
@@ -323,6 +317,7 @@ def dist_sync_runs(
     group,
     step: int | None = None,
     *,
+    overlap: bool = False,
     out_dtype: torch.dtype = torch.float32,
     inplace: bool = False,
 ) -> tuple[torch.Tensor, tuple[torch.Tensor, ...]]:
@@ -334,11 +329,204 @@ def dist_sync_runs(
     members', so the result is the same, and under a uniform policy the
     train state carries one buffer per parameter, as on the monolithic
     path.  With ``inplace`` an on-cadence run's new state is written into
-    its buffer by the encode kernel.
+    its buffer by the encode kernel.  ``overlap`` pipelines the schedule;
+    a stage piece's state is then its columns of the run's buffer.
     """
     return _dist_sync_coalesced(_grad_view(g, plan, group), run_states, plan,
                                 group, run_space=True, step=step,
-                                out_dtype=out_dtype, inplace=inplace)
+                                out_dtype=out_dtype, inplace=inplace,
+                                overlap=overlap)
+
+
+@dataclasses.dataclass
+class _Inflight:
+    """One stage's issued packed collectives, with every buffer they read
+    or write.  The caller holds it until the stage is decoded, so the
+    caching allocator cannot hand a buffer to other work while an
+    asynchronous collective still uses it (whatever the process group's
+    own stream bookkeeping does)."""
+
+    works: list
+    sent: list
+    red: torch.Tensor | None = None      # reduce-scatter output (bf16 sums)
+    a2a: torch.Tensor | None = None      # all-to-all receive buffer
+    gat: torch.Tensor | None = None      # all-gather receive buffer
+
+
+class _SyncPass:
+    """One coalesced sync of a ``(D, C)`` gradient view: the encode, issue,
+    complete and decode steps that the flat and the overlapped schedules
+    sequence differently.  A *unit* is an encode run or a stage piece,
+    given with the index of its run in ``encode_runs(plan)``.
+
+    ``states`` and the new states are per run when ``run_space``, else per
+    bucket (fused members are stitched through peer-major views around
+    each encode).  A unit's gradient segment is ``gm[:, off:off + c]`` in
+    the gradient's own dtype: a contiguous view at D = 1, one copy at
+    D > 1.  Tier-0 cadence (``every > 1``) is gated per unit: off cadence
+    the state folds the gradient in (``e <- e + g``) and the shard is
+    zero, and only an on-cadence unit may have its state written in
+    place."""
+
+    def __init__(self, gm, states, group, run_space, step, out_dtype,
+                 inplace):
+        self.gm, self.states, self.group = gm, states, group
+        self.run_space, self.step = run_space, step
+        self.out_dtype, self.inplace = out_dtype, inplace
+        self.D = gm.shape[0]
+        self.new_states = list(states)
+        self.shards: dict[int, torch.Tensor] = {}
+        self.off_cadence: list[int] = []
+
+    def encode(self, units) -> tuple[dict, dict]:
+        """Encode ``(run index, unit)`` pairs into fresh pack inputs:
+        ``(wires, fp_segs)``, private to the caller's stage."""
+        wires: dict[int, dict[str, torch.Tensor]] = {}
+        fp_segs: dict[int, torch.Tensor] = {}
+        for ri, u in units:
+            seg = self.gm[:, u.offset:u.offset + u.chunk_total].reshape(-1)
+            if u.sync.strategy == "fp":
+                fp_segs[u.slot] = seg.to(torch.bfloat16)
+            else:
+                wires[u.slot] = self._encode_unit(ri, u, seg)
+        return wires, fp_segs
+
+    def _encode_unit(self, ri, u, seg) -> dict[str, torch.Tensor]:
+        cfg, D, states, new_states = u.sync, self.D, self.states, \
+            self.new_states
+        if cfg.strategy == "ef21":
+            raise NotImplementedError(
+                "ef21 has no distributed form (receiver-side state); "
+                "use strategy='ef' or 'loco'")
+        codec = codec_lib.get_codec(cfg)
+        on = True
+        if self.step is not None and cfg.every > 1:
+            loco_lib.validate_cadence(cfg)
+            on = _cadence_on(self.step, cfg.every)
+            if not on:
+                self.off_cadence.append(u.slot)
+
+        def select(ns, st):
+            """Off-cadence: the state accumulates this step's gradient
+            instead of keeping the exchanged update."""
+            if on:
+                return ns
+            acc = codec.state_encode(seg.float() + codec.state_decode(st))
+            return acc.to(ns.dtype)
+
+        inplace = self.inplace and on
+        if (self.run_space and isinstance(u, WP.StagePiece) and not u.whole
+                and codec.needs_state()):
+            # a piece's state: columns [col_off, col_off + c) of its run's
+            # peer-major (D, run_total) buffer -- a view at D = 1 (the
+            # kernel then writes the run's buffer in place), a copy at
+            # D > 1 (never a strided view: the kernels take contiguous
+            # memory), written back after the encode
+            if new_states[ri] is states[ri] and not inplace:
+                new_states[ri] = torch.empty_like(states[ri])
+            a, b = u.col_off, u.col_off + u.chunk_total
+
+            def cols(buf):
+                return buf.view(D, u.run_total)[:, a:b]
+
+            src = cols(states[ri])
+            private = not src.is_contiguous()
+            st = src.reshape(-1)
+            wire, ns = codec.encode(seg, st, inplace=inplace or private)
+            ns = select(ns, st)
+            dst = cols(new_states[ri])
+            if ns.data_ptr() != dst.data_ptr():
+                dst.copy_(ns.view(D, -1))
+        elif self.run_space:
+            wire, ns = codec.encode(seg, states[ri], inplace=inplace)
+            new_states[ri] = select(ns, states[ri])
+        elif u.fused:
+            fs = _fused_state(codec, states, u, D)
+            wire, ns = codec.encode(seg, fs)
+            ns = select(ns, fs)
+            for pos, s in zip(u.positions,
+                              _split_state(codec, ns, states, u, D)):
+                new_states[pos] = s
+        else:
+            pos = u.positions[0]
+            wire, ns = codec.encode(seg, states[pos], inplace=inplace)
+            new_states[pos] = select(ns, states[pos])
+        return wire
+
+    def issue(self, gplan: WP.WireGroupPlan, wires: dict,
+              fp_segs: dict) -> _Inflight:
+        """Start a stage's packed collectives, asynchronously: at most one
+        bf16 reduce-scatter (fp runs), one u8 all-to-all (``split``
+        leaves) and one all-gather (``gather`` leaves)."""
+        inf = _Inflight(works=[], sent=[])
+
+        def start(collective, x):
+            out, work = collective(x, self.group, async_op=True)
+            inf.works.append(work)
+            inf.sent.append(x)
+            return out
+
+        rg = gplan.group("flat", "reduce")
+        if rg is not None:
+            inf.red = start(psum_scatter_flat,
+                            WP.pack_reduce(rg, fp_segs).contiguous())
+        ga = gplan.group("flat", "a2a")
+        if ga is not None:
+            inf.a2a = start(all_to_all_chunks,
+                            WP.pack_a2a(ga, wires).contiguous())
+        gg = gplan.group("flat", "gather")
+        if gg is not None:
+            inf.gat = start(all_gather_flat,
+                            WP.pack_gather(gg, wires).contiguous())
+        return inf
+
+    def complete(self, gplan: WP.WireGroupPlan, inf: _Inflight,
+                 wires: dict) -> dict[int, dict[str, torch.Tensor]]:
+        """Wait for a stage's collectives (the current stream then waits
+        for them); store its fp shards and return the received leaves per
+        unit slot (leading peer axis), bit-identical to what the
+        per-bucket :func:`exchange_wire` would deliver."""
+        for w in inf.works:
+            w.wait()
+        recv: dict[int, dict[str, torch.Tensor]] = {}
+        if inf.red is not None:
+            self.shards.update(WP.unpack_reduce(
+                gplan.group("flat", "reduce"),
+                fp_mean(inf.red, self.D).to(self.out_dtype)))
+        if inf.a2a is not None:
+            for slot, leaves in WP.unpack_a2a(gplan.group("flat", "a2a"),
+                                              inf.a2a).items():
+                recv.setdefault(slot, {}).update(leaves)
+        if inf.gat is not None:
+            gg = gplan.group("flat", "gather")
+            shapes: dict[int, dict[str, tuple]] = {}
+            for l in gg.leaves:
+                shapes.setdefault(l.bucket, {})[l.name] = \
+                    wires[l.bucket][l.name].shape
+            for slot, leaves in WP.unpack_gather(
+                    gg, inf.gat.reshape(gg.peers, -1), shapes).items():
+                recv.setdefault(slot, {}).update(leaves)
+        return recv
+
+    def decode(self, units, wires: dict, recv: dict) -> None:
+        """Decode-mean every non-fp unit into its shard."""
+        for _, u in units:
+            if u.sync.strategy == "fp":
+                continue
+            codec = codec_lib.get_codec(u.sync)
+            r = dict(recv.get(u.slot, {}))
+            r.update(_none_leaves(codec, self.D * u.chunk_total,
+                                  wires[u.slot], self.D))
+            self.shards[u.slot] = codec.decode_mean(r, self.out_dtype)
+
+    def result(self, units) -> tuple[torch.Tensor, tuple[torch.Tensor, ...]]:
+        """The shard (units partition chunk space in offset order) and the
+        new states; off-cadence units contribute zeros."""
+        for slot in self.off_cadence:
+            self.shards[slot] = torch.zeros_like(self.shards[slot])
+        parts = [self.shards[u.slot] for _, u in units]
+        out = parts[0] if len(parts) == 1 else torch.cat(parts)
+        return out, tuple(self.new_states)
 
 
 def _dist_sync_coalesced(
@@ -350,97 +538,83 @@ def _dist_sync_coalesced(
     step: int | None,
     out_dtype: torch.dtype,
     inplace: bool,
+    overlap: bool = False,
 ) -> tuple[torch.Tensor, tuple[torch.Tensor, ...]]:
-    """The coalesced schedule over ``gm`` (the ``(D, C)`` gradient view).
-    ``states`` and the returned new states are per run when ``run_space``,
-    else per bucket (fused members are stitched through peer-major views
-    around each encode).
-
-    A run's segment is ``gm[:, off:off + c]`` in the gradient's own dtype:
-    a contiguous view at D = 1, one copy at D > 1.  Tier-0 cadence
-    (``every > 1``) is gated per run: an off-cadence run folds its gradient
-    into its state (``e <- e + g``) and contributes a zero shard, and only
-    an on-cadence run may have its state written in place."""
+    """The coalesced schedule over ``gm`` (the ``(D, C)`` gradient view):
+    encode every run, one packed collective per comm group, decode every
+    run (:class:`_SyncPass`).  With ``overlap`` a plan whose schedule
+    pipelines runs :func:`_dist_sync_overlapped` instead; a single-stage
+    schedule is this flat one.  The pipelined schedule cannot carry
+    cadence buckets (a stage piece cannot gate its whole run's
+    accumulator): refused here and, with the bucket named, when the step
+    is built (``launch.steps._validate_sync_configs``)."""
     D = gm.shape[0]
     runs = WP.encode_runs(plan)
-    gplan = WP.build_group_plan(plan, D)
     want = len(runs) if run_space else len(plan.buckets)
     if len(states) != want:
         raise ValueError(f"{plan.qualname}: {len(states)} states, want "
                          f"{want} ({'runs' if run_space else 'buckets'})")
-
-    wires: dict[int, dict[str, torch.Tensor]] = {}
-    fp_segs: dict[int, torch.Tensor] = {}
-    off_cadence: list[int] = []
-    new_states = list(states)
+    sp = _SyncPass(gm, states, group, run_space, step, out_dtype, inplace)
+    if overlap:
+        sched = WP.build_overlap_schedule(plan, D)
+        if sched.pipelined:
+            cadenced = [b for b in plan.buckets if b.sync.every > 1]
+            if step is not None and cadenced:
+                raise ValueError(
+                    f"bucket {cadenced[0].index}: sync cadence every="
+                    f"{cadenced[0].sync.every} cannot ride the pipelined "
+                    "overlap schedule; run cadence plans with overlap "
+                    "disabled")
+            return _dist_sync_overlapped(sp, sched)
+    gplan = WP.build_group_plan(plan, D)
+    units = list(enumerate(runs))
     with PROF.phase("encode"):
-        for ri, run in enumerate(runs):
-            cfg = run.sync
-            seg = gm[:, run.offset:run.offset + run.chunk_total].reshape(-1)
-            if cfg.strategy == "fp":
-                fp_segs[run.slot] = seg.to(torch.bfloat16)
-                continue
-            if cfg.strategy == "ef21":
-                raise NotImplementedError(
-                    "ef21 has no distributed form (receiver-side state); "
-                    "use strategy='ef' or 'loco'")
-            codec = codec_lib.get_codec(cfg)
-            on = True
-            if step is not None and cfg.every > 1:
-                loco_lib.validate_cadence(cfg)
-                on = _cadence_on(step, cfg.every)
-                if not on:
-                    off_cadence.append(run.slot)
-
-            def select(ns, st):
-                """Off-cadence: the state accumulates this step's gradient
-                instead of keeping the exchanged update."""
-                if on:
-                    return ns
-                acc = codec.state_encode(seg.float() + codec.state_decode(st))
-                return acc.to(ns.dtype)
-
-            if run_space:
-                wire, ns = codec.encode(seg, states[ri],
-                                        inplace=inplace and on)
-                new_states[ri] = select(ns, states[ri])
-            elif run.fused:
-                fs = _fused_state(codec, states, run, D)
-                wire, ns = codec.encode(seg, fs)
-                ns = select(ns, fs)
-                for pos, s in zip(run.positions,
-                                  _split_state(codec, ns, states, run, D)):
-                    new_states[pos] = s
-            else:
-                pos = run.positions[0]
-                wire, ns = codec.encode(seg, states[pos],
-                                        inplace=inplace and on)
-                new_states[pos] = select(ns, states[pos])
-            wires[run.slot] = wire
-
-    # --- one packed collective per comm group ------------------------------
-    shards: dict[int, torch.Tensor] = {}
+        wires, fp_segs = sp.encode(units)
     with PROF.phase("exchange"):
-        rg = gplan.group("flat", "reduce")
-        if rg is not None:
-            summed = psum_scatter_flat(WP.pack_reduce(rg, fp_segs), group)
-            shards.update(WP.unpack_reduce(
-                rg, fp_mean(summed, D).to(out_dtype)))
-        recv = _exchange_stage(gplan, wires, group)
-
+        recv = sp.complete(gplan, sp.issue(gplan, wires, fp_segs), wires)
     with PROF.phase("decode"):
-        for run in runs:
-            if run.sync.strategy == "fp":
-                continue
-            codec = codec_lib.get_codec(run.sync)
-            r = dict(recv.get(run.slot, {}))
-            r.update(_none_leaves(codec, D * run.chunk_total,
-                                  wires[run.slot], D))
-            shards[run.slot] = codec.decode_mean(r, out_dtype)
-    for slot in off_cadence:
-        shards[slot] = torch.zeros_like(shards[slot])
+        sp.decode(units, wires, recv)
+    return sp.result(units)
 
-    # runs are in chunk-space offset order, each shard spans its whole run
-    parts = [shards[run.slot] for run in runs]
-    out = parts[0] if len(parts) == 1 else torch.cat(parts)
-    return out, tuple(new_states)
+
+def _dist_sync_overlapped(sp: _SyncPass, sched: WP.OverlapSchedule):
+    """Pipelined coalesced schedule over the stages of ``sched``.
+
+    Encode stage 0 and issue its packed collectives asynchronously; then
+    for each later stage k: encode it while stage k-1's collectives run,
+    wait for stage k-1 and decode it, issue stage k.  At most two stages'
+    pack buffers are alive at once.  Where the reference pins the encode
+    into the exchange's window with ``lax.optimization_barrier``, the port
+    gets the overlap from ``async_op=True`` collectives.
+
+    Bit-exact with the flat schedule by construction: each piece's encoded
+    bytes equal its slice of the flat schedule's buffers (fusible codecs
+    are elementwise per 256-block and pieces cut on 512-aligned bucket
+    edges; non-fusible runs stay atomic), collectives move bytes verbatim,
+    each ``decode_mean`` sees the same inputs, and the shards concatenate
+    in chunk-offset order."""
+    stages = sched.stages
+
+    def units(stage):
+        return [(p.run_index, p) for p in stage.pieces]
+
+    with PROF.phase("encode", group=0):
+        wires, fp_segs = sp.encode(units(stages[0]))
+    with PROF.phase("exchange", group=0):
+        inflight = sp.issue(stages[0].gplan, wires, fp_segs)
+    prev = (stages[0], wires, inflight)
+    for k in range(1, len(stages)):
+        with PROF.phase("encode", group=k):
+            wires, fp_segs = sp.encode(units(stages[k]))
+        stage, pwires, pinf = prev
+        with PROF.phase("decode", group=k - 1):
+            sp.decode(units(stage), pwires,
+                      sp.complete(stage.gplan, pinf, pwires))
+        with PROF.phase("exchange", group=k):
+            inflight = sp.issue(stages[k].gplan, wires, fp_segs)
+        prev = (stages[k], wires, inflight)
+    stage, pwires, pinf = prev
+    with PROF.phase("decode", group=len(stages) - 1):
+        sp.decode(units(stage), pwires,
+                  sp.complete(stage.gplan, pinf, pwires))
+    return sp.result([u for st in stages for u in units(st)])

@@ -270,17 +270,19 @@ def materialize(chunk: torch.Tensor, state, info: ParamInfo,
                 cfg: SyncConfig, topo: MeshTopo,
                 compute_dtype: torch.dtype = torch.bfloat16,
                 step: int | None = None, pplan: ParamPlan | None = None,
-                coalesce: bool = True) -> torch.Tensor:
+                coalesce: bool = True, overlap: bool = False) -> torch.Tensor:
     """f32 chunk -> logical bf16 tensor (FSDP gather with the LoCo backward).
 
     With a ``pplan`` the backward runs the bucketed schedule: under
     ``coalesce`` (default) ``state`` is the run-space tuple and the exchange
-    is packed per comm group; otherwise ``state`` is the per-bucket tuple
-    and every bucket syncs on its own.
+    is packed per comm group, pipelined over the plan's overlap stages
+    with ``overlap``; otherwise ``state`` is the per-bucket tuple and every
+    bucket syncs on its own (``overlap`` has nothing to pipeline there).
     """
     w = chunk.to(compute_dtype)
     if info.loco and pplan is not None and coalesce:
-        flat = gather_with_sync_runs(w, state, pplan, topo.group, step=step)
+        flat = gather_with_sync_runs(w, state, pplan, topo.group, step=step,
+                                     overlap=overlap)
     elif info.loco and pplan is not None:
         flat = gather_with_sync_buckets(w, state, pplan, topo.group,
                                         coalesce=False, step=step)
@@ -301,13 +303,15 @@ class TrainStore:
     param, see :func:`init_train_state`), which the backward updates in
     place.  ``plan``: the bucketed sync plan (None = monolithic sync per
     param); ``coalesce``: its packed exchange (run-space states) or one
-    sync per bucket (bucket-space states).
+    sync per bucket (bucket-space states); ``overlap``: the packed
+    exchange pipelined over each param's overlap stages (the same bits
+    and the same state layout).
     """
 
     def __init__(self, groups, chunks, states, cfg: SyncConfig,
                  topo: MeshTopo, compute_dtype: torch.dtype = torch.bfloat16,
                  step: int | None = None, plan: SyncPlan | None = None,
-                 coalesce: bool = True):
+                 coalesce: bool = True, overlap: bool = False):
         self.groups = {g.name: g for g in groups}
         self.chunks = chunks
         self.states = states
@@ -317,13 +321,14 @@ class TrainStore:
         self.step = step
         self.plan = plan
         self.coalesce = coalesce
+        self.overlap = overlap
 
     def _materialize(self, gname, info, chunk, state):
         pplan = (self.plan.lookup(gname, info.name)
                  if self.plan is not None and info.loco else None)
         return materialize(chunk, state, info, self.cfg, self.topo,
                            self.compute_dtype, step=self.step, pplan=pplan,
-                           coalesce=self.coalesce)
+                           coalesce=self.coalesce, overlap=self.overlap)
 
     def group(self, gname: str) -> dict[str, torch.Tensor]:
         g = self.groups[gname]

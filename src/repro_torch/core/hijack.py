@@ -105,7 +105,8 @@ def _reject_plan_stochastic_rounding(plan: ParamPlan) -> None:
 
 def gather_with_sync_buckets(w_chunk: torch.Tensor, states: tuple,
                              plan: ParamPlan, group, coalesce: bool = True,
-                             step: int | None = None) -> torch.Tensor:
+                             step: int | None = None,
+                             overlap: bool = False) -> torch.Tensor:
     """FSDP all-gather whose backward runs the bucketed sync schedule.
 
     w_chunk: (C,) local flat parameter chunk (C = plan.chunklen)
@@ -114,23 +115,29 @@ def gather_with_sync_buckets(w_chunk: torch.Tensor, states: tuple,
              when stateless), updated in place by the backward.
     coalesce: packed per-comm-group exchange (default), or one
              :func:`~repro_torch.core.comm.dist_sync` per bucket.
+    overlap: pipeline the packed exchange over the plan's overlap stages
+             (requires ``coalesce``; the same bits).
     """
     _reject_plan_stochastic_rounding(plan)
     sync = functools.partial(dist_sync_buckets, plan=plan, group=group,
-                             coalesce=coalesce)
+                             coalesce=coalesce, overlap=overlap)
     return _GatherWithSyncPlan.apply(w_chunk, tuple(states), sync, group,
                                      0 if step is None else step)
 
 
 def gather_with_sync_runs(w_chunk: torch.Tensor, run_states: tuple,
                           plan: ParamPlan, group,
-                          step: int | None = None) -> torch.Tensor:
+                          step: int | None = None,
+                          overlap: bool = False) -> torch.Tensor:
     """FSDP all-gather whose backward runs the coalesced bucketed schedule
     over run-space compressor states (one buffer per encode run, updated
     in place by the backward); the same result as
-    :func:`gather_with_sync_buckets` in another state layout."""
+    :func:`gather_with_sync_buckets` in another state layout.  ``overlap``
+    pipelines it within this one backward over the plan's overlap stages
+    (:func:`~repro_torch.core.comm.dist_sync_runs`)."""
     _reject_plan_stochastic_rounding(plan)
-    sync = functools.partial(dist_sync_runs, plan=plan, group=group)
+    sync = functools.partial(dist_sync_runs, plan=plan, group=group,
+                             overlap=overlap)
     return _GatherWithSyncPlan.apply(w_chunk, tuple(run_states), sync, group,
                                      0 if step is None else step)
 

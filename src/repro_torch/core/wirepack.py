@@ -23,11 +23,16 @@ Adjacent buckets with the same fusible config also *encode* as one segment
 (:class:`EncodeRun`): under a uniform policy a parameter has one run, one
 encode and one decode, as on the monolithic path.
 
-Not ported yet: the backward-overlap schedule (``StagePiece`` ...
-``merge_state_pieces``; ROADMAP item 8), ragged leaves and
-``mask_by_count`` (top-k) and the hierarchical ``hier1``/``hier2`` stages
-(ROADMAP item 11).  A plan that needs them is refused here with
-``NotImplementedError``.
+The backward-overlap schedule (:func:`build_overlap_schedule`) cuts a
+plan's runs at bucket edges into at most two readiness-ordered stages,
+each with its own group plan, which ``core/comm`` pipelines.  The
+reference's piece-space state carry (``StateLeaf`` ... ``merge_state_pieces``
+and the f8 -> f16 widening) works around XLA:CPU's f8 emitters and is not
+ported: a piece's state is a column slice of its run's peer-major buffer.
+
+Not ported yet: ragged leaves and ``mask_by_count`` (top-k) and the
+hierarchical ``hier1``/``hier2`` stages (ROADMAP item 11).  A plan that
+needs them is refused here with ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -240,7 +245,7 @@ def refuse_unported(where: str, cfg: SyncConfig) -> None:
 
 
 def _plan_groups(qualname: str, segs, D: int) -> WireGroupPlan:
-    """Group-layout walk over offset-ordered encode runs."""
+    """Group-layout walk over offset-ordered encode runs or stage pieces."""
     builders: dict[tuple, list[PackedLeaf]] = {}
     offs: dict[tuple, int] = {}
 
@@ -297,6 +302,160 @@ def build_group_plan(plan: ParamPlan, D: int) -> WireGroupPlan:
     cannot exchange yet (top-k, hierarchical).
     """
     return _plan_groups(plan.qualname, encode_runs(plan), D)
+
+
+# ---------------------------------------------------------------------------
+# overlap schedule: the backward-readiness table + per-stage group plans
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class StagePiece:
+    """One overlap stage's slice of an encode run.
+
+    Non-fusible runs (``tensor``/``onebit`` scales, stochastic rounding)
+    are *atomic*: their whole-segment statistics make a split lossy, so a
+    piece always covers the full run.  Fusible runs may split at bucket
+    edges: ``block``/``fixed`` quantization, the error codecs and the
+    receiver mean are elementwise per 256-block and bucket edges are
+    512-aligned, so each piece encodes and decodes bit-identically to its
+    slice of the fused run.
+
+    Duck-types :class:`EncodeRun` (``slot``/``positions``/``chunk_elems``/
+    ``sync``/``chunk_total``/``fused``), so the pack layout and the
+    bucket-space state stitch apply unchanged.  ``col_off``/``run_total``
+    locate the piece inside its run's peer-major ``(D, run_total)`` state
+    buffer: the piece's state is columns ``[col_off, col_off + chunk)``.
+    """
+
+    run_index: int                # index into encode_runs(plan)
+    slot: int                     # first member bucket index (wire key)
+    buckets: tuple[int, ...]
+    positions: tuple[int, ...]
+    offset: int                   # chunk-space start
+    chunk_elems: tuple[int, ...]
+    col_off: int                  # chunk offset inside the parent run
+    run_total: int                # parent run chunk_total
+    sync: SyncConfig
+
+    @property
+    def chunk_total(self) -> int:
+        return sum(self.chunk_elems)
+
+    @property
+    def fused(self) -> bool:
+        return len(self.buckets) > 1
+
+    @property
+    def whole(self) -> bool:
+        """The piece covers its entire parent run."""
+        return self.col_off == 0 and self.chunk_total == self.run_total
+
+
+@dataclasses.dataclass(frozen=True)
+class ScheduleStage:
+    """One pipeline stage: the pieces whose collectives fire together.
+
+    ``ready`` is the chunk-space end offset of its last piece: once the
+    gradient covers ``[0, ready)`` every input of the stage's packed
+    buffers exists.
+    """
+
+    index: int
+    ready: int
+    pieces: tuple[StagePiece, ...]
+    gplan: WireGroupPlan
+
+
+@dataclasses.dataclass(frozen=True)
+class OverlapSchedule:
+    """Readiness-ordered stage partition of one parameter's sync.
+
+    Stages partition chunk space contiguously in offset order, each with
+    its own :class:`WireGroupPlan`, so the overlapped schedule issues the
+    sum of the stages' launches where the flat schedule issues one set.
+    The bytes on the wire are the flat schedule's, cut per stage.
+    """
+
+    stages: tuple[ScheduleStage, ...]
+    chunklen: int
+
+    @property
+    def n_stages(self) -> int:
+        return len(self.stages)
+
+    @property
+    def pipelined(self) -> bool:
+        return len(self.stages) > 1
+
+    @property
+    def readiness(self) -> tuple[int, ...]:
+        """Per-stage chunk-space completion offsets."""
+        return tuple(st.ready for st in self.stages)
+
+    def launches(self) -> int:
+        return sum(st.gplan.launches() for st in self.stages)
+
+    @property
+    def comm_groups(self) -> int:
+        return sum(len(st.gplan.groups) for st in self.stages)
+
+
+@lru_cache(maxsize=None)
+def build_overlap_schedule(plan: ParamPlan, D: int,
+                           max_stages: int = 2) -> OverlapSchedule:
+    """Partition a plan's encode runs into pipeline stages.
+
+    Atomic units are buckets (fusible runs) or whole runs (non-fusible);
+    they are dealt greedily onto ``max_stages`` stages cut at the ideal
+    chunk-space boundaries ``i * chunklen / S``.  A plan whose units cannot
+    fill two stages degenerates to one stage, which the sync runs as the
+    flat schedule (the same computation).
+    """
+    runs = encode_runs(plan)
+    units: list[tuple[int, tuple, tuple, int, tuple]] = []
+    for ri, run in enumerate(runs):
+        if fusible(run.sync):
+            off = run.offset
+            for b, p, c in zip(run.buckets, run.positions, run.chunk_elems):
+                units.append((ri, (b,), (p,), off, (c,)))
+                off += c
+        else:
+            units.append((ri, run.buckets, run.positions, run.offset,
+                          run.chunk_elems))
+
+    S = max(1, min(max_stages, len(units)))
+    per_stage: list[list] = [[] for _ in range(S)]
+    s = 0
+    for u in units:
+        per_stage[s].append(u)
+        end = u[3] + sum(u[4])
+        while s < S - 1 and end * S >= (s + 1) * plan.chunklen:
+            s += 1
+
+    stages: list[ScheduleStage] = []
+    for stage_units in per_stage:
+        if not stage_units:
+            continue
+        pieces: list[StagePiece] = []
+        for ri, bks, poss, off, ces in stage_units:
+            if pieces and pieces[-1].run_index == ri:
+                prev = pieces[-1]
+                pieces[-1] = dataclasses.replace(
+                    prev, buckets=prev.buckets + bks,
+                    positions=prev.positions + poss,
+                    chunk_elems=prev.chunk_elems + ces)
+            else:
+                pieces.append(StagePiece(
+                    run_index=ri, slot=bks[0], buckets=bks, positions=poss,
+                    offset=off, chunk_elems=ces,
+                    col_off=off - runs[ri].offset,
+                    run_total=runs[ri].chunk_total, sync=runs[ri].sync))
+        gplan = _plan_groups(plan.qualname, pieces, D)
+        last = pieces[-1]
+        stages.append(ScheduleStage(
+            index=len(stages), ready=last.offset + last.chunk_total,
+            pieces=tuple(pieces), gplan=gplan))
+    return OverlapSchedule(stages=tuple(stages), chunklen=plan.chunklen)
 
 
 # ---------------------------------------------------------------------------

@@ -1,8 +1,8 @@
 """Train-state init and the train step.
 
 Port of ``repro.launch.steps.make_train_step`` with the monolithic sync or
-the bucketed one (``RunConfig.bucket_bytes``/``policy``/``coalesce``; its
-schedule is the reference's non-overlapped one):
+the bucketed one (``RunConfig.bucket_bytes``/``policy``/``coalesce``, and
+``overlap``, the reference's default pipelined stage schedule):
 
   FSDP flat-param chunks (core/flatparam) -> per-layer gather with the LoCo
   backward (core/hijack) -> model forward/backward -> microbatch
@@ -60,6 +60,12 @@ class RunConfig:
     # Coalesced wire exchange (core/wirepack): one packed collective per
     # comm group per sync instead of one per bucket; the same bits.
     coalesce: bool = True
+    # Backward-overlapped stage schedule (core/wirepack
+    # build_overlap_schedule): each coalesced plan's sync runs as up to two
+    # readiness-ordered stages whose asynchronous collectives overlap the
+    # next stage's encode.  The same bits and state layout as the flat
+    # schedule (off: --no-overlap); only coalesced bucketed plans change.
+    overlap: bool = True
 
     def wants_buckets(self) -> bool:
         return self.bucket_bytes > 0 or self.policy is not None
@@ -76,6 +82,20 @@ def build_sync_plan(run: RunConfig, groups,
     return BK.make_sync_plan(groups, topo, bcfg, pol)
 
 
+def state_fingerprint(run: RunConfig, groups, topo: MeshTopo,
+                      plan: "BK.SyncPlan | None") -> dict:
+    """Layout fingerprint of this run's train state, built from the
+    *target* plan before any restore, so the checkpoint layer can compare
+    it against the stored one and reshard (or fail loudly).  The state
+    units follow ``run.coalesce``; the overlap schedule changes nothing.
+    Equal, as JSON, to the reference's fingerprint of the same run (which
+    adds a ``moe_a2a`` key only for ``block8+ef``, refused in the port)."""
+    from repro_torch.state import build_fingerprint
+
+    return build_fingerprint(groups, topo, run.sync, plan,
+                             coalesce=run.coalesce)
+
+
 def _validate_sync_configs(run: RunConfig, plan: "BK.SyncPlan | None",
                            topo: MeshTopo) -> None:
     """Reject, when the step is built and with the bucket named, the
@@ -84,7 +104,9 @@ def _validate_sync_configs(run: RunConfig, plan: "BK.SyncPlan | None",
     cadence without state or off period boundaries, and what the port has
     not ported yet (top-k, hierarchical and multi-tier sync:
     ``NotImplementedError``).  Under ``run.coalesce`` the wire-group plans
-    are built here too, so a packing problem names its parameter."""
+    are built here too, so a packing problem names its parameter, and
+    under ``run.overlap`` the overlap schedules, which refuse cadence
+    buckets on a pipelined schedule."""
     cfgs = ([(f"{p.qualname}[{b.index}]", b.sync)
              for p in plan.params for b in p.buckets]
             if plan is not None else [("sync", run.sync)])
@@ -111,6 +133,18 @@ def _validate_sync_configs(run: RunConfig, plan: "BK.SyncPlan | None",
         for p in plan.params:
             try:
                 WP.build_group_plan(p, topo.dp)
+                if run.overlap:
+                    sched = WP.build_overlap_schedule(p, topo.dp)
+                    if sched.pipelined:
+                        for b in p.buckets:
+                            if b.sync.every > 1:
+                                raise ValueError(
+                                    f"bucket {b.index} (tier 0): sync "
+                                    f"cadence every={b.sync.every} cannot "
+                                    "ride the pipelined overlap schedule "
+                                    "(a stage piece cannot gate the whole "
+                                    "run's accumulator); launch with "
+                                    "--no-overlap.")
             except ValueError as e:
                 raise ValueError(f"{p.qualname}: {e}") from None
 
@@ -231,7 +265,8 @@ def make_train_step(cfg: ArchConfig, run: RunConfig, topo: MeshTopo,
         for i in range(accum):
             store = FP.TrainStore(groups, leaves, ts.states, sync, topo,
                                   step=step, plan=plan,
-                                  coalesce=run.coalesce)
+                                  coalesce=run.coalesce,
+                                  overlap=run.overlap)
             loss, aux = model.loss_fn(store, {"tokens": mbs[i]},
                                       remat=run.remat)
             loss.backward()

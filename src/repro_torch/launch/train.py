@@ -23,8 +23,12 @@ lr=... tok/s=...`` lines (MoE models add the router losses ``moe_aux`` and
 (kernel build, allocator growth).  With ``--bucket-mb`` or ``--policy`` the
 gradient sync runs bucketed (``core/buckets``, ``core/policy``, packed by
 ``core/wirepack`` unless ``--no-coalesce``), and the plan's wire report
-(``telemetry/wire``) is printed first.  There is no ``--overlap``: the
-bucketed schedule is the reference's non-overlapped one.
+(``telemetry/wire``) is printed first.  The coalesced sync runs the
+reference's backward-overlapped stage schedule unless ``--no-overlap``
+(the same losses bit for bit); ``--no-coalesce`` implies the flat one.
+With ``--ckpt-dir`` the run first restores the newest valid checkpoint
+there (``--resume-reshard`` migrates one written under another dp size or
+plan) and saves every ``--ckpt-every`` steps, in the reference's format.
 """
 from __future__ import annotations
 
@@ -35,6 +39,7 @@ import time
 
 import torch
 
+from repro_torch.checkpoint import checkpoint as CKPT
 from repro_torch.configs.base import ShapeConfig, get_arch, reduced
 from repro_torch.core.flatparam import MeshTopo
 from repro_torch.core.loco import SyncConfig
@@ -42,7 +47,7 @@ from repro_torch.core.policy import parse_policy
 from repro_torch.data.synthetic import DataConfig, make_batch_fn
 from repro_torch.launch import mesh
 from repro_torch.launch.steps import (RunConfig, build_sync_plan, make_init,
-                                      make_train_step)
+                                      make_train_step, state_fingerprint)
 from repro_torch.models.transformer import build_groups
 from repro_torch.telemetry import wire as WIRE
 
@@ -74,10 +79,13 @@ def build_args(argv=None):
                     default=True,
                     help="pack the bucketed sync's wire by exchange kind and "
                          "launch one collective per comm group (the same "
-                         "bits; --no-coalesce syncs each bucket on its own). "
-                         "The port has no --overlap: its schedule is the "
-                         "reference's --no-overlap one, which the reference "
-                         "keeps bit-exact with the overlapped schedule")
+                         "bits; --no-coalesce syncs each bucket on its own)")
+    ap.add_argument("--overlap", action=argparse.BooleanOptionalAction,
+                    default=True,
+                    help="pipeline the coalesced bucketed sync: up to two "
+                         "readiness-ordered stages whose asynchronous "
+                         "collectives overlap the next stage's encode (the "
+                         "same bits; --no-overlap keeps one sync region)")
     ap.add_argument("--beta", type=float, default=0.5)
     ap.add_argument("--reset-every", type=int, default=512)
     ap.add_argument("--optimizer", default="adam", choices=["adam", "adamw"])
@@ -87,6 +95,17 @@ def build_args(argv=None):
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                     help="cuda (default; raises without a card) or cpu")
+    ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--ckpt-every", type=int, default=0)
+    ap.add_argument("--ckpt-keep", type=int, default=0,
+                    help="prune checkpoint history to the newest N "
+                         "(0 = keep all)")
+    ap.add_argument("--resume-reshard", action="store_true",
+                    help="when resuming onto a different dp size / bucket "
+                         "layout / policy, migrate the checkpointed state "
+                         "(master chunks, optimizer moments, compensation "
+                         "errors) through logical space instead of failing "
+                         "on the layout mismatch")
     return ap.parse_args(argv)
 
 
@@ -107,7 +126,8 @@ def make_run(args) -> RunConfig:
                      warmup_steps=args.warmup, total_steps=args.steps,
                      microbatch=args.microbatch,
                      bucket_bytes=int(args.bucket_mb * (1 << 20)),
-                     policy=policy, coalesce=args.coalesce)
+                     policy=policy, coalesce=args.coalesce,
+                     overlap=args.overlap)
 
 
 def make_cfg(args):
@@ -125,9 +145,11 @@ def make_cfg(args):
 
 def main(argv=None) -> dict:
     """Train; returns ``{"losses": [...], "moe_aux": [...], "moe_z": [...],
-    "tok_per_s": float | None, "peak_mem_bytes": int | None}`` (router
-    losses per step for MoE models, else empty; tok/s over the steps after
-    the first; peak device memory on a card)."""
+    "tok_per_s": float | None, "peak_mem_bytes": int | None, "start":
+    int}`` (losses of the steps this run took, from ``start``, the
+    restored step or 0; router losses per step for MoE models, else empty;
+    tok/s over the steps after the first; peak device memory on a
+    card)."""
     args = build_args(argv)
     device = resolve_device(args.device)
     cfg = make_cfg(args)
@@ -142,15 +164,27 @@ def main(argv=None) -> dict:
     with mesh.dp_group(device) as group:
         topo = MeshTopo.from_group(group, model=mesh.model_group(cfg))
         step_fn = make_train_step(cfg, run, topo, device, shape)
-        plan = build_sync_plan(run, build_groups(cfg, topo.tp), topo)
+        groups = build_groups(cfg, topo.tp)
+        plan = build_sync_plan(run, groups, topo)
         if plan is not None:
             print(WIRE.format_report(WIRE.plan_report(plan)), flush=True)
         state = make_init(cfg, run, topo, device, args.seed)
+        # the *target* plan's fingerprint, built before any restore: a
+        # layout change either reshards explicitly or fails loudly
+        ckpt_fp = state_fingerprint(run, groups, topo, plan)
+        start = 0
+        if args.ckpt_dir:
+            latest = CKPT.resume(args.ckpt_dir, state, topo,
+                                 fingerprint=ckpt_fp,
+                                 reshard=args.resume_reshard)
+            if latest is not None:
+                start = latest
+                print(f"restored step {latest}", flush=True)
         if cuda:
             torch.cuda.reset_peak_memory_stats(device)
         t0 = t_run = time.perf_counter()
         first_s = None
-        for step in range(args.steps):
+        for step in range(start, args.steps):
             m = step_fn(state, step, batch_fn(step))
             loss = float(m["loss"])  # waits for the step to finish
             losses.append(loss)
@@ -161,7 +195,7 @@ def main(argv=None) -> dict:
                 first_s = time.perf_counter() - t0
                 t_run = time.perf_counter()
             if step % args.log_every == 0 or step == args.steps - 1:
-                n_run = step
+                n_run = step - start
                 tok_s = (n_run * args.global_batch * args.seq_len
                          / max(time.perf_counter() - t_run, 1e-9))
                 moe = "".join(f"{k}={v[-1]:.4f} " for k, v in router.items()
@@ -169,17 +203,27 @@ def main(argv=None) -> dict:
                 print(f"step {step:5d} loss={loss:.4f} {moe}"
                       f"gnorm={float(m['gnorm']):.3f} lr={float(m['lr']):.2e} "
                       f"tok/s={tok_s:,.0f}", flush=True)
+            if (args.ckpt_dir and args.ckpt_every
+                    and (step + 1) % args.ckpt_every == 0):
+                CKPT.save_train_state(args.ckpt_dir, step + 1, state, topo,
+                                      fingerprint=ckpt_fp,
+                                      keep=args.ckpt_keep)
         run_s = time.perf_counter() - t_run
-        n_run = max(args.steps - 1, 0)
+        n_steps = max(args.steps - start, 0)
+        n_run = max(n_steps - 1, 0)
         tok_s = n_run * args.global_batch * args.seq_len / run_s if n_run else None
         peak = torch.cuda.max_memory_allocated(device) if cuda else None
-    print(f"done: {args.steps} steps in {time.perf_counter() - t0:.1f}s "
+    if not n_steps:
+        print("nothing to do (restored step >= --steps)", flush=True)
+        return {"losses": [], **router, "tok_per_s": None,
+                "peak_mem_bytes": peak, "start": start}
+    print(f"done: {n_steps} steps in {time.perf_counter() - t0:.1f}s "
           f"(first step {first_s or 0.0:.1f}s + run {run_s:.1f}s"
           + (f", {tok_s:,.0f} tok/s after the first step" if tok_s else "")
           + (f", peak device memory {peak / 2**30:.2f} GiB" if peak else "")
           + ")", flush=True)
     return {"losses": losses, **router, "tok_per_s": tok_s,
-            "peak_mem_bytes": peak}
+            "peak_mem_bytes": peak, "start": start}
 
 
 if __name__ == "__main__":

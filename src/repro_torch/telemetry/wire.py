@@ -101,14 +101,23 @@ def plan_launches(plan: SyncPlan) -> dict[str, int]:
     backward syncs once), trip-weighted by stacked-group ``layers``:
     ``per_bucket`` on the un-coalesced schedule, ``coalesced`` under the
     wire coalescer (one per comm group), ``comm_groups`` the packed buffers
-    (equal to ``coalesced`` on the port's one flat dp group)."""
-    per_bucket = coalesced = 0
+    (equal to ``coalesced`` on the port's one flat dp group), and
+    ``overlapped`` under the backward-overlapped schedule, where a comm
+    group cut by a stage boundary launches once per stage it spans (>=
+    ``coalesced``); ``pipeline_stages`` is the deepest per-param stage
+    count (1 = nothing to pipeline)."""
+    per_bucket = coalesced = overlapped = 0
+    stages = 1
     for pp in plan.params:
         per_bucket += pp.layers * sum(map(bucket_launches, pp.buckets))
         D = pp.buckets[0].seg_elems // pp.buckets[0].chunk_elems
         coalesced += pp.layers * WP.build_group_plan(pp, D).launches()
+        sched = WP.build_overlap_schedule(pp, D)
+        overlapped += pp.layers * sched.launches()
+        stages = max(stages, sched.n_stages)
     return {"per_bucket": per_bucket, "coalesced": coalesced,
-            "comm_groups": coalesced}
+            "comm_groups": coalesced, "overlapped": overlapped,
+            "pipeline_stages": stages}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -142,6 +151,8 @@ class WireReport:
     launches_per_bucket: int = 0
     launches_coalesced: int = 0
     comm_groups: int = 0
+    launches_overlapped: int = 0
+    pipeline_stages: int = 1
 
     @property
     def ratio_vs_bf16(self) -> float:
@@ -190,7 +201,9 @@ def plan_report(plan: SyncPlan) -> WireReport:
         state_bytes=sum(r.state for r in rows),
         launches_per_bucket=launches["per_bucket"],
         launches_coalesced=launches["coalesced"],
-        comm_groups=launches["comm_groups"])
+        comm_groups=launches["comm_groups"],
+        launches_overlapped=launches["overlapped"],
+        pipeline_stages=launches["pipeline_stages"])
 
 
 def format_report(rep: WireReport, max_rows: int = 12) -> str:
@@ -203,7 +216,8 @@ def format_report(rep: WireReport, max_rows: int = 12) -> str:
         f"buckets: {len(rep.buckets)}",
         f"  launches/step: {rep.launches_coalesced} coalesced "
         f"({rep.comm_groups} comm groups; {rep.launches_per_bucket} "
-        f"per-bucket uncoalesced)",
+        f"per-bucket uncoalesced; {rep.launches_overlapped} overlapped "
+        f"across {rep.pipeline_stages} pipeline stages)",
     ]
     for cls, byt in sorted(rep.by_class().items()):
         lines.append(f"  class {cls:<6} {byt / 2**20:8.2f} MiB")

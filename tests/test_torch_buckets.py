@@ -240,8 +240,8 @@ def group1():
         yield g
 
 
-def _build(group, spec, **kw):
-    run = tsteps.RunConfig(bucket_bytes=1 << 16,
+def _build(group, spec, overlap=True, **kw):
+    run = tsteps.RunConfig(bucket_bytes=1 << 16, overlap=overlap,
                            policy=TPOL.parse_policy(spec, TSync(**kw)))
     tsteps.make_train_step(reduced(get_arch("llama2-400m")), run,
                            MeshTopo.from_group(group), torch.device("cpu"),
@@ -275,8 +275,13 @@ def test_unrunnable_buckets_are_refused(group1, spec, kw, match):
 
 
 def test_runnable_mix_builds(group1):
-    _build(group1, "embed=loco8+every2,body=loco4+every2,norm=fp,"
-                   "block/w2=ef,block/w3=naive8,final/*=onebit")
+    # cadence buckets run on the flat schedule only (as in the reference,
+    # whose default schedule is the overlapped one)
+    spec = ("embed=loco8+every2,body=loco4+every2,norm=fp,"
+            "block/w2=ef,block/w3=naive8,final/*=onebit")
+    _build(group1, spec, overlap=False)
+    with pytest.raises(ValueError, match="every=2 .*--no-overlap"):
+        _build(group1, spec)
 
 
 # ---------------------------------------------------------------------------

@@ -153,3 +153,110 @@ def test_cuda_fp_mean_is_ieee_division(cuda_device, D):
     assert torch.equal(got, want)
     if D == 3:   # what the repair avoids: a multiply rounds otherwise
         assert not torch.equal(summed.float() / D, want)
+
+
+# ---------------------------------------------------------------------------
+# the overlapped schedule's pieces and asynchronous collectives
+# ---------------------------------------------------------------------------
+
+def test_cuda_compress_in_place_into_piece_view(cuda_device):
+    """fused_compress writing its error in place into a column view of a
+    run's state (the overlapped schedule's piece at D = 1, non-zero
+    ``col_off``) gives the bytes of the whole-run call's slice."""
+    gen = torch.Generator(device=cuda_device).manual_seed(7)
+    total, a = 96 * 512, 40 * 512       # piece [a, total) of the run
+    g = (torch.randn(total, generator=gen, device=cuda_device) * 1e-3).to(
+        torch.bfloat16)
+    e = (torch.randn(total, generator=gen, device=cuda_device) * 200).clamp(
+        -448, 448).to(torch.float8_e4m3fn)
+    for bits in (4, 8):
+        kw = dict(bits=bits, beta=0.5, escale=2.0**14)
+        whole = LQ.fused_compress(g, e, **kw)
+        run = e.clone()
+        view = run[a:]
+        assert view.data_ptr() % 16 == 0 and view.is_contiguous()
+        got = LQ.fused_compress(g[a:], view, e_out=view, **kw)
+        assert got[2].data_ptr() == view.data_ptr()
+        pb = a // 2 if bits == 4 else a
+        assert torch.equal(got[0], whole[0][pb:])
+        assert torch.equal(got[1], whole[1][a // 256:])
+        assert torch.equal(_bytes(run[a:]), _bytes(whole[2][a:]))
+        assert torch.equal(_bytes(run[:a]), _bytes(e[:a]))   # untouched
+
+
+def test_cuda_overlapped_sync_of_path_d_embedding(cuda_device):
+    """chip_smoke.py's path d (llama2-400m, --bucket-mb 4 --policy
+    embed=loco8,min=1048576) at dp = 1: the embedding's overlapped sync
+    (its loco8 run cut into 16,777,216 + 15,728,640 elements) equals the
+    flat one, shard and state, over two rounds."""
+    import types
+
+    from repro_torch.core import comm, flatparam, wirepack
+    from repro_torch.launch import mesh, steps, train
+    from repro_torch.models.transformer import build_groups
+
+    args = train.build_args(["--arch", "llama2-400m", "--bucket-mb", "4",
+                             "--policy", "embed=loco8,min=1048576"])
+    plan = steps.build_sync_plan(
+        train.make_run(args), build_groups(train.make_cfg(args), 1),
+        types.SimpleNamespace(dp=1, tp=1)).lookup("embed", "tok")
+    sched = wirepack.build_overlap_schedule(plan, 1)
+    assert [p.chunk_total for st in sched.stages for p in st.pieces
+            if p.sync.strategy == "loco"] == [16777216, 15728640]
+    gen = torch.Generator(device=cuda_device).manual_seed(8)
+    g = (torch.randn(plan.chunklen, generator=gen, device=cuda_device)
+         * 1e-3).to(torch.bfloat16)
+    e0 = []
+    for unit in flatparam.state_units(plan, True):
+        n, dt = flatparam.bucket_state_struct(unit)
+        e0.append(torch.zeros(n, device=cuda_device) if dt == torch.float32
+                  else (torch.randn(n, generator=gen, device=cuda_device)
+                        * 100).clamp(-448, 448).to(dt))
+    with mesh.dp_group(cuda_device) as group:
+        outs = []
+        for overlap in (True, False):
+            st = tuple(s.clone() for s in e0)
+            for r in range(2):
+                sh, st = comm.dist_sync_runs(
+                    g * (r + 1), st, plan, group, overlap=overlap,
+                    out_dtype=torch.bfloat16, inplace=True)
+            outs.append((sh, st))
+        torch.cuda.synchronize()
+    assert torch.equal(_bytes(outs[0][0]), _bytes(outs[1][0]))
+    for a, b in zip(outs[0][1], outs[1][1]):
+        assert torch.equal(_bytes(a), _bytes(b))
+
+
+def test_cuda_async_exchange_survives_dropped_pack_buffer(cuda_device):
+    """An ``async_op`` all-to-all whose pack buffer loses its last Python
+    reference before ``wait()``, while the allocator hands out and
+    overwrites memory of its size, still delivers the packed bytes, which
+    decode to the sender's mean."""
+    import torch.distributed as dist
+
+    from repro_torch.launch import mesh
+
+    gen = torch.Generator(device=cuda_device).manual_seed(9)
+    n = 1 << 22
+    g = torch.randn(n, generator=gen, device=cuda_device) * 1e-3
+    e = torch.zeros(n, dtype=torch.float8_e4m3fn, device=cuda_device)
+    payload, scales, _ = LQ.fused_compress(g, e, bits=4, beta=0.5,
+                                           escale=2.0**14)
+    want = LQ.dequant_mean(payload[None], scales[None])
+    with mesh.dp_group(cuda_device) as group:
+        packed = torch.cat([payload.view(torch.uint8),
+                            scales.view(torch.uint8)])[None]
+        out = torch.empty_like(packed)
+        work = dist.all_to_all_single(out, packed, group=group,
+                                      async_op=True)
+        nbytes = packed.numel()
+        del packed
+        junk = [torch.full((nbytes,), 0xA5, dtype=torch.uint8,
+                           device=cuda_device) for _ in range(8)]
+        work.wait()
+        row = out[0]
+        got = LQ.dequant_mean(row[:n // 2].view(torch.int8)[None],
+                              row[n // 2:].view(torch.float32)[None])
+        torch.cuda.synchronize()
+        del junk
+    assert torch.equal(got, want)

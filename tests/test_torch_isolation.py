@@ -68,3 +68,35 @@ def test_chip_smoke_refuses_without_gpu():
                          timeout=120)
     assert out.returncode != 0
     assert '"ok"' not in out.stdout
+
+
+def test_checkpoint_round_trip_without_jax_or_ml_dtypes(tmp_path):
+    """The card's machine has neither ``jax`` nor ``ml_dtypes``: with both
+    made unimportable, the overlap schedule and the checkpoint layer
+    import, and a bf16/f8 state saves and restores byte for byte."""
+    code = (
+        "import sys\n"
+        f"for m in {FORBIDDEN!r}:\n"
+        "    sys.modules[m] = None\n"
+        "import torch\n"
+        "from repro_torch.core import wirepack\n"
+        "from repro_torch.checkpoint import checkpoint as C\n"
+        "from repro_torch.state import logical, manifest, reshard, serial\n"
+        "assert wirepack.build_overlap_schedule\n"
+        "x = {'a': torch.randn(3, 512).to(torch.float8_e4m3fn),\n"
+        "     'b': (torch.randn(2, 7).to(torch.bfloat16),\n"
+        "           torch.arange(5, dtype=torch.float32))}\n"
+        f"C.save({str(tmp_path)!r}, 1, x)\n"
+        f"assert C.latest_step({str(tmp_path)!r}) == 1\n"
+        f"y = C.restore({str(tmp_path)!r}, 1, x)\n"
+        "for k, v in serial.flatten(x).items():\n"
+        "    w = serial.flatten(y)[k]\n"
+        "    assert w.dtype == v.dtype and w.shape == v.shape, k\n"
+        "    assert torch.equal(w.reshape(-1).view(torch.uint8),\n"
+        "                       v.reshape(-1).view(torch.uint8)), k\n"
+        "print('ok')\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split()[-1] == "ok"
