@@ -18,7 +18,13 @@ Phases, in order; any failure exits non-zero and prints no result:
    bf16 shard, D = 1, 2, 4, 8), ``fused_compress`` in place into the run
    error views of path d's stage pieces, ``act_encode``/``act_decode`` at the
    deepseek-v3-moe exchange (81,920 rows of 512), ``onebit_pack`` at the
-   onebit path's shapes; then each kernel's device time (torch.profiler)
+   onebit path's shapes; all of the LoCo and activation kernels also at
+   the TP-local shapes a rank of a tp = 2 model group gives them at full
+   width (from ``build_groups(cfg, 2)`` and the sync plans: 524,288,
+   1,441,792 and 16,384,000 elements on llama2-400m, 131,072 and
+   16,777,216 on deepseek-v3-moe; 40,960 rows of the exchange), which the
+   one card cannot train; then each kernel's
+   device time (torch.profiler)
    and host time per call beside its HBM bound, the plain version's device
    time and, for ``act_decode``, the one PyTorch call that computes the same
    function;
@@ -39,7 +45,10 @@ Phases, in order; any failure exits non-zero and prints no result:
    launched as often as the code says (counts derived from the parameter
    declarations, the sync plan's encode runs or stage pieces and the
    layer structure, below), split by bit width, and the bucketed sync's
-   packed collectives as many as its schedule has groups;
+   packed collectives as many as its schedule has groups; each path gives
+   the parent tree's losses bit for bit (``PARENT_LOSSES``: the
+   tensor-parallel code at tp = 1 moves no bit), and no model-group
+   collective or ``replicated_grad_psum`` is called;
 3b. checkpoint: path d's command at full width, cut to CKPT_LAYERS layers:
    4 steps; the same 4 steps saving every 2 (``--ckpt-dir``,
    ``--ckpt-every 2``; the same losses); the step-4 file cut short; a new
@@ -53,7 +62,12 @@ Phases, in order; any failure exits non-zero and prints no result:
    ``--bucket-mb 0.1 --policy "embed=loco8,min=16384"``) and reduced
    deepseek-v3-moe (loco, block8) train 3 steps on the card and on the CPU
    (plain versions, gloo); the losses agree within 2e-3 relative at step 0
-   and 2e-2 at every step.  On the card, reduced llama2-400m with
+   and 2e-2 at every step; so does reduced llama2-400m at
+   ``--global-batch 12 --microbatch 4`` (three microbatches: the step's
+   means divide by 3), printed as bit for bit or within the limits, and
+   the step's divisions (``comm.divide`` at 3 and 6, the accum-3 gradient
+   mean) give the CPU's bits on the card.  On
+   the card, reduced llama2-400m with
    ``--bucket-mb 0.0625`` under a uniform policy gives the monolithic
    run's losses bit for bit.
 
@@ -65,6 +79,7 @@ The last lines are the card, one ``{"kernels": [...]}`` JSON object and the
 from __future__ import annotations
 
 import contextlib
+import functools
 import json
 import math
 import statistics
@@ -101,8 +116,9 @@ FLAT_ARGS = BUCKET_ARGS + ["--no-overlap"]
 EXCHANGES_PER_MOE_LAYER = 2 * 3
 
 
-def _plan(argv):
-    """(RunConfig, sync plan at dp = 1) of the training run ``argv``: the
+def _plan(argv, tp: int = 1):
+    """(RunConfig, sync plan at dp = 1) of the training run ``argv`` on a
+    rank of a ``tp``-way model group (its TP-local tensors): the
     monolithic plan (one run per LoCo tensor) without --bucket-mb/--policy."""
     import types
 
@@ -112,8 +128,8 @@ def _plan(argv):
 
     args = train.build_args(argv)
     run = train.make_run(args)
-    groups = build_groups(train.make_cfg(args), 1)
-    topo = types.SimpleNamespace(tp=1, dp=1)
+    groups = build_groups(train.make_cfg(args), tp)
+    topo = types.SimpleNamespace(tp=tp, dp=1)
     return run, (steps.build_sync_plan(run, groups, topo)
                  or buckets.monolithic_sync_plan(groups, topo, run.sync))
 
@@ -130,7 +146,7 @@ def sync_units(run, pp) -> list:
     return list(wirepack.encode_runs(pp))
 
 
-def sync_runs(argv) -> dict[tuple[int, int], int]:
+def sync_runs(argv, tp: int = 1) -> dict[tuple[int, int], int]:
     """(segment length, bits) -> how many stateful encodes one backward of
     the training run ``argv`` hands the gradient codec (fused_compress and
     dequant_mean, or onebit_pack), from the parameter declarations, the
@@ -143,8 +159,11 @@ def sync_runs(argv) -> dict[tuple[int, int], int]:
     buckets) and 1,048,576 (x96), and its embedding (8 bits) and head (4
     bits) runs of 32,505,856: one encode each on the flat schedule (d'),
     two on the overlapped one (d), cut at bucket 16 into 16,777,216 +
-    15,728,640."""
-    run, plan = _plan(argv)
+    15,728,640.  ``tp``: the same on one rank of a ``tp``-way model group,
+    whose tensors are its TP-local slices (at tp = 2 on llama2-400m 524,288
+    for the attention weights, 1,441,792 for the MLP, 16,384,000 for the
+    embedding and the head)."""
+    run, plan = _plan(argv, tp)
     out: dict[tuple[int, int], int] = {}
     for pp in plan.params:
         for u in sync_units(run, pp):
@@ -168,21 +187,42 @@ def sync_collectives(argv) -> int:
                                     else "coalesced"]
 
 
-def loco_sizes(argv) -> dict[int, int]:
+def loco_sizes(argv, tp: int = 1) -> dict[int, int]:
     """Segment length -> stateful encode runs per backward (``sync_runs``
     summed over bit widths)."""
     sizes: dict[int, int] = {}
-    for (n, _), count in sync_runs(argv).items():
+    for (n, _), count in sync_runs(argv, tp).items():
         sizes[n] = sizes.get(n, 0) + count
     return sizes
 
 
-def loco_path_sizes() -> list[int]:
+@functools.lru_cache(maxsize=None)
+def loco_path_sizes(tp: int = 1) -> list[int]:
     """Every segment length the LoCo paths (llama, deepseek, bucketed
     llama overlapped and flat; the checkpoint phase runs path d) launch
-    fused_compress and dequant_mean at."""
-    return sorted(set(loco_sizes(TRAIN_ARGS)) | set(loco_sizes(MOE_ARGS))
-                  | set(loco_sizes(BUCKET_ARGS)) | set(loco_sizes(FLAT_ARGS)))
+    fused_compress and dequant_mean at, on a rank of a ``tp``-way model
+    group."""
+    return sorted(set().union(*(loco_sizes(a, tp) for a in (
+        TRAIN_ARGS, MOE_ARGS, BUCKET_ARGS, FLAT_ARGS))))
+
+
+# A tp = 2 rank's shapes at full width: the card has one device, so the
+# tp > 1 paths run on CPU gloo groups (tests/test_torch_tp*.py); here each
+# kernel is held against its plain version at the shapes such a rank
+# gives it.
+TP_LOCAL = 2
+
+
+def kernel_sizes() -> list[int]:
+    """The segment lengths of the LoCo paths at tp = 1 and on a tp = 2
+    rank."""
+    return sorted(set(loco_path_sizes()) | set(loco_path_sizes(TP_LOCAL)))
+
+
+def size_label(n: int) -> str:
+    """Which paths give fused_compress and dequant_mean ``n`` elements."""
+    tps = [tp for tp in (1, TP_LOCAL) if n in loco_path_sizes(tp)]
+    return f" (tp {' and '.join(map(str, tps))})" if tps else ""
 
 # Device-memory rate by card (NVIDIA data sheets); peak FLOP/s are not
 # needed: every kernel does a few flops per byte.
@@ -213,32 +253,39 @@ def is_device_work(e) -> bool:
     return e.device_type == DeviceType.CUDA and not e.is_user_annotation
 
 
+TRACE_TRIES = 3
+
+
 def device_ms(fn, reps: int = 3, only: str | None = None,
               before=None) -> float:
     """Device time of one ``fn()``: the summed durations of the device work
     it launched (only the kernels whose name holds ``only``, when given),
     seen by torch.profiler over ``reps`` runs, divided by ``reps``.
     ``before()`` runs ahead of each ``fn()`` inside the trace (an L2 flush;
-    ``only`` keeps it out of the sum).  Fails if the profiler saw no device
-    time."""
+    ``only`` keeps it out of the sum).  A trace that holds no device time
+    (the profiler now and then drops a short trace's device events) is
+    taken again, up to ``TRACE_TRIES`` times; then it fails."""
     import torch
 
     fn()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        for _ in range(reps):
-            if before is not None:
-                before()
-            fn()
-        torch.cuda.synchronize()
-    us = sum(e.self_device_time_total for e in prof.key_averages()
-             if is_device_work(e) and (only is None or only in e.key))
-    if not us:
-        raise AssertionError(f"device_ms: the profiler saw no device time "
-                             f"(kernel filter {only!r})")
-    return us / 1e3 / reps
+    for _ in range(TRACE_TRIES):
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(reps):
+                if before is not None:
+                    before()
+                fn()
+            torch.cuda.synchronize()
+        us = sum(e.self_device_time_total for e in prof.key_averages()
+                 if is_device_work(e) and (only is None or only in e.key))
+        if us:
+            return us / 1e3 / reps
+        print(f"device_ms: a trace held no device time (kernel filter "
+              f"{only!r}); tracing again", flush=True)
+    raise AssertionError(f"device_ms: the profiler saw no device time in "
+                         f"{TRACE_TRIES} traces (kernel filter {only!r})")
 
 
 def host_us(fn, calls: int, reps: int = 3) -> float:
@@ -334,7 +381,7 @@ def check_kernels(LQ, dev) -> dict:
 
     gen = torch.Generator(device=dev).manual_seed(0)
     worst = {"fused_compress": 0.0, "dequant_mean": 0.0}
-    runs = [(n, COMPRESS_CELLS, (1, 2, 4, 8)) for n in loco_path_sizes()]
+    runs = [(n, COMPRESS_CELLS, (1, 2, 4, 8)) for n in kernel_sizes()]
     runs.append((DIVIDE_N, (DIVIDE_CELL,), (DIVIDE_D,)))
     for n, cells, peers in runs:
         g32 = _grad(n, gen, dev)
@@ -369,7 +416,7 @@ def check_kernels(LQ, dev) -> dict:
                     torch.cuda.synchronize()
                     _check("dequant_mean", f"{bits}-bit D={D} n_chunk="
                            f"{n // D} into {dt}", out, ref.to(dt), worst)
-        print(f"kernels: n={n} bit-exact (fused_compress: "
+        print(f"kernels: n={n}{size_label(n)} bit-exact (fused_compress: "
               f"{', '.join(c[0] for c in cells)}, f32 and bf16 g, error out "
               f"of place and in place; dequant_mean D="
               f"{','.join(map(str, peers))} into f32 and bf16)", flush=True)
@@ -496,7 +543,7 @@ def time_kernels(LQ, dev, rate: float) -> dict:
               flush=True)
     del calls, wires, recv
     flush = l2_flush(dev)
-    for n in loco_path_sizes():
+    for n in kernel_sizes():
         g = (torch.randn(n, generator=gen, device=dev) * 1e-3).to(bf16)
         g32 = g.float()
         e = torch.zeros(n, dtype=torch.float8_e4m3fn, device=dev)
@@ -522,7 +569,8 @@ def time_kernels(LQ, dev, rate: float) -> dict:
                 lambda: LQ.dequant_mean(p, s, out_dtype=bf16), 1, reps=5),
         }
         us = {k: v * 1e3 for k, v in t.items() if not k.endswith("host")}
-        print(f"kernels: n={n}: fused_compress device {us['compress']:.1f} us "
+        print(f"kernels: n={n}{size_label(n)}: fused_compress device "
+              f"{us['compress']:.1f} us "
               f"bf16 g in place (bound {compress_bytes(n) / rate * 1e6:.1f} "
               f"us), {us['compress_f32']:.1f} us f32 g (bound "
               f"{compress_bytes(n, 4) / rate * 1e6:.1f} us), host "
@@ -541,14 +589,16 @@ def time_kernels(LQ, dev, rate: float) -> dict:
 # phase 2, continued: the activation wire and the onebit wire
 # ---------------------------------------------------------------------------
 
-def moe_exchange_rows() -> int:
+def moe_exchange_rows(tp: int = 1) -> int:
     """Rows of 512 that one deepseek-v3-moe exchange quantizes at seq 1024,
-    microbatch 4: 64 experts x 640 slots x 1024 / 512 = 81,920."""
+    microbatch 4, on a rank of a ``tp``-way model group (its ``tp`` peer
+    rows of El experts x cap slots x d_model): 64 x 640 x 1024 / 512 =
+    81,920 at tp = 1; 2 x 32 x 320 x 1024 / 512 = 40,960 at tp = 2."""
     from repro_torch.configs.base import get_arch
     from repro_torch.core import act_comm
 
-    g = act_comm.a2a_geometry(get_arch("deepseek-v3-moe"), 4 * 1024, 1)
-    return g["n_pad"] // act_comm.ACT_BLOCK
+    g = act_comm.a2a_geometry(get_arch("deepseek-v3-moe"), 4 * 1024, tp)
+    return tp * g["n_pad"] // act_comm.ACT_BLOCK
 
 
 def _act_input(rows: int, gen, dev):
@@ -576,13 +626,13 @@ def onebit_bytes(n: int) -> float:
     return n * 4 + n / 8 + n * 2 + 4
 
 
-def kernel_act(AQ, dev, rate: float) -> dict:
-    """act_encode / act_decode at the deepseek-v3-moe exchange: bit-exact
-    against the plain versions (and the decode against ``q / scale``), then
-    timed per call."""
+def kernel_act(AQ, dev, rate: float, tp: int = 1) -> dict:
+    """act_encode / act_decode at the deepseek-v3-moe exchange of a rank of
+    a ``tp``-way model group: bit-exact against the plain versions (and
+    the decode against ``q / scale``), then timed per call."""
     import torch
 
-    rows = moe_exchange_rows()
+    rows = moe_exchange_rows(tp)
     gen = torch.Generator(device=dev).manual_seed(2)
     h = _act_input(rows, gen, dev)
     q, s = AQ.act_encode(h)
@@ -630,7 +680,7 @@ def kernel_act(AQ, dev, rate: float) -> dict:
     for name, t in res.items():
         lib_s = (f", q / scale {t['library_ms'] * 1e3:.1f} us"
                  if t["library_ms"] is not None else "")
-        print(f"kernels: {name} rows={rows} bit-exact; device "
+        print(f"kernels: {name} rows={rows} (tp {tp}) bit-exact; device "
               f"{t['ms'] * 1e3:.1f} us per call, bound "
               f"{t['bound_ms'] * 1e3:.1f} us ({t['bound_ms'] / t['ms']:.1%} "
               f"of HBM rate), host {t['host_us']:.1f} us per call, plain "
@@ -754,6 +804,9 @@ def main(argv=None) -> int:
     for name in timing:
         timing[name].update(max_abs_err=worst[name], library_ms=None)
     timing.update(kernel_act(AQ, dev, rate))
+    for name, t in kernel_act(AQ, dev, rate, TP_LOCAL).items():
+        timing[name]["max_abs_err"] = max(timing[name]["max_abs_err"],
+                                          t["max_abs_err"])
     timing["onebit_pack"] = kernel_onebit(SP, dev, rate)
     torch.cuda.empty_cache()
     print(f"kernels: phase done at {time.perf_counter() - t_start:.1f} s",
@@ -915,23 +968,89 @@ def _add(total: dict, launches: dict) -> None:
         total[k] = total.get(k, 0) + v
 
 
+# What the parent tree (before the TP-aware code) gave on the card, run P
+# of PERF.md (H100 80GB HBM3, 700 W): every path's losses.  At tp = 1 the
+# TP-aware code must move none of them by a bit.  (Launches and sync
+# collectives are held against the counts derived from the code in
+# train_path.)
+PARENT_LOSSES = {
+    "a": [10.68307113647461, 10.063291549682617, 9.444741249084473,
+          9.204526901245117, 8.938225746154785, 8.848466873168945],
+    "b": [11.144638061523438, 10.528535842895508, 9.801465034484863,
+          9.565465927124023, 9.370441436767578, 9.285552978515625],
+    "c": [10.68307113647461, 10.269325256347656, 9.74044132232666],
+    "d": [10.68307113647461, 10.062225341796875, 9.441856384277344],
+    "d'": [10.68307113647461, 10.062225341796875, 9.441856384277344]}
+PARENT_CKPT_LOSSES = [10.762600898742676, 9.794729232788086,
+                      9.226005554199219, 9.016355514526367]
+
+
+def check_parent(name: str, res: dict) -> None:
+    """The path ``name`` gave the parent's losses bit for bit."""
+    got, want = res["losses"], PARENT_LOSSES[name]
+    ok = got == want
+    print(f"train: path {name} losses {got} against the parent's {want}: "
+          f"{'bit for bit' if ok else 'MOVED'}", flush=True)
+    if not ok:
+        raise AssertionError(f"train: path {name}: the losses moved from "
+                             f"the parent's {want}: {got}")
+
+
+@contextlib.contextmanager
+def count_model_group_calls():
+    """Count the calls of the model-group collectives (``sp_gather``,
+    ``sp_scatter_sum``, ``psum_tp``, the token all-gather) and of
+    ``replicated_grad_psum``: at tp = 1 the model calls none of them."""
+    from repro_torch.core import hijack
+    from repro_torch.models import common
+
+    calls = [0]
+    classes = (common._AllGather, common._ReduceScatter, common._Psum,
+               hijack._SumGradsOverModel)
+    saved = [cls.apply for cls in classes]
+
+    def counting(apply):
+        def wrapped(*args):
+            calls[0] += 1
+            return apply(*args)
+        return wrapped
+
+    for cls, apply in zip(classes, saved):
+        cls.apply = counting(apply)
+    try:
+        yield calls
+    finally:
+        for cls in classes:
+            del cls.apply   # back to torch.autograd.Function's
+
+
 def train_phase(LQ) -> dict:
     """The main paths a-c, then d and d' (path d on the flat schedule) in
     turns, d d' d' d, so that their throughputs compare within one call;
-    every d and d' run must give the same losses bit for bit.  Returns
+    every d and d' run must give the same losses bit for bit, and every
+    path the parent's losses (``check_parent``), with no model-group
+    collective called.  Returns
     every kernel's launches summed over the runs."""
     total: dict[str, int] = {}
     runs: dict[str, list] = {"d": [], "d'": []}
-    for name, argv, falls in (("a", TRAIN_ARGS, True), ("b", MOE_ARGS, True),
-                              ("c", ONEBIT_ARGS, False),
-                              ("d", BUCKET_ARGS, True),
-                              ("d'", FLAT_ARGS, True),
-                              ("d'", FLAT_ARGS, True),
-                              ("d", BUCKET_ARGS, True)):
-        launches, res = train_path(LQ, argv, falls)
-        _add(total, launches)
-        if name in runs:
-            runs[name].append(res)
+    with count_model_group_calls() as tp_calls:
+        for name, argv, falls in (("a", TRAIN_ARGS, True),
+                                  ("b", MOE_ARGS, True),
+                                  ("c", ONEBIT_ARGS, False),
+                                  ("d", BUCKET_ARGS, True),
+                                  ("d'", FLAT_ARGS, True),
+                                  ("d'", FLAT_ARGS, True),
+                                  ("d", BUCKET_ARGS, True)):
+            launches, res = train_path(LQ, argv, falls)
+            check_parent(name, res)
+            _add(total, launches)
+            if name in runs:
+                runs[name].append(res)
+    print(f"train: model-group collectives and replicated_grad_psum called "
+          f"{tp_calls[0]} times at tp = 1", flush=True)
+    if tp_calls[0]:
+        raise AssertionError("train: a tp = 1 path called a model-group "
+                             "collective")
     over = [r["tok_per_s"] for r in runs["d"]]
     flat = [r["tok_per_s"] for r in runs["d'"]]
     print(f"train: path d overlapped {over} tok/s, d' flat {flat} tok/s "
@@ -1010,8 +1129,8 @@ def resume_run(argv) -> None:
 
 
 def checkpoint_phase(LQ, src: Path) -> dict:
-    """4 steps uninterrupted; the same 4 steps saving every 2 (the losses
-    must not move); the step-4 file then cut short, as a save killed by
+    """4 steps uninterrupted (the parent's losses bit for bit); the same 4
+    steps saving every 2 (the losses must not move); the step-4 file then cut short, as a save killed by
     preemption leaves it; a new process with the same --ckpt-dir falls
     back to step 2, restores it and trains steps 2-3, whose losses must be
     the uninterrupted run's bit for bit.  Returns the launches of all
@@ -1027,6 +1146,11 @@ def checkpoint_phase(LQ, src: Path) -> dict:
         print(f"checkpoint: {CKPT_LAYERS} of llama2-400m's 24 layers at "
               "full width", flush=True)
         launches, full = train_path(LQ, CKPT_ARGS, True)
+        print(f"checkpoint: losses {full['losses']} against the parent's "
+              f"{PARENT_CKPT_LOSSES}", flush=True)
+        if full["losses"] != PARENT_CKPT_LOSSES:
+            raise AssertionError("checkpoint: the losses moved from the "
+                                 "parent's")
         _add(total, launches)
         with timed_calls(CKPT, "save_train_state") as save_s:
             launches, saved = train_path(LQ, argv + ["--ckpt-every", "2"],
@@ -1111,7 +1235,7 @@ def profile_phase(argv) -> None:
                                         args.global_batch, args.seed))
     tag = f"profile[{cfg.name}{' bucketed' if run.wants_buckets() else ''}]"
     with mesh.dp_group(dev) as group:
-        topo = MeshTopo.from_group(group, model=mesh.model_group(cfg))
+        topo = MeshTopo.from_group(group, model=mesh.model_group())
         ts = steps.make_init(cfg, run, topo, dev, args.seed)
         step_fn = steps.make_train_step(cfg, run, topo, dev, shape)
         walls = []
@@ -1193,6 +1317,57 @@ REF_RUNS = {"llama2-400m loco": _ref_args("llama2-400m", "loco"),
                 "embed=loco8,min=16384")}
 REF_STEP0_RTOL, REF_ATOL = 2e-3, 2e-2
 UNIFORM_BUCKETS = ["--bucket-mb", "0.0625"]
+# three microbatches per step: the step's gradient and loss means divide
+# by 3, which torch on CUDA would compute as a multiply by 1/3
+ACCUM3_ARGS = _ref_args("llama2-400m", "loco") + ["--global-batch", "12",
+                                                  "--microbatch", "4"]
+
+
+def check_divisions() -> None:
+    """The step's divisions on the card give the CPU's bits: ``comm.divide``
+    at 3 and 6 (the dp x tp loss divisor, the clip's ``s2 / tp``) and
+    ``steps._grads`` at accum 3 (the microbatch mean).  A multiply by the
+    inverse, what torch on CUDA makes of a division by a Python scalar,
+    must differ there, or this check could not see the fault."""
+    import torch
+    from repro_torch.core.comm import divide
+    from repro_torch.core.flatparam import ParamGroup, ParamInfo
+    from repro_torch.launch.steps import _grads
+
+    x = torch.randn(1 << 20, generator=torch.Generator().manual_seed(3))
+    xc = x.cuda()
+    for n in (3, 6):
+        got = divide(xc, n)
+        if not torch.equal(got.cpu(), divide(x, n)):
+            raise AssertionError(f"reference: divide by {n} on the card is "
+                                 "not the CPU's")
+        if torch.equal(xc / n, got):
+            raise AssertionError(f"reference: x / {n} on the card already "
+                                 "gives IEEE division; the check sees "
+                                 "nothing")
+    groups = [ParamGroup("block", (ParamInfo("w", (8, 512)),), n_layers=2),
+              ParamGroup("embed", (ParamInfo("tok", (8, 512)),))]
+
+    def leaves(device):
+        out, rows = {}, iter(x[:3 * 4096].reshape(3, 4096))
+        for g in groups:
+            ts = [torch.zeros(4096, device=device, requires_grad=True)
+                  for _ in range(g.n_layers or 1)]
+            for t in ts:
+                t.grad = next(rows).to(device)
+            out[g.name] = {g.infos[0].name: ts if g.stacked else ts[0]}
+        return out
+
+    cpu, card = _grads(leaves("cpu"), groups, 3), _grads(leaves("cuda"),
+                                                         groups, 3)
+    same = all(torch.equal(card[g][k].cpu(), cpu[g][k])
+               for g in cpu for k in cpu[g])
+    print(f"reference: divide at 3 and 6 and the accum-3 gradient mean on "
+          f"the card: {'bit for bit with the CPU' if same else 'DIFFER'}; "
+          f"a multiply by the inverse differs", flush=True)
+    if not same:
+        raise AssertionError("reference: the accum-3 gradient mean on the "
+                             "card is not the CPU's")
 
 
 def reference_phase() -> None:
@@ -1203,6 +1378,7 @@ def reference_phase() -> None:
     monolithic run's losses bit for bit."""
     from repro_torch.launch import train
 
+    check_divisions()
     mono = train.main(REF_RUNS["llama2-400m loco"]
                       + ["--device", "cuda"])["losses"]
     buck = train.main(REF_RUNS["llama2-400m loco"] + UNIFORM_BUCKETS
@@ -1213,13 +1389,16 @@ def reference_phase() -> None:
     if buck != mono:
         raise AssertionError("reference: the uniform bucketed run's losses "
                              "differ from the monolithic run's on the card")
-    for label, argv in REF_RUNS.items():
+    for label, argv in {**REF_RUNS, "llama2-400m loco, accum 3":
+                        ACCUM3_ARGS}.items():
         gpu = (mono if label == "llama2-400m loco" else
                train.main(argv + ["--device", "cuda"])["losses"])
         cpu = train.main(argv + ["--device", "cpu"])["losses"]
         gaps = [abs(a - b) for a, b in zip(gpu, cpu)]
         print(f"reference: reduced {label}, card {gpu} vs cpu {cpu}; "
-              f"gaps {gaps}", flush=True)
+              f"gaps {gaps}; "
+              f"{'bit for bit' if gpu == cpu else 'within the loss limits'}",
+              flush=True)
         if not (gaps[0] <= REF_STEP0_RTOL * abs(cpu[0])
                 and max(gaps) <= REF_ATOL):
             raise AssertionError(f"reference: {label}: the card's losses "

@@ -13,16 +13,18 @@ naming every mismatched field.
 
 ``save``/``restore``/``latest_step`` work on global trees.  The training
 loop calls :func:`save_train_state` and :func:`resume`, which move one
-data-parallel rank's :class:`~repro_torch.launch.steps.TrainState` to and
-from that layout.  With ``tp = 1`` the global layout is, per parameter:
+rank's :class:`~repro_torch.launch.steps.TrainState` to and from that
+layout.  On a ``dp x tp`` mesh the global layout is, per parameter
+(``padlen`` that of its TP-local slice, ``C = padlen / dp``):
 
-* master chunk and each Adam moment: ``(L?, 1, padlen)``, rank ``r``
-  owning ``[..., 0, r*C:(r+1)*C]``;
-* compressor state (each state unit under a sync plan): ``(L?, 1, D, n)``,
-  rank ``r`` owning ``[..., 0, r, :]``.
+* master chunk and each Adam moment: ``(L?, TP, padlen)``, the rank at
+  data index ``r`` and model index ``m`` owning ``[..., m, r*C:(r+1)*C]``;
+* compressor state (each state unit under a sync plan): ``(L?, TP, D, n)``,
+  that rank owning ``[..., m, r, :]``.
 
-At dp > 1 rank 0 gathers the dp group's pieces and writes; on restore it
-reads (and reshards) and scatters each rank its piece.
+With more than one rank, world rank 0 gathers every ``(data, model)``
+piece and writes; on restore it reads (and reshards across dp at a fixed
+tp) and scatters each rank its piece.
 """
 from __future__ import annotations
 
@@ -144,12 +146,13 @@ def _tree(ts) -> dict:
     return {"chunks": ts.chunks, "states": ts.states, "opt": ts.opt}
 
 
-def global_template(ts, dp: int) -> dict:
-    """The global tree of a dp group whose ranks hold train states shaped
-    like ``ts``, as ``meta`` tensors (shapes and dtypes, no memory)."""
+def global_template(ts, dp: int, tp: int = 1) -> dict:
+    """The global tree of a dp x tp mesh whose ranks hold train states
+    shaped like ``ts``, as ``meta`` tensors (shapes and dtypes, no
+    memory)."""
     flat = serial.flatten(_tree(ts))
     return serial.unflatten(
-        {k: torch.empty(_global_shape(k, v, dp), dtype=v.dtype,
+        {k: torch.empty(_global_shape(k, v, dp, tp), dtype=v.dtype,
                         device="meta") for k, v in flat.items()}, _tree(ts))
 
 
@@ -157,18 +160,31 @@ def _is_state(key: str) -> bool:
     return key.startswith("states/")
 
 
-def _global_shape(key: str, local: torch.Tensor, dp: int) -> tuple:
+def _global_shape(key: str, local: torch.Tensor, dp: int, tp: int) -> tuple:
     *lead, n = local.shape
     if _is_state(key):
-        return (*lead, 1, dp, n)
-    return (*lead, 1, dp * n)
+        return (*lead, tp, dp, n)
+    return (*lead, tp, dp * n)
 
 
-def _rank_piece(key: str, g: torch.Tensor, rank: int, n: int):
-    """Rank ``rank``'s piece (``n`` trailing elements) of a global leaf."""
+def _rank_piece(key: str, g: torch.Tensor, rank: int, n: int,
+                tp_rank: int = 0):
+    """The piece (``n`` trailing elements) of a global leaf that the rank
+    at data index ``rank`` and model index ``tp_rank`` owns."""
     if _is_state(key):
-        return g[..., 0, rank, :]
-    return g[..., 0, rank * n:(rank + 1) * n]
+        return g[..., tp_rank, rank, :]
+    return g[..., tp_rank, rank * n:(rank + 1) * n]
+
+
+def _assemble(key: str, pieces: list, dp: int, tp: int) -> torch.Tensor:
+    """Every rank's piece, in world order (``data * tp + model``) -> the
+    global leaf."""
+    *lead, n = pieces[0].shape
+    rows = torch.stack(pieces, dim=-2).reshape(*lead, dp, tp, n)
+    rows = rows.transpose(-3, -2)
+    if _is_state(key):
+        return rows.contiguous()
+    return rows.reshape(*lead, tp, dp * n)
 
 
 def _bytes(t: torch.Tensor) -> torch.Tensor:
@@ -178,60 +194,70 @@ def _bytes(t: torch.Tensor) -> torch.Tensor:
 def save_train_state(ckpt_dir: str, step: int, ts, topo, *,
                      fingerprint: "dict | None" = None,
                      keep: int = 0) -> None:
-    """Save one rank's share of the train state ``ts``: the dp group's
-    rank 0 gathers every leaf into the global layout and writes; every
-    rank returns once the checkpoint is on disk."""
+    """Save one rank's share of the train state ``ts``: world rank 0
+    gathers every leaf from every ``(data, model)`` rank into the global
+    layout and writes; every rank returns once the checkpoint is on
+    disk."""
     flat = serial.flatten(_tree(ts))
-    if topo.dp == 1:
-        glob = {k: v.reshape(_global_shape(k, v, 1)) for k, v in flat.items()}
+    n_ranks = topo.dp * topo.tp
+    if n_ranks == 1:
+        glob = {k: v.reshape(_global_shape(k, v, 1, 1))
+                for k, v in flat.items()}
+        writer = True
     else:
-        dst = dist.get_global_rank(topo.group, 0)
+        world = topo.world
+        writer = dist.get_rank(world) == 0
+        dst = dist.get_global_rank(world, 0)
         glob = {}
         for k, v in flat.items():
-            parts = ([torch.empty_like(_bytes(v)) for _ in range(topo.dp)]
-                     if topo.rank == 0 else None)
-            dist.gather(_bytes(v), parts, dst=dst, group=topo.group)
-            if topo.rank == 0:
-                rows = torch.stack([p.view(v.dtype) for p in parts], dim=-2)
-                glob[k] = rows.reshape(_global_shape(k, v, topo.dp))
-    if topo.rank == 0:
+            parts = ([torch.empty_like(_bytes(v)) for _ in range(n_ranks)]
+                     if writer else None)
+            dist.gather(_bytes(v), parts, dst=dst, group=world)
+            if writer:
+                glob[k] = _assemble(k, [p.view(v.dtype).view(v.shape)
+                                        for p in parts], topo.dp, topo.tp)
+    if writer:
         save(ckpt_dir, step, serial.unflatten(glob, _tree(ts)),
              fingerprint=fingerprint, keep=keep)
-    if topo.dp > 1:
-        dist.barrier(group=topo.group)
+    if n_ranks > 1:
+        dist.barrier(group=topo.world)
 
 
 def resume(ckpt_dir: str, ts, topo, *, fingerprint: "dict | None" = None,
            reshard: bool = False) -> "int | None":
     """Restore the newest valid checkpoint of ``ckpt_dir`` into ``ts`` in
     place (each leaf keeps its tensor, device and layout) and return its
-    step; None when the directory holds none.  The dp group's rank 0
-    picks the step, reads (and reshards) the global tree, and scatters
-    each rank its piece."""
+    step; None when the directory holds none.  World rank 0 picks the
+    step, reads (and reshards) the global tree, and scatters each rank its
+    piece."""
     flat = serial.flatten(_tree(ts))
-    step = latest_step(ckpt_dir) if topo.rank == 0 else None
-    if topo.dp > 1:
+    n_ranks = topo.dp * topo.tp
+    world = topo.world
+    reader = n_ranks == 1 or dist.get_rank(world) == 0
+    step = latest_step(ckpt_dir) if reader else None
+    if n_ranks > 1:
         box = [step]
         dist.broadcast_object_list(
-            box, src=dist.get_global_rank(topo.group, 0), group=topo.group)
+            box, src=dist.get_global_rank(world, 0), group=world)
         step = box[0]
     if step is None:
         return None
     glob = None
-    if topo.rank == 0:
+    if reader:
         glob = serial.flatten(restore(
-            ckpt_dir, step, global_template(ts, topo.dp),
+            ckpt_dir, step, global_template(ts, topo.dp, topo.tp),
             fingerprint=fingerprint, reshard=reshard))
     for k, v in flat.items():
-        if topo.dp == 1:
+        if n_ranks == 1:
             v.copy_(_rank_piece(k, glob[k], 0, v.shape[-1]))
             continue
         pieces = None
-        if topo.rank == 0:
-            pieces = [_bytes(_rank_piece(k, glob[k], r, v.shape[-1])
-                             .to(v.device)) for r in range(topo.dp)]
+        if reader:
+            pieces = [_bytes(_rank_piece(k, glob[k], w // topo.tp,
+                                         v.shape[-1], w % topo.tp)
+                             .to(v.device)) for w in range(n_ranks)]
         got = torch.empty_like(_bytes(v))
-        dist.scatter(got, pieces, src=dist.get_global_rank(topo.group, 0),
-                     group=topo.group)
+        dist.scatter(got, pieces, src=dist.get_global_rank(world, 0),
+                     group=world)
         v.copy_(got.view(v.dtype).view(v.shape))
     return step

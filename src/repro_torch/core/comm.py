@@ -42,11 +42,12 @@ def axis_size(group) -> int:
 
 
 def all_gather_flat(x: torch.Tensor, group, async_op: bool = False):
-    """Gather 1-D chunks from every rank, in rank order.  With
+    """Gather chunks from every rank, in rank order, along dim 0.  With
     ``async_op``: ``(out, work)``, ``out`` valid after ``work.wait()``."""
     D = axis_size(group)
     x = x.contiguous()
-    out = torch.empty(D * x.shape[0], dtype=x.dtype, device=x.device)
+    out = torch.empty((D * x.shape[0],) + x.shape[1:], dtype=x.dtype,
+                      device=x.device)
     work = _ALL_GATHER(out, x, group=group, async_op=async_op)
     return (out, work) if async_op else out
 
@@ -56,7 +57,8 @@ def psum_scatter_flat(x: torch.Tensor, group, async_op: bool = False):
     (``async_op`` as there)."""
     D = axis_size(group)
     x = x.contiguous()
-    out = torch.empty(x.shape[0] // D, dtype=x.dtype, device=x.device)
+    out = torch.empty((x.shape[0] // D,) + x.shape[1:], dtype=x.dtype,
+                      device=x.device)
     work = _REDUCE_SCATTER(out, x, op=dist.ReduceOp.SUM, group=group,
                            async_op=async_op)
     return (out, work) if async_op else out
@@ -78,16 +80,20 @@ def all_to_all_chunks(x: torch.Tensor, group, async_op: bool = False):
     return (out, work) if async_op else out
 
 
+def divide(x: torch.Tensor, n: int) -> torch.Tensor:
+    """``x / n`` rounded as one IEEE division on every device, as the
+    reference computes it.  On CUDA torch divides by a Python scalar as
+    ``x * (1/n)``, which rounds otherwise unless ``n`` is a power of two;
+    any other ``n`` divides by a device tensor."""
+    if LQ.exact_inverse(n):
+        return x / n
+    return x / torch.tensor(float(n), dtype=x.dtype, device=x.device)
+
+
 def fp_mean(summed: torch.Tensor, D: int) -> torch.Tensor:
-    """The f32 mean ``summed / D`` of a reduce-scatter sum over ``D`` peers,
-    rounded as one IEEE division on every device, as the reference computes
-    it.  On CUDA torch divides by a Python scalar as ``x * (1/D)``, which
-    rounds otherwise unless ``D`` is a power of two; any other ``D``
-    divides by a device tensor."""
-    x = summed.float()
-    if LQ.exact_inverse(D):
-        return x / D
-    return x / torch.tensor(float(D), dtype=torch.float32, device=x.device)
+    """The f32 mean ``summed / D`` of a reduce-scatter sum over ``D``
+    peers, one IEEE division (:func:`divide`)."""
+    return divide(summed.float(), D)
 
 
 # ---------------------------------------------------------------------------

@@ -22,6 +22,11 @@ optimizer state    like the param chunk
 ``materialize`` turns a chunk into the logical bf16 tensor inside the
 forward: bf16 cast -> FSDP all-gather (with the LoCo backward) -> unpad ->
 reshape.
+
+At ``tp > 1`` every parameter is its TP-local slice (``ParamInfo.tp_dim``),
+chunked over the data group; each model index syncs its own slice there.
+A replicated leaf (``tp_dim`` None) is wrapped in
+:func:`~repro_torch.core.hijack.replicated_grad_psum`, as in the reference.
 """
 from __future__ import annotations
 
@@ -38,7 +43,8 @@ from repro_torch.core import wirepack as WP
 from repro_torch.core.buckets import ParamPlan, SyncPlan
 from repro_torch.core.hijack import (gather_fp, gather_with_sync,
                                      gather_with_sync_buckets,
-                                     gather_with_sync_runs)
+                                     gather_with_sync_runs,
+                                     replicated_grad_psum)
 from repro_torch.core.loco import SyncConfig
 
 GRAIN = 512  # dp chunks stay divisible by 2 (int4 pack) * 256 (quant block)
@@ -88,19 +94,38 @@ class ParamInfo:
 
 @dataclasses.dataclass(frozen=True, eq=False)
 class MeshTopo:
-    """Static topology facts: the dp group, its size and this rank, and the
-    ``model`` group (``launch.mesh.model_group``) the MoE exchange uses."""
+    """Static topology facts of one rank in a ``dp x tp`` world: its data
+    group (``group``, over which the chunks are cut and the gradients
+    sync), its size and this rank's index there (``rank``); the ``model``
+    group (``launch.mesh.mesh_groups``), its size ``tp`` and this rank's
+    index there (``tp_rank``); and the ``world`` group over every rank,
+    on which the global norm and the loss are reduced."""
 
     group: object       # torch.distributed process group over the dp ranks
     dp: int
     rank: int
     tp: int = 1
-    model: object = None  # process group over the tp ranks (None: no MoE)
+    model: object = None  # process group over the tp ranks
+    tp_rank: int = 0
+
+    @property
+    def world(self):
+        """The group over all dp * tp ranks (the data group at tp = 1)."""
+        return self.group if self.tp == 1 else dist.group.WORLD
 
     @staticmethod
     def from_group(group, model=None) -> "MeshTopo":
-        return MeshTopo(group=group, dp=dist.get_world_size(group),
-                        rank=dist.get_rank(group), model=model)
+        """The topology of the data group ``group`` and the model group
+        ``model`` (None: ``tp = 1`` with no model group)."""
+        topo = MeshTopo(group=group, dp=dist.get_world_size(group),
+                        rank=dist.get_rank(group),
+                        tp=1 if model is None else dist.get_world_size(model),
+                        model=model,
+                        tp_rank=0 if model is None else dist.get_rank(model))
+        if topo.tp > 1 and dist.get_world_size() != topo.dp * topo.tp:
+            raise ValueError(f"dp {topo.dp} x tp {topo.tp} ranks do not make "
+                             f"the world of {dist.get_world_size()}")
+        return topo
 
 
 @dataclasses.dataclass(frozen=True)
@@ -120,15 +145,23 @@ class ParamGroup:
 # init
 # ---------------------------------------------------------------------------
 
-def _init_full(info: ParamInfo, gen: torch.Generator,
-               tp: int) -> torch.Tensor:
-    """The logical (TP-local) tensor, f32, flattened, on the CPU."""
-    n = math.prod(info.local_shape(tp))
+def _init_full(info: ParamInfo, gen: torch.Generator, tp: int,
+               tp_rank: int = 0) -> torch.Tensor:
+    """The logical TP-local tensor, f32, flattened, on the CPU: the slice
+    ``tp_rank`` along ``tp_dim`` of the global tensor, so one seed draws
+    the same weights at any ``tp``."""
+    n = math.prod(info.shape)
     if info.init == "zeros":
-        return torch.zeros(n)
-    if info.init == "ones":
-        return torch.ones(n)
-    return torch.randn(n, generator=gen) * info.fan_scale()
+        full = torch.zeros(n)
+    elif info.init == "ones":
+        full = torch.ones(n)
+    else:
+        full = torch.randn(n, generator=gen) * info.fan_scale()
+    if info.tp_dim is None or tp == 1:
+        return full
+    w = info.local_shape(tp)[info.tp_dim]
+    return full.reshape(info.shape).narrow(info.tp_dim, tp_rank * w,
+                                           w).reshape(-1)
 
 
 def init_chunk(info: ParamInfo, gen: torch.Generator, topo: MeshTopo,
@@ -136,7 +169,8 @@ def init_chunk(info: ParamInfo, gen: torch.Generator, topo: MeshTopo,
     """This rank's f32 master chunk: every rank draws the same full tensor
     from a CPU generator (so a seed gives the same weights on any device)
     and keeps its own slice."""
-    full = _init_full(info, gen, topo.tp)
+    full = _init_full(info, gen, topo.tp,
+                      topo.tp_rank if topo.tp > 1 else 0)
     full = torch.nn.functional.pad(full, (0, info.padlen(topo.tp, topo.dp)
                                           - full.shape[0]))
     c = info.chunklen(topo.tp, topo.dp)
@@ -291,7 +325,12 @@ def materialize(chunk: torch.Tensor, state, info: ParamInfo,
     else:
         flat = gather_fp(w, topo.group)
     n = info.numel_local(topo.tp)
-    return flat[:n].reshape(info.local_shape(topo.tp))
+    t = flat[:n].reshape(info.local_shape(topo.tp))
+    if info.tp_dim is None and topo.tp > 1:
+        # a leaf every model rank holds whole: psum its gradient over the
+        # model group, so the sync sees the full gradient
+        t = replicated_grad_psum(t, topo.model)
+    return t
 
 
 class TrainStore:

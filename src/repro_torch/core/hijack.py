@@ -17,12 +17,16 @@ writes it there directly, otherwise it is copied in; the bucketed gathers
 do so per bucket or encode run.  The bf16 gradient
 reaches the codec as it is and the synced shard comes back in the
 gradient's dtype, so the backward adds no pass of its own over either.
+
+:func:`replicated_grad_psum` is the reference's identity whose backward
+sums the gradient of a TP-replicated weight over the ``model`` group.
 """
 from __future__ import annotations
 
 import functools
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.core.buckets import ParamPlan
 from repro_torch.core.comm import (all_gather_flat, axis_size, dist_sync,
@@ -160,3 +164,28 @@ def gather_fp(w_chunk: torch.Tensor, group) -> torch.Tensor:
     """Plain differentiable FSDP gather whose backward is the bf16
     reduce-scatter mean.  Used for small (non-LoCo) tensors."""
     return _GatherFp.apply(w_chunk, group)
+
+
+class _SumGradsOverModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous().clone()
+        dist.all_reduce(g, group=ctx.group)
+        return g, None
+
+
+def replicated_grad_psum(x: torch.Tensor, group) -> torch.Tensor:
+    """Identity forward; the backward sums the gradient over ``group``
+    (the ``model`` process group).
+
+    Wraps every weight that every tensor-parallel rank holds whole (norm
+    scales, the MoE router, kv projections when kv heads < tp, ...), so
+    each data-parallel rank's local gradient is the full gradient before
+    LoCo sees it (the reference's ``replicated_grad_psum``).
+    """
+    return _SumGradsOverModel.apply(x, group)

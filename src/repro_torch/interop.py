@@ -1,13 +1,15 @@
 """Carry a train state from the JAX reference into the port.
 
 ``from_reference`` takes what ``repro.launch.steps.make_init`` returns, as
-numpy arrays (``np.asarray`` of each leaf), and builds one data-parallel
-rank's :class:`~repro_torch.launch.steps.TrainState`.  The reference stores
-global arrays over its mesh; with ``tp = 1`` rank ``r`` of ``dp`` owns
+numpy arrays (``np.asarray`` of each leaf), and builds one rank's
+:class:`~repro_torch.launch.steps.TrainState`.  The reference stores
+global arrays over its ``(data, model)`` mesh; the rank at data index
+``r`` of ``dp`` and model index ``m`` of ``tp`` owns
 
-* master chunk ``[..., 0, r*C:(r+1)*C]`` of the ``(L?, TP, padlen)`` chunk
-  (``C = padlen / dp``), and likewise each Adam moment;
-* compressor state ``[..., 0, r, :]`` of the ``(L?, TP, D, padlen)`` state
+* master chunk ``[..., m, r*C:(r+1)*C]`` of the ``(L?, TP, padlen)`` chunk
+  (``C = padlen / dp``, ``padlen`` that of the TP-local slice), and
+  likewise each Adam moment;
+* compressor state ``[..., m, r, :]`` of the ``(L?, TP, D, padlen)`` state
   (under a sync plan, of each state unit's ``(L?, TP, D, n)`` array).
 
 float8_e4m3fn and bfloat16 arrays (numpy's ``ml_dtypes`` types) cross as
@@ -36,26 +38,30 @@ def to_torch(a, device: torch.device | str = "cpu") -> torch.Tensor:
     return torch.tensor(a.view(view[0]), device=device).view(view[1])
 
 
-def _rank_chunk(a, rank: int, dp: int):
+def _rank_chunk(a, rank: int, dp: int, tp_rank: int):
     a = np.asarray(a)
     c = a.shape[-1] // dp
-    return a[..., 0, rank * c:(rank + 1) * c]
+    return a[..., tp_rank, rank * c:(rank + 1) * c]
 
 
 def from_reference(chunks, states, opt, *, groups, rank: int, dp: int,
+                   tp_rank: int = 0,
                    device: torch.device | str = "cpu") -> TrainState:
-    """Rank ``rank``'s train state from the reference's global arrays
-    ``chunks``/``states`` (``{group: {name: array}}``) and ``opt`` (a tuple
-    of chunk-shaped trees)."""
+    """The train state of the rank at data index ``rank`` and model index
+    ``tp_rank`` from the reference's global arrays ``chunks``/``states``
+    (``{group: {name: array}}``) and ``opt`` (a tuple of chunk-shaped
+    trees); ``groups`` are the TP-local declarations (``build_groups(cfg,
+    tp)``)."""
     def chunk_tree(tree):
         return {g.name: {i.name: to_torch(_rank_chunk(tree[g.name][i.name],
-                                                      rank, dp), device)
+                                                      rank, dp, tp_rank),
+                                          device)
                          for i in g.infos} for g in groups}
 
     def state(a):
         if isinstance(a, (tuple, list)):     # per state unit (sync plans)
             return tuple(state(u) for u in a)
-        return to_torch(np.asarray(a)[..., 0, rank, :], device)
+        return to_torch(np.asarray(a)[..., tp_rank, rank, :], device)
 
     st = {g.name: {i.name: state(states[g.name][i.name]) for i in g.infos}
           for g in groups}

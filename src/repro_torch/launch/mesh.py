@@ -1,13 +1,16 @@
-"""The data-parallel process group.
+"""The data-parallel and tensor-parallel process groups.
 
-Port of ``repro.launch.mesh`` for ``tp = 1``: the reference's mesh axes
-``(pod, data)`` become one ``torch.distributed`` group over every rank, rank
-``r = pod * DATA + data`` (the order ``repro.core.comm`` chunks by), so a
-multi-pod layout is a flat group of the same size.  Tensor parallelism is
-not ported yet; :func:`model_group` builds the ``model`` axis's group (one
-singleton per rank at ``tp = 1``), on which the MoE exchange runs.
+Port of ``repro.launch.mesh``: the reference's ``(data, model)`` mesh
+becomes two ``torch.distributed`` groups per rank over a world of
+``dp * tp`` ranks, global rank ``data * TP + model`` (the reference's mesh
+order).  The ``data`` group of a rank holds the ranks with its model index
+(the FSDP chunks, the LoCo and fp gradient sync); the ``model`` group holds
+the ranks with its data index (the tensor-, sequence- and expert-parallel
+collectives of ``models/``).  A multi-pod layout is a flat data group of
+the same size (rank ``pod * DATA + data``, the order ``repro.core.comm``
+chunks by).
 
-On a CUDA device the group runs NCCL, on the CPU gloo.  Without an
+On a CUDA device the groups run NCCL, on the CPU gloo.  Without an
 existing group and without ``torchrun``'s environment, :func:`dp_group`
 starts a world-size-1 group through a ``file://`` rendezvous in a fresh
 temporary directory, so concurrent processes never compete for a port.
@@ -32,11 +35,12 @@ def backend_for(device: torch.device) -> str:
 
 @contextlib.contextmanager
 def dp_group(device: torch.device):
-    """Yield the data-parallel group for ``device``.
+    """Yield the default (world) group for ``device``.
 
     Uses the default group when one exists; joins the ``torchrun`` world
     when its environment is set; otherwise starts a world-size-1 group.  A
-    group started here is destroyed on exit.
+    group started here is destroyed on exit.  At ``tp = 1`` the world is
+    the data-parallel group.
     """
     if dist.is_initialized():
         yield dist.group.WORLD
@@ -57,23 +61,37 @@ def dp_group(device: torch.device):
             dist.destroy_process_group()
 
 
-def model_group(cfg):
-    """This rank's ``model`` process group, on which the MoE ``ep_a2a``
-    exchange runs its all-to-all; None when ``cfg`` has no such exchange
-    (dense models, ``tp_dense``).
+def mesh_groups(tp: int = 1):
+    """``(data group, model group)`` of this rank in a world of
+    ``dp * tp`` ranks, global rank ``data * tp + model``.
 
-    At ``tp = 1`` (all the port has, ROADMAP 6b) that is a singleton group
-    per rank.  ``torch.distributed.new_group`` is collective over the
-    default group, so every rank creates every group, in the same order.
+    ``torch.distributed.new_group`` is collective over the world, so every
+    rank creates every group, in the same order.  At ``tp = 1`` the data
+    group is the world itself and the model groups are singletons (the
+    MoE exchange runs on one); at ``dp = 1`` the model group is the world.
     """
-    if cfg.family != "moe" or cfg.moe_impl != "ep_a2a":
-        return None
-    mine = None
-    for r in range(dist.get_world_size()):
-        g = dist.new_group([r])
-        if r == dist.get_rank():
-            mine = g
-    return mine
+    world, me = dist.get_world_size(), dist.get_rank()
+    if tp < 1 or world % tp:
+        raise ValueError(f"a world of {world} ranks does not split into "
+                         f"tensor-parallel groups of {tp}")
+    dp = world // tp
+    data = model = dist.group.WORLD
+    if tp > 1:
+        for m in range(tp):
+            g = dist.new_group([d * tp + m for d in range(dp)])
+            if me % tp == m:
+                data = g
+    if dp > 1:
+        for d in range(dp):
+            g = dist.new_group([d * tp + m for m in range(tp)])
+            if me // tp == d:
+                model = g
+    return data, model
+
+
+def model_group(tp: int = 1):
+    """This rank's ``model`` process group (:func:`mesh_groups`)."""
+    return mesh_groups(tp)[1]
 
 
 def init_file_group(device: torch.device, rank: int, world_size: int,

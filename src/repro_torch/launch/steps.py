@@ -7,7 +7,15 @@ the bucketed one (``RunConfig.bucket_bytes``/``policy``/``coalesce``, and
   FSDP flat-param chunks (core/flatparam) -> per-layer gather with the LoCo
   backward (core/hijack) -> model forward/backward -> microbatch
   accumulation (one sync per microbatch backward, like PyTorch FSDP) ->
-  global grad-norm clip -> sharded optimizer -> error reset (Eqn. 7).
+  TP-aware global grad-norm clip -> sharded optimizer -> error reset
+  (Eqn. 7).
+
+At ``tp > 1`` the model runs tensor parallelism over the ``model`` group,
+and sequence parallelism too where tp divides the sequence; every rank of
+one data index trains on the same rows, and the norm and the loss are
+reduced over the world.
+Every division of the step's data by a count (microbatches, ranks, tp) is
+one IEEE division on any device (``comm.divide``).
 
 Each step makes the f32 master chunks autograd leaves (one per layer for
 stacked groups, so each layer's synced shard lands in its own ``.grad``),
@@ -29,9 +37,10 @@ from repro_torch.core import flatparam as FP
 from repro_torch.core import loco as loco_lib
 from repro_torch.core import policy as POL
 from repro_torch.core import wirepack as WP
+from repro_torch.core.comm import divide
 from repro_torch.core.flatparam import MeshTopo
 from repro_torch.core.loco import SyncConfig, maybe_reset
-from repro_torch.models.transformer import DecoderLM
+from repro_torch.models.transformer import DecoderLM, build_groups
 from repro_torch.optim import optimizers as OPT
 from repro_torch.optim.schedules import make_schedule
 from repro_torch.telemetry import profiler as PROF
@@ -165,7 +174,7 @@ def _make_opt(run: RunConfig) -> OPT.Optimizer:
 
 def make_init(cfg: ArchConfig, run: RunConfig, topo: MeshTopo,
               device: torch.device, seed: int = 0) -> TrainState:
-    groups = DecoderLM(cfg, topo.tp).groups()
+    groups = build_groups(cfg, topo.tp)
     chunks, states = FP.init_train_state(
         groups, run.sync, topo, device, seed,
         plan=build_sync_plan(run, groups, topo), coalesce=run.coalesce)
@@ -218,7 +227,7 @@ def _grads(leaves: dict, groups, accum: int) -> dict:
         for info in g.infos:
             lv = leaves[g.name][info.name]
             grad = torch.stack([l.grad for l in lv]) if g.stacked else lv.grad
-            og[info.name] = grad / accum
+            og[info.name] = divide(grad, accum)
         out[g.name] = og
     return out
 
@@ -229,13 +238,14 @@ def make_train_step(cfg: ArchConfig, run: RunConfig, topo: MeshTopo,
 
     ``batch["tokens"]`` is the global ``(global_batch, seq_len + 1)`` batch;
     each rank trains on its ``global_batch / dp`` rows in microbatches of
-    ``run.microbatch``.  ``metrics`` holds 0-dim tensors ``loss`` (the
-    total loss, router losses included, mean over the dp group), ``gnorm``
-    (pre-clip global norm) and ``lr``; MoE models add ``moe_aux`` and
-    ``moe_z``, the router losses summed over layers, which ride the loss's
-    one all-reduce and are divided by dp * tp like it.
+    ``run.microbatch`` (the ranks of one data index, the same rows).
+    ``metrics`` holds 0-dim tensors ``loss`` (the total loss, router
+    losses included, mean over the dp x tp ranks), ``gnorm`` (pre-clip
+    global norm) and ``lr``; MoE models add ``moe_aux`` and ``moe_z``, the
+    router losses summed over layers, which ride the loss's one all-reduce
+    and are divided by dp * tp like it.
     """
-    model = DecoderLM(cfg, topo.tp, model_group=topo.model)
+    model = DecoderLM(cfg, topo.tp, model_group=topo.model, sp=True)
     moe_metrics = bool(cfg.n_experts)
     groups = model.groups()
     opt = _make_opt(run)
@@ -276,12 +286,15 @@ def make_train_step(cfg: ArchConfig, run: RunConfig, topo: MeshTopo,
         grads = _grads(leaves, groups, accum)
         del leaves
 
-        # ---- global grad-norm clip -----------------------------------------
+        # ---- global grad-norm clip (TP replication-aware) -------------------
         local_sq = torch.zeros((), dtype=torch.float32, device=device)
         for g in groups:
             for info in g.infos:
-                local_sq = local_sq + torch.sum(grads[g.name][info.name] ** 2)
-        dist.all_reduce(local_sq, group=topo.group)
+                s2 = torch.sum(grads[g.name][info.name] ** 2)
+                if info.tp_dim is None and topo.tp > 1:
+                    s2 = divide(s2, topo.tp)  # every model rank holds it
+                local_sq = local_sq + s2
+        dist.all_reduce(local_sq, group=topo.world)
         gnorm = torch.sqrt(local_sq)
         if run.clip_norm:
             cs = torch.clamp(run.clip_norm / torch.clamp(gnorm, min=1e-12),
@@ -294,12 +307,13 @@ def make_train_step(cfg: ArchConfig, run: RunConfig, topo: MeshTopo,
                                            torch.tensor(step), lr, mask)
         ts.states = reset_states(ts.states, step + 1, groups, run, plan)
 
-        parts = [torch.stack(losses).mean()[None]]
+        # microbatch means: summed in order, then divided (jnp.mean)
+        parts = [divide(sum(losses[1:], losses[0]), accum)[None]]
         if moe_metrics:
-            parts.append(torch.stack(mvs).mean(0))   # [router aux, router z]
+            parts.append(divide(sum(mvs[1:], mvs[0]), accum))  # aux, z
         packed = torch.cat(parts)
-        dist.all_reduce(packed, group=topo.group)
-        packed = packed / (topo.dp * topo.tp)
+        dist.all_reduce(packed, group=topo.world)
+        packed = divide(packed, topo.dp * topo.tp)
         metrics = {"loss": packed[0], "gnorm": gnorm, "lr": lr}
         if moe_metrics:
             metrics["moe_aux"], metrics["moe_z"] = packed[1], packed[2]

@@ -14,9 +14,14 @@
       --sync loco --bucket-mb 4 --policy "embed=loco8,min=1048576" \\
       --seq-len 1024 --global-batch 8 --microbatch 4 --steps 3
 
+  torchrun --nproc-per-node 4 -m repro_torch.launch.train \\
+      --arch llama2-400m --tp 2 --sync loco --seq-len 1024 --global-batch 8
+
 Runs on the CUDA card unless ``--device cpu`` is given; without a card it
-raises rather than fall back.  Under ``torchrun`` every rank joins one NCCL
-(or gloo) data-parallel group; otherwise the run is one rank in a
+raises rather than fall back.  Under ``torchrun`` the world of ``dp * tp``
+ranks splits into ``--tp``-rank model groups (tensor, sequence and expert
+parallelism) and ``dp``-rank data groups (global rank ``data * tp +
+model``, ``launch.mesh.mesh_groups``); otherwise the run is one rank in a
 world-size-1 group.  Prints the reference's ``step N loss=... gnorm=...
 lr=... tok/s=...`` lines (MoE models add the router losses ``moe_aux`` and
 ``moe_z``); ``tok/s`` leaves out the first step, which pays the warm-up
@@ -60,6 +65,8 @@ def build_args(argv=None):
     ap.add_argument("--seq-len", type=int, default=128)
     ap.add_argument("--global-batch", type=int, default=8)
     ap.add_argument("--microbatch", type=int, default=1)
+    ap.add_argument("--tp", type=int, default=1,
+                    help="tensor-parallel degree; dp = world size / tp")
     ap.add_argument("--sync", default="loco",
                     choices=["fp", "loco", "ef", "naive4", "onebit"])
     ap.add_argument("--moe-a2a", default=None, choices=["fp", "block8"],
@@ -161,8 +168,9 @@ def main(argv=None) -> dict:
     cuda = device.type == "cuda"
     losses: list[float] = []
     router: dict[str, list[float]] = {"moe_aux": [], "moe_z": []}
-    with mesh.dp_group(device) as group:
-        topo = MeshTopo.from_group(group, model=mesh.model_group(cfg))
+    with mesh.dp_group(device):
+        data, model = mesh.mesh_groups(args.tp)
+        topo = MeshTopo.from_group(data, model=model)
         step_fn = make_train_step(cfg, run, topo, device, shape)
         groups = build_groups(cfg, topo.tp)
         plan = build_sync_plan(run, groups, topo)

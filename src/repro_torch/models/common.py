@@ -1,10 +1,36 @@
-"""Layer library of the dense decoder at ``tp = 1``.
+"""Manual-tensor-parallel layer library of the decoder.
 
-Port of the training path of ``repro.models.common``: norms, the linears,
-rotary embeddings, causal attention, embedding / logits / cross entropy and
-the head layout.  Tensor parallelism is not ported yet, so the reference's
-``model``-axis psums are the identity here and ``col_linear``/``row_linear``
-are plain matmuls.
+Port of the training path of ``repro.models.common``: norms, the parallel
+linears, rotary embeddings, causal attention, the vocab-parallel
+embedding / logits / cross entropy, the head layout, and the ``model``
+group collectives of Megatron-style tensor and sequence parallelism.
+
+Conventions (the reference's): activations ``(B, S, d)`` are replicated
+over the ``model`` group, or under sequence parallelism (``sp``) each rank
+holds the ``(B, S/tp, d)`` sequence shard between blocks; weights are
+TP-sharded by their ``ParamInfo.tp_dim``; a column-parallel matmul gives
+local features, a row-parallel one partial sums, finished by one psum (or
+under ``sp`` one reduce-scatter over the sequence) per block.  Every
+collective takes the ``model`` process group; a ``group`` of None means
+``tp = 1``, where the functions issue no collective at all.
+
+The collectives are ``torch.autograd.Function``s whose backward is the
+transpose the reference's ``shard_map`` (``check_vma=False``) gives each
+forward:
+
+=========================  ===========================
+forward                    backward
+all-gather (sequence)      reduce-scatter (sequence)
+reduce-scatter (sequence)  all-gather (sequence)
+psum                       psum
+=========================  ===========================
+
+and ``hijack.replicated_grad_psum`` (identity forward, psum backward) for
+the TP-replicated weights.  So, as in the reference, a rank's gradient is
+that of the sum of the ``tp`` ranks' losses (each rank's loss is the full
+loss: ``tp`` times its gradient, clipped by the global norm).
+``torch.distributed``'s tensor collectives split dim 0, so a sequence
+(dim 1) collective moves that axis to the front and makes it contiguous.
 
 Attention is plain tensor ops: scores and softmax in f32 over bf16 inputs
 that were scaled in f32 and rounded back to bf16, as the reference does
@@ -18,6 +44,9 @@ import dataclasses
 import math
 
 import torch
+import torch.distributed as dist
+
+from repro_torch.core.comm import all_gather_flat, psum_scatter_flat
 
 NEG_INF = -1e30
 
@@ -54,17 +83,106 @@ def norm(kind: str, x, scale, eps=1e-5):
 
 
 # ---------------------------------------------------------------------------
-# linears (tp = 1: the reference's column/row-parallel matmuls, no psum)
+# model-group collectives
+# ---------------------------------------------------------------------------
+
+def tp_size(group) -> int:
+    return 1 if group is None else dist.get_world_size(group)
+
+
+def tp_rank(group) -> int:
+    return 0 if group is None else dist.get_rank(group)
+
+
+def _gather(x, dim: int, group):
+    """All-gather along ``dim`` in rank order."""
+    return all_gather_flat(x.movedim(dim, 0), group).movedim(0, dim)
+
+
+def _scatter(x, dim: int, group):
+    """Sum over the group, keeping this rank's block of ``dim``."""
+    return psum_scatter_flat(x.movedim(dim, 0), group).movedim(0, dim)
+
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.group = dim, group
+        return _gather(x, dim, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _scatter(g, ctx.dim, ctx.group), None, None
+
+
+class _ReduceScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.group = dim, group
+        return _scatter(x, dim, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _gather(g, ctx.dim, ctx.group), None, None
+
+
+def _all_reduce(x, group):
+    out = x.contiguous().clone()
+    dist.all_reduce(out, group=group)
+    return out
+
+
+class _Psum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _all_reduce(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce(g, ctx.group), None
+
+
+def psum_tp(x, group):
+    """Sum over the ``model`` group (backward: the sum of the gradients)."""
+    return _Psum.apply(x, group)
+
+
+def all_gather_tp(x, group, dim: int = 0):
+    """All-gather along ``dim`` over the ``model`` group (backward: the
+    reduce-scatter)."""
+    return _AllGather.apply(x, dim, group)
+
+
+def sp_gather(x, group):
+    """(B, S/tp, d) activation shard -> (B, S, d) (sequence-parallel
+    entry of a block, and exit before the final norm)."""
+    return _AllGather.apply(x, 1, group)
+
+
+def sp_scatter_sum(x_partial, group):
+    """Partial (B, S, d) -> summed (B, S/tp, d) shard."""
+    return _ReduceScatter.apply(x_partial, 1, group)
+
+
+# ---------------------------------------------------------------------------
+# parallel linears (no bias, per the ported archs)
 # ---------------------------------------------------------------------------
 
 def col_linear(x, w):
-    """(.., d) @ (d, f) -> (.., f)."""
+    """(.., d) @ (d, f_local) -> (.., f_local); purely local."""
     return x @ w
 
 
-def row_linear(x, w):
-    """(.., f) @ (f, d) -> (.., d)."""
-    return x @ w
+def row_linear(x_local, w, group=None, sp: bool = False):
+    """(.., f_local) @ (f_local, d) -> (.., d), finished over the model
+    group by a psum or, under ``sp``, a reduce-scatter over the sequence
+    (the caller's S/tp shard); at ``tp = 1`` (``group`` None) the plain
+    matmul."""
+    y = x_local @ w
+    if group is None:
+        return y
+    return sp_scatter_sum(y, group) if sp else psum_tp(y, group)
 
 
 # ---------------------------------------------------------------------------
@@ -110,30 +228,56 @@ def causal_attention(q, k, v, scale: float | None = None):
 
 
 # ---------------------------------------------------------------------------
-# embedding / logits / cross entropy
+# vocab-parallel embedding / logits / cross entropy
 # ---------------------------------------------------------------------------
 
-def embed(emb, ids):
-    """emb: (V, d); ids: (B, S) token ids -> (B, S, d)."""
-    return torch.nn.functional.embedding(ids, emb)
+def vocab_parallel_embed(emb, ids, group=None, sp: bool = False):
+    """emb: (V_local, d) local slice; ids: (B, S) global token ids ->
+    (B, S, d), or under ``sp`` the (B, S/tp, d) sequence shard."""
+    if group is None:
+        return torch.nn.functional.embedding(ids, emb)
+    vl = emb.shape[0]
+    local = ids - tp_rank(group) * vl
+    ok = (local >= 0) & (local < vl)
+    e = torch.nn.functional.embedding(local.clamp(0, vl - 1), emb)
+    e = torch.where(ok[..., None], e, torch.zeros((), dtype=e.dtype,
+                                                  device=e.device))
+    return sp_scatter_sum(e, group) if sp else psum_tp(e, group)
 
 
-def logits(x, w_head):
-    """x: (B, S, d); w_head: (d, V) -> (B, S, V)."""
+def vocab_parallel_logits(x, w_head):
+    """x: (B, S, d); w_head: (d, V_local) -> local logits (B, S, V_local)."""
     return x @ w_head
 
 
-def xent(logits_, targets, vocab: int):
-    """Mean cross entropy over (B, S) targets, in f32, with the reference's
-    formulation: log-sum-exp around a max that carries no gradient."""
-    lg = logits_.float()
-    if lg.shape[-1] > vocab:  # padded vocab tail
-        lg = lg.masked_fill(torch.arange(lg.shape[-1], device=lg.device)
+def vocab_parallel_xent(local_logits, targets, vocab: int, group=None):
+    """Mean cross entropy over TP-sharded logits, in f32, with the
+    reference's formulation: log-sum-exp around a max that carries no
+    gradient (gathered from every rank), the padded vocab tail (columns
+    ``>= vocab``, on the last rank) masked.  local_logits: (B, S, V_local);
+    targets: (B, S) global ids < vocab."""
+    lg = local_logits.float()
+    vl = lg.shape[-1]
+    col0 = tp_rank(group) * vl
+    if col0 + vl > vocab:  # padded vocab tail
+        lg = lg.masked_fill(torch.arange(col0, col0 + vl, device=lg.device)
                             >= vocab, NEG_INF)
     m = lg.amax(dim=-1).detach()
+    if group is not None:
+        with torch.no_grad():
+            m = all_gather_flat(m[None], group).amax(dim=0)
     se = torch.exp(lg - m[..., None]).sum(dim=-1)
+    if group is not None:
+        se = psum_tp(se, group)
     lse = m + torch.log(se)
-    tl = torch.gather(lg, -1, targets[..., None])[..., 0]
+    if group is None:
+        tl = torch.gather(lg, -1, targets[..., None])[..., 0]
+    else:
+        local_t = targets - col0
+        ok = (local_t >= 0) & (local_t < vl)
+        tl = torch.gather(lg, -1, local_t.clamp(0, vl - 1)[..., None])[..., 0]
+        tl = psum_tp(torch.where(ok, tl, torch.zeros((), device=tl.device)),
+                     group)
     return torch.mean(lse - tl)
 
 
@@ -174,15 +318,22 @@ class HeadLayout:
     def kvl(self) -> int:  # local kv heads
         return self.kv_pad // self.tp if self.kv_sharded else self.n_kv
 
-    def kv_map(self, device) -> torch.Tensor:
+    @property
+    def kv_identity(self) -> bool:
+        """Each local q head has its own local kv head, in order."""
+        return self.kv_sharded and self.n_heads == self.n_kv
+
+    def kv_map(self, device, rank: int = 0) -> torch.Tensor:
         """(hl,) indices into the local kv head axis for each local q head
-        (tp = 1: kv heads are never replicated across ranks)."""
+        of model rank ``rank``."""
         group = self.n_heads // self.n_kv
-        return torch.arange(self.hl, device=device) // group
+        if self.kv_sharded:
+            return torch.arange(self.hl, device=device) // group
+        # kv replicated over the model group: map by the *global* q index
+        gq = rank * self.hl + torch.arange(self.hl, device=device)
+        return torch.clamp(gq // group, 0, self.n_kv - 1)
 
 
 def expand_kv(k, kv_map):
     """k: (B, S, KVl, hd) -> (B, S, Hl, hd) by gathering per-q-head kv."""
-    if kv_map.shape[0] == k.shape[2]:
-        return k  # one kv head per q head: the gather is the identity
     return torch.index_select(k, 2, kv_map)

@@ -1,4 +1,4 @@
-"""Mixture-of-Experts layer at ``tp = 1``.
+"""Mixture-of-Experts layer.
 
 Port of ``repro.models.moe``: top-k softmax routing with renormalized
 weights and group-limited (DeepSeek-V3) selection, capacity-slot dispatch
@@ -8,29 +8,37 @@ z-loss.
 
 Two schedules, as in the reference:
 
-* ``tp_dense``: every rank holds every expert; dispatch and combine are
-  local scatters and gathers;
-* ``ep_a2a``: experts are sharded over the ``model`` group and the
-  ``(tp, El, cap, d)`` slot buffer crosses it by all-to-all, on dispatch
-  and on combine, through :mod:`repro_torch.core.act_comm` (``fp``: raw
-  bf16; ``block8``: int8 block-absmax, forward and backward).  At ``tp = 1``
-  the group has one rank and the exchange moves nothing, but the block8
+* ``tp_dense``: every rank holds a d_ff slice of every expert; dispatch
+  and combine are local scatters and gathers, and the block ends in a
+  psum (a reduce-scatter over the sequence under sequence parallelism);
+* ``ep_a2a``: experts are sharded over the ``model`` group; each rank
+  routes its batch-major slice of the (padded) tokens, and the
+  ``(tp, El, cap, d)`` slot buffer crosses the group by all-to-all, on
+  dispatch and on combine, through :mod:`repro_torch.core.act_comm`
+  (``fp``: raw bf16; ``block8``: int8 block-absmax, forward and
+  backward); an all-gather re-replicates the tokens.  At ``tp = 1`` the
+  group has one rank and the exchange moves nothing, but the block8
   quantize and dequantize run as they do in the reference.
+
+Under sequence parallelism ``ep_a2a`` returns the sequence shard of what
+it computes without it: the all-gather, then the rank's S/tp columns of
+every row.  (The reference returns its token slice reshaped as the shard,
+``repro/models/moe.py`` "sp composes with EP for free", which is the
+shard only when a microbatch has one row.)
 
 Scatters are written so that the card gives the reference's bf16 sums in
 a fixed order: the dispatch adds exactly one token (or exact zeros) to
 each slot, and the combine sums a token's k expert outputs in order
 j = 0..k-1 on a ``(T, k, d)`` view instead of with an atomic scatter-add.
-Tensor parallelism (``tp > 1``) is not ported yet (ROADMAP.md).
 """
 from __future__ import annotations
 
 import math
 
 import torch
-import torch.distributed as dist
 
 from repro_torch.core import act_comm as ACT
+from repro_torch.models import common as C
 
 
 def route(x2d, w_router, top_k: int, n_experts: int,
@@ -133,16 +141,22 @@ def _combine(ye, slot, valid, topv, k: int):
 
 
 def moe_block(x, p, cfg, group=None, *,
-              deterministic_capacity: int | None = None):
-    """x: (B, S, d) -> (y (B, S, d), aux losses {"aux", "z"}).
+              deterministic_capacity: int | None = None, sp: bool = False):
+    """x: (B, S, d), replicated over the model group -> (y, aux losses
+    {"aux", "z"}); y is (B, S, d), or under ``sp`` this rank's
+    (B, S/tp, d) sequence shard of it.
 
-    p: router (d, E), w1/w3 (E, d, f), w2 (E, f, d), and ws1/ws3/ws2 when
-    ``cfg.n_shared_experts``.  ``group`` is the ``model`` process group
-    (``ep_a2a`` only).
+    p: router (d, E); w1/w3 (E, d, f_local) and w2 (E, f_local, d) for
+    ``tp_dense``, (E/tp, d, f) and (E/tp, f, d) for ``ep_a2a``; ws1/ws3
+    (d, fs/tp) and ws2 (fs/tp, d) when ``cfg.n_shared_experts``.
+    ``group`` is the ``model`` process group (``ep_a2a`` always needs one;
+    ``tp_dense`` at tp > 1).
     """
     B, S, d = x.shape
     E, k = cfg.n_experts, cfg.top_k
     x2d = x.reshape(B * S, d)
+    tp = C.tp_size(group)
+    tpg = group if tp > 1 else None
 
     if cfg.moe_impl == "tp_dense":
         cap = deterministic_capacity or _capacity(B * S, cfg)
@@ -151,35 +165,57 @@ def moe_block(x, p, cfg, group=None, *,
         slot, valid = _dispatch_indices(topi, E, cap)
         xe = _dispatch(x2d, slot, valid, k, E * cap).reshape(E, cap, d)
         ye = _expert_ffn(xe, p["w1"], p["w3"], p["w2"]).reshape(E * cap, d)
-        y2d = _combine(ye, slot, valid, topv, k)
+        y2d = _combine(ye, slot, valid, topv, k)  # partial over d_ff slices
         if cfg.n_shared_experts:
             y2d = y2d + _shared_ffn(x2d, p).to(x.dtype)
-        return y2d.reshape(B, S, d), aux
+        y = y2d.reshape(B, S, d)
+        if tpg is None:
+            return y, aux
+        return (C.sp_scatter_sum(y, tpg) if sp else C.psum_tp(y, tpg)), aux
 
     if cfg.moe_impl != "ep_a2a":
         raise ValueError(f"unknown moe_impl {cfg.moe_impl!r}")
     if group is None:
         raise ValueError("ep_a2a needs the model process group "
-                         "(launch.mesh.model_group)")
-    tp = dist.get_world_size(group)
-    if tp != 1:
-        raise NotImplementedError("expert parallelism over tp > 1 is not "
-                                  "ported yet (ROADMAP.md, item 6b)")
-    El, Tl = E // tp, B * S
+                         "(launch.mesh.mesh_groups)")
+    # experts sharded over the model group, tokens too for the interior:
+    # pad the tokens to a multiple of tp, each rank routes its batch-major
+    # slice of Tl of them
+    El, T0 = E // tp, B * S
+    Tpad = -(-T0 // tp) * tp
+    if Tpad != T0:
+        x2d = torch.cat([x2d, x2d.new_zeros(Tpad - T0, d)])
+    Tl, r = Tpad // tp, C.tp_rank(group)
+    # (at tp = 1 the whole token set, unsliced: a slice would regroup the
+    # bf16 sums of the tokens' gradient)
+    xs = x2d if tpg is None else x2d[r * Tl:(r + 1) * Tl]
     cap = deterministic_capacity or _capacity(Tl, cfg)
-    topv, topi, aux = route(x2d, p["router"], k, E, cfg.n_expert_groups,
+    topv, topi, aux = route(xs, p["router"], k, E, cfg.n_expert_groups,
                             cfg.group_top_k)
     slot, valid = _dispatch_indices(topi, E, cap)
     # valid-masked scatter: dead capacity slots are exactly 0 in the slot
     # buffer, the precondition of the block-absmax encode
-    xe = _dispatch(x2d, slot, valid, k, E * cap).reshape(tp, El, cap, d)
+    xe = _dispatch(xs, slot, valid, k, E * cap).reshape(tp, El, cap, d)
     exchange = ACT.a2a_raw if cfg.moe_a2a_codec == "fp" else ACT.a2a_exchange
     xe = exchange(xe, group)                       # dispatch: (tp, El, cap, d)
     xe = xe.transpose(0, 1).reshape(El, tp * cap, d)
     ye = _expert_ffn(xe, p["w1"], p["w3"], p["w2"])
     ye = ye.reshape(El, tp, cap, d).transpose(0, 1)
     ye = exchange(ye, group).reshape(E * cap, d)   # combine
-    y2d = _combine(ye, slot, valid, topv, k)
+    ys = _combine(ye, slot, valid, topv, k)
     if cfg.n_shared_experts:
-        y2d = y2d + _shared_ffn(x2d, p).to(x.dtype)
-    return y2d.reshape(B, S, d), aux
+        # the shared-expert psum reduces d_ff-slice partials of the SAME
+        # tokens: computed on the whole padded token set, then sliced
+        shared = _shared_ffn(x2d, p).to(x.dtype)
+        if tpg is not None:
+            shared = C.psum_tp(shared, tpg)[r * Tl:(r + 1) * Tl]
+        ys = ys + shared
+    if tpg is None:
+        return ys.reshape(B, S, d), aux
+    y = C.all_gather_tp(ys, tpg)[:T0].reshape(B, S, d)  # re-replicate
+    if sp:
+        # this rank's sequence shard of every row: the rank's token slice
+        # is batch-major and is the shard only when a row is alone
+        s = S // tp
+        y = y[:, r * s:(r + 1) * s]
+    return y, aux

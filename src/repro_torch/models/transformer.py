@@ -8,6 +8,12 @@ with ``remat`` the layer runs under ``torch.utils.checkpoint``
 (non-reentrant), the counterpart of the reference's ``jax.checkpoint`` over
 its layer scan: the recomputation regathers the layer's weights.
 
+At ``tp > 1`` the model runs Megatron-style tensor parallelism over the
+``model`` process group (:mod:`repro_torch.models.common`): vocab-parallel
+embedding, logits and loss, column/row-parallel attention and MLP, and in
+training sequence parallelism between the blocks; the MoE family shards
+its experts over the same group (:mod:`repro_torch.models.moe`).
+
 Only what llama2-400m and deepseek-v3-moe use is ported (full causal GQA
 attention, RMSNorm, SwiGLU, untied embeddings; the MoE family with the
 ``fp`` and ``block8`` activation codecs); other features and families wait
@@ -152,34 +158,51 @@ def _qkv(p, x, lay: HeadLayout, cfg: ArchConfig, positions):
     return q, k, v
 
 
-def attention_block(p, x, cfg: ArchConfig, lay: HeadLayout, positions):
-    """Returns the attention output (pre-residual)."""
+def attention_block(p, x, cfg: ArchConfig, lay: HeadLayout, positions,
+                    group=None, sp: bool = False):
+    """Returns the attention output (pre-residual).  ``group``: the model
+    group (None at ``tp = 1``).  Under ``sp`` x is the (B, S/tp, d)
+    sequence shard: the norm runs on the shard, the block gathers the full
+    sequence for attention and returns a reduce-scattered shard."""
     h = C.norm(cfg.norm, x, p["norm1"])
+    if sp:
+        h = C.sp_gather(h, group)
     B, S, _ = h.shape
     q, k, v = _qkv(p, h, lay, cfg, positions)
-    kv_map = lay.kv_map(x.device)
-    out = C.causal_attention(q, C.expand_kv(k, kv_map), C.expand_kv(v, kv_map))
+    if not lay.kv_identity:
+        kv_map = lay.kv_map(x.device, C.tp_rank(group))
+        k, v = C.expand_kv(k, kv_map), C.expand_kv(v, kv_map)
+    out = C.causal_attention(q, k, v)
     out = out.reshape(B, S, lay.hl * lay.head_dim)
-    return C.row_linear(out, p["wo"])
+    return C.row_linear(out, p["wo"], group, sp)
 
 
-def mlp_block(p, x, cfg: ArchConfig):
+def mlp_block(p, x, cfg: ArchConfig, group=None, sp: bool = False):
     h = C.norm(cfg.norm, x, p["norm2"])
+    if sp:
+        h = C.sp_gather(h, group)
     a = C.col_linear(h, p["w1"])
     b = C.col_linear(h, p["w3"])
-    return C.row_linear(torch.nn.functional.silu(a) * b, p["w2"])
+    return C.row_linear(torch.nn.functional.silu(a) * b, p["w2"], group, sp)
 
 
-def dense_block(p, x, cfg: ArchConfig, lay: HeadLayout, positions):
-    x = x + attention_block(p, x, cfg, lay, positions)
-    return x + mlp_block(p, x, cfg)
+def dense_block(p, x, cfg: ArchConfig, lay: HeadLayout, positions,
+                group=None, sp: bool = False):
+    x = x + attention_block(p, x, cfg, lay, positions, group, sp)
+    return x + mlp_block(p, x, cfg, group, sp)
 
 
-def moe_layer(p, x, cfg: ArchConfig, lay: HeadLayout, positions, group):
-    """Attention then the MoE FFN; returns (x, router aux, router z)."""
-    x = x + attention_block(p, x, cfg, lay, positions)
+def moe_layer(p, x, cfg: ArchConfig, lay: HeadLayout, positions, group,
+              sp: bool = False):
+    """Attention then the MoE FFN; returns (x, router aux, router z).
+    ``group``: the model group (the expert exchange runs on it also at
+    ``tp = 1``)."""
+    tpg = group if C.tp_size(group) > 1 else None
+    x = x + attention_block(p, x, cfg, lay, positions, tpg, sp)
     h = C.norm(cfg.norm, x, p["norm2"])
-    y, aux = MOE.moe_block(h, p, cfg, group)
+    if sp:
+        h = C.sp_gather(h, tpg)
+    y, aux = MOE.moe_block(h, p, cfg, group, sp=sp)
     return x + y, aux["aux"], aux["z"]
 
 
@@ -191,25 +214,38 @@ def moe_layer(p, x, cfg: ArchConfig, lay: HeadLayout, positions, group):
 class DecoderLM:
     cfg: ArchConfig
     tp: int = 1
-    # the ``model`` process group the MoE ep_a2a exchange runs on
+    # the ``model`` process group: tensor-parallel collectives at tp > 1,
+    # the MoE ep_a2a exchange at any tp
     model_group: object = dataclasses.field(default=None, compare=False)
+    sp: bool = False  # Megatron sequence parallelism (training only)
 
     def __post_init__(self):
-        if self.tp != 1:
-            raise NotImplementedError("tensor parallelism is not ported yet")
         check_supported(self.cfg)
+        if self.tp > 1 and C.tp_size(self.model_group) != self.tp:
+            raise ValueError(f"tp={self.tp} needs a model group of that "
+                             "size (launch.mesh.mesh_groups)")
 
     def groups(self) -> list[ParamGroup]:
         return build_groups(self.cfg, self.tp)
 
+    @property
+    def tp_group(self):
+        """The model group of the TP collectives (None at tp = 1, where
+        the model issues none)."""
+        return self.model_group if self.tp > 1 else None
+
     def forward(self, store, tokens, *, remat: bool = True):
-        """tokens: (B, S) -> (logits (B, S, V), aux {"aux", "z"}): the
-        router losses summed over layers (zeros for the dense family)."""
+        """tokens: (B, S) -> (local logits (B, S, V_local), aux {"aux",
+        "z"}): the router losses summed over layers (zeros for the dense
+        family).  Sequence parallelism runs when ``sp``, ``tp > 1`` and
+        ``tp`` divides S, as in the reference."""
         cfg = self.cfg
         S = tokens.shape[1]
+        tpg = self.tp_group
+        sp = self.sp and self.tp > 1 and S % self.tp == 0
         positions = torch.arange(S, device=tokens.device)
         emb = store.group("embed")["tok"]
-        x = C.embed(emb, tokens)
+        x = C.vocab_parallel_embed(emb, tokens, tpg, sp)
         lay = head_layout(cfg, self.tp)
         aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
         z = torch.zeros((), dtype=torch.float32, device=tokens.device)
@@ -219,8 +255,8 @@ class DecoderLM:
                 p = store.layer("block", l)
                 if cfg.family == "moe":
                     return moe_layer(p, xc, cfg, lay, positions,
-                                     self.model_group)
-                return dense_block(p, xc, cfg, lay, positions)
+                                     self.model_group, sp)
+                return dense_block(p, xc, cfg, lay, positions, tpg, sp)
 
             out = checkpoint(body, x, use_reentrant=False) if remat else body(x)
             if cfg.family == "moe":
@@ -229,9 +265,11 @@ class DecoderLM:
             else:
                 x = out
 
+        if sp:
+            x = C.sp_gather(x, tpg)  # exit sequence parallelism
         fin = store.group("final")
         x = C.norm(cfg.norm, x, fin["norm_f"])
-        return C.logits(x, fin["head"]), {"aux": aux, "z": z}
+        return C.vocab_parallel_logits(x, fin["head"]), {"aux": aux, "z": z}
 
     def loss_fn(self, store, batch, remat: bool = True):
         """-> (total loss, {"ce", "aux", "z"}); the total adds the router
@@ -239,7 +277,8 @@ class DecoderLM:
         tokens = batch["tokens"]
         inputs, targets = tokens[:, :-1], tokens[:, 1:]
         logits, aux = self.forward(store, inputs, remat=remat)
-        loss = C.xent(logits, targets, self.cfg.vocab)
+        loss = C.vocab_parallel_xent(logits, targets, self.cfg.vocab,
+                                     self.tp_group)
         total = loss
         if self.cfg.n_experts:
             total = (total + self.cfg.aux_loss_coef * aux["aux"]

@@ -9,7 +9,9 @@ training CLI prints :func:`format_report` of its plan at startup.
 
 Conventions (the reference's): byte counts are per rank per sync of one
 parameter instance, times ``layers`` for stacked groups; ``fp`` buckets
-count the bf16 reduce-scatter wire (2 bytes per element).  The port's dp
+count the bf16 reduce-scatter wire (2 bytes per element).  At ``tp > 1``
+the plan is built from a rank's TP-local tensors, so the report gives
+what that rank sends over its data group.  The port's dp
 group is one flat group (one pod); hierarchical, multi-tier and top-k
 buckets, and with them the reference's DCN/WAN split and tier legs, are
 not ported yet (ROADMAP item 11) and raise ``NotImplementedError``.

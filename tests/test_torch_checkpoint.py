@@ -17,7 +17,10 @@ without ``reshard`` names the differing fields; a corrupted newest
 checkpoint falls back to the previous one; ``keep`` prunes; a v1 manifest
 still restores.  The port's ``reshard`` gives the reference's
 ``repro.state.reshard.reshard`` byte for byte on the same stored arrays
-(dp 2 -> 4, 2 -> 1, 4 -> 2, bucket size, policy, monolithic <-> planned).
+(dp 2 -> 4, 2 -> 1, 4 -> 2, bucket size, policy, monolithic <-> planned;
+EF (bf16 error), onebit and naive4 states and an ``embed=ef,body=onebit``
+mix; reduced deepseek-v3-moe; dp 2 -> 1 and 2 -> 4 at tp 2), with the
+fingerprints equal as JSON; resharding across tp is refused.
 
 Across frameworks: ``repro`` trains reduced llama2-400m bucketed for 2
 steps and checkpoints; the port's CLI (``--device cpu``) restores it and
@@ -28,7 +31,12 @@ shapes, dtypes and bytes with the reference's own fingerprint, the port's
 ranks resume it bit for bit, and the port reshards its trained errors
 onto dp = 1 as the reference does, byte for byte.  The CLI refuses a
 resume under another bucket layout unless told to reshard, and then
-continues with the uninterrupted run's losses.
+continues with the uninterrupted run's losses.  At dp 2 x tp 2 (four
+spawned ranks, global rank ``data * 2 + model``) the port writes the
+reference's npz entries byte for byte for the same arrays, with the
+reference's fingerprint, and resumes the reference's checkpoint, each rank
+its ``(data, model)`` piece bit for bit, continuing within the loss
+limits of the reference's own continuation.
 """
 import dataclasses
 import json
@@ -44,7 +52,8 @@ import torch.distributed as dist
 import torch.multiprocessing as tmp
 
 from repro.checkpoint import checkpoint as JCKPT
-from repro.configs.base import ShapeConfig as JShape
+from repro.configs.base import ShapeConfig as JShape, get_arch as jget_arch
+from repro.configs.base import reduced as jreduced
 from repro.core import flatparam as JFP
 from repro.core import policy as JPOL
 from repro.core.loco import SyncConfig as JSync
@@ -54,7 +63,8 @@ from repro.state import logical as jlogical
 from repro.state import serial as jserial
 from repro.state.reshard import reshard as jreshard
 from repro_torch.checkpoint import checkpoint as CKPT
-from repro_torch.configs.base import ShapeConfig
+from repro_torch import interop
+from repro_torch.configs.base import ShapeConfig, get_arch, reduced
 from repro_torch.core import policy as TPOL
 from repro_torch.core import quantizer as Q
 from repro_torch.core.flatparam import MeshTopo
@@ -77,7 +87,15 @@ RUNS = {"mono": (0, None), "A": (64 << 10, "embed=loco8,norm=fp,min=16384"),
         "B": (128 << 10, "embed=loco8"),
         # A's policy at B's bucket size; B's policy at A's bucket size
         "A128": (128 << 10, "embed=loco8,norm=fp,min=16384"),
-        "B64": (64 << 10, "embed=loco8")}
+        "B64": (64 << 10, "embed=loco8"),
+        # the other stateful and stateless codecs, and a mix of two
+        "ef": (64 << 10, "embed=ef,body=ef"),
+        "onebit": (64 << 10, "embed=onebit,body=onebit"),
+        "naive4": (64 << 10, "embed=naive4,body=naive4"),
+        "mixed": (64 << 10, "embed=ef,body=onebit")}
+ARCHS = {"llama": (JCFG, TCFG),
+         "deepseek": (jreduced(jget_arch("deepseek-v3-moe")),
+                      reduced(get_arch("deepseek-v3-moe")))}
 
 
 def _run(name, coalesce=True, jax_side=False):
@@ -93,18 +111,19 @@ def _run(name, coalesce=True, jax_side=False):
 RUN_A, RUN_B, RUN_MONO = _run("A"), _run("B"), _run("mono")
 
 
-def _topo(dp):
-    return MeshTopo(group=None, dp=dp, rank=0)
+def _topo(dp, tp=1):
+    return MeshTopo(group=None, dp=dp, rank=0, tp=tp)
 
 
-def make_layout(run, dp):
-    """(fingerprint, global meta template) of one run at one dp size."""
-    topo = _topo(dp)
-    groups = build_groups(TCFG, 1)
+def make_layout(run, dp, tp=1, arch="llama"):
+    """(fingerprint, global meta template) of one run at one dp x tp."""
+    cfg = ARCHS[arch][1]
+    topo = _topo(dp, tp)
+    groups = build_groups(cfg, tp)
     plan = tsteps.build_sync_plan(run, groups, topo)
-    ts = tsteps.make_init(TCFG, run, topo, torch.device("cpu"))
+    ts = tsteps.make_init(cfg, run, topo, torch.device("cpu"))
     return (tsteps.state_fingerprint(run, groups, topo, plan),
-            CKPT.global_template(ts, dp))
+            CKPT.global_template(ts, dp, tp))
 
 
 # decoded compensation errors of the random states: about a gradient's
@@ -116,13 +135,15 @@ QC = Q.QuantConfig()
 
 def random_state(tmpl, seed=0):
     """Template -> random global state: f32 chunks and moments of about
-    1e-4, compressor errors of about ``ERR`` stored through the f8 codec,
-    stateless dummies zero."""
+    1e-4, compressor errors of about ``ERR`` stored through the f8 codec
+    (LoCo) or as bf16 (EF, onebit), stateless dummies zero."""
     gen = torch.Generator().manual_seed(seed)
     flat = {}
     for k, t in serial.flatten(tmpl).items():
         if t.shape[-1] == 1 and t.dtype == torch.float32:
             flat[k] = torch.zeros(t.shape)
+        elif k.startswith("states/") and t.dtype == torch.bfloat16:
+            flat[k] = (torch.randn(t.shape, generator=gen) * ERR).to(t.dtype)
         elif k.startswith("states/"):
             assert t.dtype == torch.float8_e4m3fn, k
             flat[k] = Q.error_encode(
@@ -285,7 +306,7 @@ def test_monolithic_to_planned_and_back():
 
 
 # the port's reshard against the reference's, on the same stored arrays:
-# case -> ((source run, dp), (target run, dp))
+# case -> (source, target), each (run, dp) or (run, dp, tp, arch)
 RESHARDS = {
     "identity": (("A", 2), ("A", 2)),
     "dp2-dp4-bucket-policy": (("A", 2), ("B", 4)),
@@ -295,18 +316,33 @@ RESHARDS = {
     "policy": (("A", 2), ("B64", 2)),
     "mono-planned": (("mono", 2), ("B", 4)),
     "planned-mono": (("A", 4), ("mono", 2)),
+    "ef-dp2-dp4": (("ef", 2), ("ef", 4)),
+    "onebit-dp2-dp1": (("onebit", 2), ("onebit", 1)),
+    "naive4-dp2-dp4": (("naive4", 2), ("naive4", 4)),
+    "mixed-dp4-dp2": (("mixed", 4), ("mixed", 2)),
+    "mixed-to-loco": (("mixed", 2), ("A", 2)),
+    "deepseek-dp2-dp4": (("A", 2, 1, "deepseek"), ("B", 4, 1, "deepseek")),
+    "deepseek-identity": (("A", 1, 1, "deepseek"), ("A", 1, 1, "deepseek")),
+    "tp2-dp2-dp1": (("A", 2, 2, "llama"), ("A", 1, 2, "llama")),
+    "tp2-deepseek-dp2-dp4": (("A", 2, 2, "deepseek"),
+                             ("B", 4, 2, "deepseek")),
 }
-_JGROUPS = []
+_JGROUPS = {}
 
 
-def reference_layout(name, dp):
-    """(fingerprint, zero template) of one run at one dp size, built by
+def _layout_spec(spec):
+    """(run, dp) or (run, dp, tp, arch) -> (run, dp, tp, arch)."""
+    return (*spec, 1, "llama")[:4]
+
+
+def reference_layout(name, dp, tp=1, arch="llama"):
+    """(fingerprint, zero template) of one run at one dp x tp, built by
     the reference."""
-    if not _JGROUPS:
-        _JGROUPS.append(jsteps.build_model(JCFG, 1).groups())
-    jgroups = _JGROUPS[0]
+    if (arch, tp) not in _JGROUPS:
+        _JGROUPS[arch, tp] = jsteps.build_model(ARCHS[arch][0], tp).groups()
+    jgroups = _JGROUPS[arch, tp]
     jrun = _run(name, jax_side=True)
-    jtopo = JFP.MeshTopo(dp_axes=("data",), tp_axis="model", dp=dp, tp=1)
+    jtopo = JFP.MeshTopo(dp_axes=("data",), tp_axis="model", dp=dp, tp=tp)
     plan = jsteps.build_sync_plan(jrun, jgroups, jtopo)
     cshape, sshape = JFP.train_state_shapes(jgroups, jrun.sync, jtopo,
                                             plan=plan)
@@ -323,11 +359,13 @@ def reference_layout(name, dp):
 
 @pytest.mark.parametrize("case", sorted(RESHARDS))
 def test_reshard_matches_reference_byte_for_byte(case):
-    (sname, sdp), (tname, tdp) = RESHARDS[case]
-    fps, tmpls = make_layout(_run(sname), sdp)
-    fpt, tmplt = make_layout(_run(tname), tdp)
-    jfps, _ = reference_layout(sname, sdp)
-    jfpt, jtmplt = reference_layout(tname, tdp)
+    (sname, sdp, stp, sarch), (tname, tdp, ttp, tarch) = map(
+        _layout_spec, RESHARDS[case])
+    fps, tmpls = make_layout(_run(sname), sdp, stp, sarch)
+    fpt, tmplt = make_layout(_run(tname), tdp, ttp, tarch)
+    jfps, _ = reference_layout(sname, sdp, stp, sarch)
+    jfpt, jtmplt = reference_layout(tname, tdp, ttp, tarch)
+    assert json.dumps(fps, sort_keys=True) == json.dumps(jfps, sort_keys=True)
     state = random_state(tmpls, seed=3)
     stored = serial.encode_arrays(serial.flatten(state))
     port = serial.encode_arrays(serial.flatten(
@@ -340,7 +378,16 @@ def test_reshard_matches_reference_byte_for_byte(case):
         assert (port[k].dtype, port[k].shape) == (a.dtype, a.shape), k
         assert port[k].tobytes() == a.tobytes(), k
         nonzero += int(k.startswith("states/") and bool(a.any()))
-    assert nonzero      # the compared errors are not all zero
+    stateful = any(b["needs_state"] for p in fpt["params"]
+                   for b in p["buckets"])
+    assert nonzero or not stateful  # the compared errors are not all zero
+
+
+def test_reshard_across_tp_is_refused():
+    fps, tmpls = make_layout(RUN_A, 2, 2)
+    fpt, tmplt = make_layout(RUN_A, 2, 1)
+    with pytest.raises(CheckpointMismatch, match="TP sizes"):
+        reshard(as_data(random_state(tmpls)), fps, fpt, tmplt)
 
 
 # ---------------------------------------------------------------------------
@@ -582,3 +629,112 @@ def test_cli_resume_reshard_across_bucket_size(tmp_path):
     assert res["start"] == 2 and res["losses"] == full[2:]
     fresh = ttrain.main(CLI + ["--steps", "3", "--bucket-mb", "0.0625"])
     assert fresh["losses"][2] != full[2]
+
+
+# ---------------------------------------------------------------------------
+# across frameworks at dp = 2 x tp = 2: both ways, four spawned gloo ranks
+# ---------------------------------------------------------------------------
+
+DP, TP = 2, 2
+RUN_TP = dataclasses.replace(RUN_A, microbatch=MICRO, total_steps=4,
+                             warmup_steps=2, lr=2e-3)
+
+
+def _tp_worker(rank, rdv, out_dir, host, ref_dir):
+    """Rank (data, model) = divmod(rank, 2): save the reference's trained
+    state (``host``, its global arrays after one step) through the port,
+    then resume the reference's own checkpoint of it and train steps 1-2."""
+    torch.set_num_threads(1)
+    tmesh.init_file_group(torch.device("cpu"), rank, DP * TP, rdv)
+    topo = MeshTopo.from_group(*tmesh.mesh_groups(TP))
+    groups = build_groups(TCFG, TP)
+    fp = tsteps.state_fingerprint(RUN_TP, groups, topo,
+                                  tsteps.build_sync_plan(RUN_TP, groups, topo))
+    ts = interop.from_reference(*host, groups=groups, rank=topo.rank,
+                                dp=topo.dp, tp_rank=topo.tp_rank)
+    CKPT.save_train_state(os.path.join(out_dir, "port"), 1, ts, topo,
+                          fingerprint=fp)
+    fresh = tsteps.make_init(TCFG, RUN_TP, topo, torch.device("cpu"), seed=7)
+    step = CKPT.resume(ref_dir, fresh, topo, fingerprint=fp)
+    mine = serial.flatten({"chunks": ts.chunks, "states": ts.states,
+                           "opt": ts.opt})
+    back = serial.flatten({"chunks": fresh.chunks, "states": fresh.states,
+                           "opt": fresh.opt})
+    differ = [k for k, v in mine.items() if _bytes(back[k]) != _bytes(v)]
+    step_fn = tsteps.make_train_step(TCFG, RUN_TP, topo, torch.device("cpu"),
+                                     ShapeConfig("t", SEQ, BATCH, "train"))
+    losses = [float(step_fn(fresh, i, {"tokens": torch.from_numpy(t).long()})
+                    ["loss"]) for i, t in enumerate(_port_batches(3)) if i]
+    torch.save({"step": step, "fp": fp, "losses": losses,
+                "resumed_differ": differ},
+               os.path.join(out_dir, f"rank{rank}.pt"))
+    dist.destroy_process_group()
+
+
+@pytest.fixture(scope="module")
+def cross_tp(tmp_path_factory):
+    """The reference at dp 2 x tp 2 trains step 0 and checkpoints
+    (``ref/``, step 1), then trains steps 1-2; four port ranks save the
+    same state (``port/``) and resume ``ref/``."""
+    d = tmp_path_factory.mktemp("ckpt_tp")
+    jrun = dataclasses.replace(_run("A", jax_side=True), microbatch=MICRO,
+                               total_steps=4, warmup_steps=2, lr=2e-3)
+    mesh = make_local_mesh(dp=DP, tp=TP)
+    init_fn, _ = jsteps.make_init(JCFG, jrun, mesh)
+    chunks, states, opt = init_fn(jax.random.PRNGKey(0))
+    bundle = jsteps.make_train_step(JCFG, jrun, mesh,
+                                    JShape("t", SEQ, BATCH, "train"))
+    jfp = jsteps.state_fingerprint(jrun, bundle.helpers["groups"],
+                                   bundle.helpers["topo"],
+                                   bundle.helpers["plan"])
+    losses = []
+    for i, tok in enumerate(_port_batches(3)):
+        chunks, states, opt, m = bundle.fn(chunks, states, opt, jnp.int32(i),
+                                           {"tokens": jnp.asarray(tok)})
+        losses.append(float(m["loss"]))
+        if i == 0:
+            host = jax.tree.map(np.asarray, (chunks, states, opt))
+            JCKPT.save(str(d / "ref"), 1, {"chunks": chunks,
+                                           "states": states, "opt": opt},
+                       fingerprint=jfp)
+    tmp.start_processes(_tp_worker, args=(str(d / "rdv"), str(d), host,
+                                          str(d / "ref")),
+                        nprocs=DP * TP, start_method="spawn")
+    return d, jfp, losses, [torch.load(d / f"rank{r}.pt", weights_only=False)
+                            for r in range(DP * TP)]
+
+
+def test_port_tp2_checkpoint_is_the_references_bytes(cross_tp):
+    """The port's dp 2 x tp 2 npz holds the reference's entries for the
+    same arrays, byte for byte, and the reference's fingerprint."""
+    d, jfp, _, ranks = cross_tp
+    assert all(json.dumps(r["fp"], sort_keys=True)
+               == json.dumps(jfp, sort_keys=True) for r in ranks)
+    entry = MAN.find_entry(str(d / "port"), 1)
+    assert json.dumps(entry["fingerprint"], sort_keys=True) == \
+        json.dumps(jfp, sort_keys=True)
+    port = np.load(d / "port" / MAN.ckpt_file(1))
+    ref = np.load(d / "ref" / MAN.ckpt_file(1))
+    assert sorted(port.files) == sorted(ref.files)
+    moved = 0
+    for k in ref.files:
+        assert (port[k].dtype, port[k].shape) == (ref[k].dtype,
+                                                  ref[k].shape), k
+        assert port[k].tobytes() == ref[k].tobytes(), k
+        moved += int(k.startswith("states/") and bool(ref[k].any()))
+    assert moved  # one step of training left compensation errors
+
+
+def test_reference_tp2_checkpoint_resumes_in_port(cross_tp):
+    """Each rank restores its (data, model) piece bit for bit and the
+    four ranks continue within the loss limits of the reference's own
+    continuation."""
+    _, _, losses, ranks = cross_tp
+    assert [(r["step"], r["resumed_differ"]) for r in ranks] == \
+        [(1, [])] * (DP * TP)
+    got = ranks[0]["losses"]
+    assert all(r["losses"] == got for r in ranks)
+    gaps = [abs(a - b) for a, b in zip(got, losses[1:])]
+    print(f"port {got} reference {losses[1:]} gaps {gaps}")
+    assert gaps[0] <= STEP0_RTOL * abs(losses[1]), gaps
+    assert max(gaps) <= LATER_ATOL, gaps

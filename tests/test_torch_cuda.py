@@ -260,3 +260,74 @@ def test_cuda_async_exchange_survives_dropped_pack_buffer(cuda_device):
         torch.cuda.synchronize()
         del junk
     assert torch.equal(got, want)
+
+
+# ---------------------------------------------------------------------------
+# the train step's divisions and the sequence-parallel collectives
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("n", [3, 6])
+def test_cuda_step_divide_is_ieee_division(cuda_device, n):
+    """The step's one division helper (microbatch means, the dp x tp loss
+    divisor, the clip's ``s2 / tp``): on the card, the CPU's IEEE
+    division, also where ``n`` is no power of two."""
+    from repro_torch.core.comm import divide
+
+    gen = torch.Generator(device=cuda_device).manual_seed(n)
+    x = torch.randn(1 << 16, generator=gen, device=cuda_device)
+    got = divide(x, n)
+    assert torch.equal(got.cpu(), divide(x.cpu(), n))
+    assert torch.equal(got, (x.double() / n).float())
+    if n == 3:   # what the repair avoids: a multiply rounds otherwise
+        assert not torch.equal(x / n, got)
+
+
+def test_cuda_grad_mean_over_3_microbatches(cuda_device):
+    """``grad / accum`` at accum 3 (``--global-batch 12 --microbatch 4``):
+    the card's mean of the accumulated gradients is the CPU's."""
+    from repro_torch.core.flatparam import ParamGroup, ParamInfo
+    from repro_torch.launch.steps import _grads
+
+    groups = [ParamGroup("block", (ParamInfo("w", (4, 512)),), n_layers=2),
+              ParamGroup("embed", (ParamInfo("tok", (8, 512)),))]
+    gen = torch.Generator().manual_seed(3)
+
+    def leaves(device):
+        out = {}
+        for g in groups:
+            rows = []
+            for _ in range(g.n_layers or 1):
+                t = torch.zeros(2048, device=device, requires_grad=True)
+                t.grad = torch.randn(2048, generator=gen).to(device)
+                rows.append(t)
+            out[g.name] = {"w" if g.stacked else "tok":
+                           rows if g.stacked else rows[0]}
+        return out
+
+    gen.manual_seed(3)
+    cpu = _grads(leaves("cpu"), groups, 3)
+    gen.manual_seed(3)
+    card = _grads(leaves(cuda_device), groups, 3)
+    for g in cpu:
+        for k in cpu[g]:
+            assert torch.equal(card[g][k].cpu(), cpu[g][k]), (g, k)
+
+
+def test_cuda_sp_collectives_at_world_size_1(cuda_device):
+    """``sp_gather`` and ``sp_scatter_sum`` on an NCCL group of one rank:
+    forward and backward (their transposes) are the identity, the
+    sequence axis moved to the front and back."""
+    from repro_torch.launch import mesh
+    from repro_torch.models import common as C
+
+    gen = torch.Generator(device=cuda_device).manual_seed(11)
+    with mesh.dp_group(cuda_device) as group:
+        for fn in (C.sp_gather, C.sp_scatter_sum):
+            x = torch.randn(2, 8, 16, generator=gen, device=cuda_device).to(
+                torch.bfloat16).requires_grad_()
+            w = torch.randn(2, 8, 16, generator=gen, device=cuda_device).to(
+                torch.bfloat16)
+            y = fn(x, group)
+            assert torch.equal(y, x)
+            y.backward(w)
+            assert torch.equal(x.grad, w)

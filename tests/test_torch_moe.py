@@ -41,7 +41,7 @@ B, S = 2, 16
 @pytest.fixture(scope="module")
 def model_group():
     with tmesh.dp_group(torch.device("cpu")):
-        yield tmesh.model_group(TCFG)
+        yield tmesh.model_group()
 
 
 @pytest.mark.parametrize("grouped", [False, True])

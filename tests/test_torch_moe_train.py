@@ -160,7 +160,7 @@ def test_interop_carries_expert_chunks(reference):
 def group1():
     with tmesh.dp_group(torch.device("cpu")) as g:
         yield MeshTopo.from_group(g,
-                                  model=tmesh.model_group(_cfgs("moe")[1]))
+                                  model=tmesh.model_group())
 
 
 @pytest.mark.parametrize("strategy", ["fp", "loco"])
@@ -174,7 +174,7 @@ def _worker(rank, rdv, out_dir, hosts):
     torch.set_num_threads(1)
     tmesh.init_file_group(torch.device("cpu"), rank, 2, rdv)
     topo = MeshTopo.from_group(dist.group.WORLD,
-                               model=tmesh.model_group(_cfgs("moe")[1]))
+                               model=tmesh.model_group())
     res = {run: _port(run[0], hosts[run], run[2], topo) for run in hosts}
     torch.save(res, os.path.join(out_dir, f"rank{rank}.pt"))
     dist.destroy_process_group()
