@@ -41,6 +41,24 @@ Phases, in order; any failure exits non-zero and prints no result:
       stage schedule (its wire report is printed first);
    d'. the same with ``--no-overlap``; d and d' run twice each, in the
       order d d' d' d, and all four give the same losses bit for bit;
+   e. path a's command with ``--telemetry --metrics-jsonl --metrics-every
+      1 --profile-steps 2:2``: path a's losses bit for bit (telemetry moves
+      no bit), path a's kernel launches and collectives (every
+      ``torch.distributed`` call counted), every metric finite, the stream
+      accepted by ``repro_torch.telemetry.sink.validate_stream`` with
+      ``err_norm``, ``sat_rate`` and ``update_ratio`` in every step record,
+      a trace file of step 2; its tok/s beside path a's (information);
+   f. path b's command with telemetry, 3 steps: path b's first 3 losses
+      bit for bit, its collectives per step, 432 act_encode and 432
+      act_decode, the MoE activation-wire report in the stream's header;
+   g. full-width llama2-400m, 3 steps each, with ``--optimizer sgd``
+      (``--lr 0.1``; no moments), ``lamb`` (``--lr 1e-3``), ``adafactor``
+      (``--lr 3e-5``, run as ``adafactor_flat``: one moment), each
+      profiled at step 2, and ``--schedule wsd`` (which keeps the lr of
+      path a's cosine over 3 steps, so its losses are path a's first 3
+      bit for bit): losses finite and falling, the loco kernels launched
+      as derived, ``loco/apply``'s device time and the peak memory
+      printed;
    losses finite (and falling on a, b and d), every kernel of the path
    launched as often as the code says (counts derived from the parameter
    declarations, the sync plan's encode runs or stage pieces and the
@@ -54,17 +72,21 @@ Phases, in order; any failure exits non-zero and prints no result:
    ``--ckpt-every 2``; the same losses); the step-4 file cut short; a new
    process resumes from step 2 and its steps 2-3 give the uninterrupted
    run's losses bit for bit (npz size, save and restore times printed);
-4. profile: one more full-width step of paths a, b and d under
-   torch.profiler: device busy time (kernels, memcpys, memsets) by kernel
-   class, the idle share and the ``loco/*`` ranges, per overlap stage on
-   path d (``loco/encode/g1`` ...) (informational);
+4. profile: one more full-width step of paths a, b, d and of path a
+   with ``--telemetry`` under torch.profiler: device busy time (kernels,
+   memcpys, memsets) by kernel class, the idle share and the ``loco/*``
+   ranges, per overlap stage on path d (``loco/encode/g1`` ...); the
+   telemetry's cost in busy ms and step time against path a's
+   (informational);
 5. reference: reduced llama2-400m (loco, onebit, and loco bucketed with
    ``--bucket-mb 0.1 --policy "embed=loco8,min=16384"``) and reduced
    deepseek-v3-moe (loco, block8) train 3 steps on the card and on the CPU
    (plain versions, gloo); the losses agree within 2e-3 relative at step 0
    and 2e-2 at every step; so does reduced llama2-400m at
    ``--global-batch 12 --microbatch 4`` (three microbatches: the step's
-   means divide by 3), printed as bit for bit or within the limits, and
+   means divide by 3), and reduced llama2-400m with ``--optimizer sgd``,
+   ``lamb`` and ``adafactor``, ``--quant-mode fixed`` and
+   ``--error-codec bf16``, printed as bit for bit or within the limits;
    the step's divisions (``comm.divide`` at 3 and 6, the accum-3 gradient
    mean) give the CPU's bits on the card.  On
    the card, reduced llama2-400m with
@@ -82,6 +104,7 @@ import contextlib
 import functools
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -109,6 +132,25 @@ BUCKET_ARGS = _train_args("llama2-400m", "loco", 3, "--bucket-mb", "4",
 # The same run on the flat schedule (the overlapped one is the default):
 # its losses must be path d's bit for bit.
 FLAT_ARGS = BUCKET_ARGS + ["--no-overlap"]
+# Paths e-g: the telemetry on paths a and b, and the other optimizers and
+# schedules.  Each run adds its --metrics-jsonl / --profile-dir paths.
+TELEMETRY_FLAGS = ["--telemetry", "--metrics-every", "1"]
+E_ARGS = TRAIN_ARGS + TELEMETRY_FLAGS + ["--profile-steps", "2:2"]
+F_ARGS = _train_args("deepseek-v3-moe", "loco", 3, "--moe-a2a",
+                     "block8") + TELEMETRY_FLAGS
+# name -> (flags, optimizer trees): sgd keeps no moment, adafactor runs as
+# adafactor_flat (one), lamb and adam keep two.  Each optimizer takes an
+# lr at which its 3 full-width steps fall; on the H100, lamb rose by step
+# 2 at lr 2e-3 and above, and adafactor at 1e-4 and above (its first
+# updates are sign-like, with no momentum).  wsd keeps Adam, whose
+# loco/apply path e profiles, so wsd is not profiled.
+G_RUNS = {"sgd": (["--optimizer", "sgd", "--lr", "0.1"], 0),
+          "lamb": (["--optimizer", "lamb", "--lr", "1e-3"], 2),
+          "adafactor": (["--optimizer", "adafactor", "--lr", "3e-5"], 1),
+          "wsd": (["--schedule", "wsd"], 2)}
+G_ARGS = {name: _train_args("llama2-400m", "loco", 3, *flags, *(
+    () if name == "wsd" else ("--profile-steps", "2:2")))
+          for name, (flags, _) in G_RUNS.items()}
 # Each MoE layer exchanges its slot buffer twice (dispatch, combine); each
 # exchange runs once in the forward, once in the checkpoint's recomputation
 # and once in the backward (the cotangent rides the same wire), and calls
@@ -264,7 +306,9 @@ def device_ms(fn, reps: int = 3, only: str | None = None,
     ``before()`` runs ahead of each ``fn()`` inside the trace (an L2 flush;
     ``only`` keeps it out of the sum).  A trace that holds no device time
     (the profiler now and then drops a short trace's device events) is
-    taken again, up to ``TRACE_TRIES`` times; then it fails."""
+    taken again, up to ``TRACE_TRIES`` times; then ``fn`` is timed with
+    CUDA events around each call instead (``event_ms``), and the line says
+    so."""
     import torch
 
     fn()
@@ -284,8 +328,29 @@ def device_ms(fn, reps: int = 3, only: str | None = None,
             return us / 1e3 / reps
         print(f"device_ms: a trace held no device time (kernel filter "
               f"{only!r}); tracing again", flush=True)
-    raise AssertionError(f"device_ms: the profiler saw no device time in "
-                         f"{TRACE_TRIES} traces (kernel filter {only!r})")
+    ms = event_ms(fn, reps, before)
+    print(f"device_ms: {TRACE_TRIES} traces held no device time (kernel "
+          f"filter {only!r}); CUDA events around each call give {ms:.4f} ms "
+          f"(launch gaps included)", flush=True)
+    return ms
+
+
+def event_ms(fn, reps: int = 3, before=None) -> float:
+    """Milliseconds of one ``fn()`` between two CUDA events recorded
+    around it (``before()`` outside them), mean of ``reps``."""
+    import torch
+
+    total = 0.0
+    for _ in range(reps):
+        if before is not None:
+            before()
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in "se")
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        total += start.elapsed_time(end)
+    return total / reps
 
 
 def host_us(fn, calls: int, reps: int = 3) -> float:
@@ -823,8 +888,14 @@ def main(argv=None) -> int:
     if missing:
         raise AssertionError(f"train: kernels never launched: {missing}")
     t0 = time.perf_counter()
-    for args in (TRAIN_ARGS, MOE_ARGS, BUCKET_ARGS):
-        profile_phase(args)
+    prof = {name: profile_phase(args) for name, args in (
+        ("a", TRAIN_ARGS), ("b", MOE_ARGS), ("d", BUCKET_ARGS),
+        ("a --telemetry", TRAIN_ARGS + ["--telemetry"]))}
+    a, tel = prof["a"], prof["a --telemetry"]
+    print(f"profile: telemetry on path a: device busy {tel['busy_ms']:.1f} "
+          f"against {a['busy_ms']:.1f} ms ({tel['busy_ms'] / a['busy_ms']:.3f}"
+          f"x); step {tel['wall_ms']:.1f} against {a['wall_ms']:.1f} ms "
+          f"(information: steps spread 2-2.6x between calls)", flush=True)
     print(f"profile: phase took {time.perf_counter() - t0:.1f} s", flush=True)
     t0 = time.perf_counter()
     reference_phase()
@@ -917,10 +988,47 @@ def count_sync_collectives():
         comm._SyncPass.issue = issue
 
 
+# torch.distributed's collectives, and core/comm's, which bind theirs when
+# the module is imported
+DIST_COLLECTIVES = ("all_reduce", "all_to_all_single",
+                    "all_gather_into_tensor", "reduce_scatter_tensor",
+                    "all_gather", "broadcast", "reduce_scatter", "gather",
+                    "scatter", "barrier")
+COMM_COLLECTIVES = ("_ALL_GATHER", "_REDUCE_SCATTER")
+
+
+@contextlib.contextmanager
+def count_collectives():
+    """Count every collective the run calls, by name."""
+    import torch.distributed as dist
+
+    from repro_torch.core import comm
+
+    counts: dict[str, int] = {}
+
+    def counting(name, fn):
+        def wrapped(*args, **kw):
+            counts[name] = counts.get(name, 0) + 1
+            return fn(*args, **kw)
+        return wrapped
+
+    saved = [(dist, n, getattr(dist, n)) for n in DIST_COLLECTIVES
+             if hasattr(dist, n)]
+    saved += [(comm, n, getattr(comm, n)) for n in COMM_COLLECTIVES]
+    for mod, name, fn in saved:
+        setattr(mod, name, counting(name, fn))
+    try:
+        yield counts
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
 def train_path(LQ, argv, falls: bool) -> tuple[dict, dict]:
     """Train once through the CLI with the launch counters zeroed just
     before and read just after; returns that run's launch counts and its
-    result.  Also asserts the bucketed sync's collectives per backward."""
+    result, with every collective it called (``res["collectives"]``).
+    Also asserts the bucketed sync's collectives per backward."""
     import torch
     from repro_torch.launch import train
 
@@ -930,8 +1038,10 @@ def train_path(LQ, argv, falls: bool) -> tuple[dict, dict]:
     want_coll = sync_collectives(argv) * _backwards(argv)
     t0 = time.perf_counter()
     LQ.reset_launches()
-    with count_sync_collectives() as issued:
+    with count_sync_collectives() as issued, count_collectives() as called:
         res = train.main(argv)
+    res["collectives"] = called
+    res["launches"] = dict(LQ.LAUNCHES)
     launches = dict(LQ.LAUNCHES)
     secs = time.perf_counter() - t0
     losses = res["losses"]
@@ -985,15 +1095,18 @@ PARENT_CKPT_LOSSES = [10.762600898742676, 9.794729232788086,
                       9.226005554199219, 9.016355514526367]
 
 
-def check_parent(name: str, res: dict) -> None:
-    """The path ``name`` gave the parent's losses bit for bit."""
-    got, want = res["losses"], PARENT_LOSSES[name]
+def check_parent(name: str, res: dict, label: str | None = None) -> None:
+    """The run ``label`` (default: path ``name``) gave path ``name``'s
+    parent losses bit for bit, as far as it ran."""
+    got = res["losses"]
+    want = PARENT_LOSSES[name][:len(got)]
+    label = label or name
     ok = got == want
-    print(f"train: path {name} losses {got} against the parent's {want}: "
-          f"{'bit for bit' if ok else 'MOVED'}", flush=True)
+    print(f"train: path {label} losses {got} against path {name}'s parent "
+          f"{want}: {'bit for bit' if ok else 'MOVED'}", flush=True)
     if not ok:
-        raise AssertionError(f"train: path {name}: the losses moved from "
-                             f"the parent's {want}: {got}")
+        raise AssertionError(f"train: path {label}: the losses moved from "
+                             f"path {name}'s parent's {want}: {got}")
 
 
 @contextlib.contextmanager
@@ -1032,7 +1145,7 @@ def train_phase(LQ) -> dict:
     collective called.  Returns
     every kernel's launches summed over the runs."""
     total: dict[str, int] = {}
-    runs: dict[str, list] = {"d": [], "d'": []}
+    runs: dict[str, list] = {"a": [], "b": [], "d": [], "d'": []}
     with count_model_group_calls() as tp_calls:
         for name, argv, falls in (("a", TRAIN_ARGS, True),
                                   ("b", MOE_ARGS, True),
@@ -1046,6 +1159,8 @@ def train_phase(LQ) -> dict:
             _add(total, launches)
             if name in runs:
                 runs[name].append(res)
+        _add(total, telemetry_paths(LQ, runs["a"][0], runs["b"][0]))
+        _add(total, optimizer_paths(LQ, runs["a"][0]))
     print(f"train: model-group collectives and replicated_grad_psum called "
           f"{tp_calls[0]} times at tp = 1", flush=True)
     if tp_calls[0]:
@@ -1056,10 +1171,149 @@ def train_phase(LQ) -> dict:
     print(f"train: path d overlapped {over} tok/s, d' flat {flat} tok/s "
           f"(runs in the order d d' d' d); mean ratio d/d' "
           f"{statistics.mean(over) / statistics.mean(flat):.3f}", flush=True)
-    losses = [r["losses"] for v in runs.values() for r in v]
+    losses = [r["losses"] for k in ("d", "d'") for r in runs[k]]
     if any(x != losses[0] for x in losses):
         raise AssertionError(f"train: the overlapped and the flat schedule's "
                              f"losses differ: {losses}")
+    return total
+
+
+# ---------------------------------------------------------------------------
+# phase 3, paths e-g: telemetry, the other optimizers and schedules
+# ---------------------------------------------------------------------------
+
+def check_stream(path: str, steps: int, moe: bool) -> list[dict]:
+    """The telemetry stream of a ``steps``-step monolithic run: valid
+    (``validate_stream``), a header (with the MoE activation-wire report
+    iff ``moe``), one step record per step whose metrics are all finite
+    and carry ``err_norm``, ``sat_rate`` and ``update_ratio``, a summary,
+    no warning.  Returns the step records."""
+    from repro_torch.telemetry import sink
+
+    res = sink.validate_stream(path)
+    want = {"header": 1, "step": steps, "summary": 1}
+    if res["errors"] or res["kinds"] != want:
+        raise AssertionError(f"telemetry: stream {res}, want kinds {want}")
+    with open(path) as f:
+        recs = [json.loads(line) for line in f]
+    if ("moe_a2a" in recs[0]) != moe:
+        raise AssertionError(f"telemetry: header keys {sorted(recs[0])}")
+    out = [r for r in recs if r["kind"] == "step"]
+    for r in out:
+        m = r["metrics"]
+        bad = [k for k, v in m.items() if not math.isfinite(v)]
+        if bad or not all(m.get(k, 0) > 0 for k in ("err_norm", "sat_rate",
+                                                    "update_ratio")):
+            raise AssertionError(f"telemetry: step {r['step']}: not finite "
+                                 f"{bad}, or a health metric missing")
+        print(f"telemetry: step {r['step']}: {len(m)} metrics, err_norm "
+              f"{m['err_norm']:.4f} sat_rate {m['sat_rate']:.4f} "
+              f"update_ratio {m['update_ratio']:.3e} nonfinite "
+              f"{m['nonfinite']:.0f}", flush=True)
+    return out
+
+
+def _trace_line(res: dict) -> str:
+    t = res["trace"]
+    if not t or not os.path.exists(t["path"]):
+        raise AssertionError(f"telemetry: no trace file written ({t})")
+    ranges = ", ".join(f"{k} {v:.2f} ms" for k, v in sorted(
+        t["ranges"].items()) if k in ("loco/apply", "loco/metrics"))
+    return (f"trace of step 2 {os.path.getsize(t['path']):,} bytes; device "
+            f"busy {t['device_busy_ms']:.1f} ms, {t['device_launches']} "
+            f"launches; {ranges}")
+
+
+def telemetry_paths(LQ, a: dict, b: dict) -> dict:
+    """Paths e and f: telemetry on paths a and b moves no loss bit, no
+    kernel launch and no collective, and streams valid, finite records.
+    Returns their launches."""
+    import tempfile
+
+    total: dict[str, int] = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_tel_") as tmp:
+        out = ["--metrics-jsonl", os.path.join(tmp, "e.jsonl"),
+               "--profile-dir", tmp]
+        from repro_torch.telemetry import profiler
+
+        with timed_calls(profiler.TraceSession, "stop") as stop_s:
+            launches, e = train_path(LQ, E_ARGS + out, True)
+        _add(total, launches)
+        check_parent("a", e, "e")
+        if e["launches"] != a["launches"]:
+            raise AssertionError(f"telemetry: path e launched "
+                                 f"{e['launches']}, path a {a['launches']}")
+        if e["collectives"] != a["collectives"]:
+            raise AssertionError(f"telemetry: path e called "
+                                 f"{e['collectives']}, path a "
+                                 f"{a['collectives']}")
+        check_stream(out[1], 6, moe=False)
+        print(f"telemetry: path e: collectives {e['collectives']} as path "
+              f"a's; {e['tok_per_s']:.1f} tok/s (path a {a['tok_per_s']:.1f}"
+              f", information: the trace of step 2 is inside e's clock, "
+              f"and stopping it took {max(stop_s):.1f} s); {_trace_line(e)}",
+              flush=True)
+        path = os.path.join(tmp, "f.jsonl")
+        launches, f = train_path(LQ, F_ARGS + ["--metrics-jsonl", path],
+                                 True)
+        _add(total, launches)
+        check_parent("b", f, "f")
+        steps_b, steps_f = len(b["losses"]), len(f["losses"])
+        per_b = {k: v / steps_b for k, v in b["collectives"].items()}
+        per_f = {k: v / steps_f for k, v in f["collectives"].items()}
+        if per_b != per_f:
+            raise AssertionError(f"telemetry: path f called {per_f} per "
+                                 f"step, path b {per_b}")
+        check_stream(path, steps_f, moe=True)
+        print(f"telemetry: path f: collectives per step {per_f} as path "
+              f"b's; {f['tok_per_s']:.1f} tok/s (path b "
+              f"{b['tok_per_s']:.1f})", flush=True)
+    return total
+
+
+@contextlib.contextmanager
+def optimizer_trees():
+    """Record how many optimizer trees each train state the CLI builds
+    holds."""
+    from repro_torch.launch import train
+
+    make_init, seen = train.make_init, []
+
+    def recording(*args, **kw):
+        ts = make_init(*args, **kw)
+        seen.append(len(ts.opt))
+        return ts
+
+    train.make_init = recording
+    try:
+        yield seen
+    finally:
+        train.make_init = make_init
+
+
+def optimizer_paths(LQ, a: dict) -> dict:
+    """Path g: full-width llama2-400m under sgd, lamb, adafactor and the
+    wsd schedule.  Returns their launches."""
+    import tempfile
+
+    total: dict[str, int] = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_opt_") as tmp:
+        for name, (_, trees) in G_RUNS.items():
+            with optimizer_trees() as seen:
+                launches, res = train_path(
+                    LQ, G_ARGS[name] + ["--profile-dir", tmp], True)
+            _add(total, launches)
+            if seen != [trees]:
+                raise AssertionError(f"optimizer: {name} kept {seen} "
+                                     f"optimizer trees, want {trees}")
+            if name == "wsd":
+                check_parent("a", res, "g wsd")
+            print(f"optimizer: {name}: losses {res['losses']}; {trees} "
+                  f"optimizer trees; peak device memory "
+                  f"{res['peak_mem_bytes'] / 2**30:.2f} GiB (path a "
+                  f"{a['peak_mem_bytes'] / 2**30:.2f})"
+                  + (f"; {_trace_line(res)}" if res["trace"] else ""),
+                  flush=True)
     return total
 
 
@@ -1218,7 +1472,8 @@ def profile_phase(argv) -> None:
     time is the sum of its kernels, memcpys and memsets (``is_device_work``);
     the GPU-side ``loco/*`` annotation ranges span that work, so they are
     printed apart, with the sum that also counted them.  Informational: an
-    empty trace is reported, not failed."""
+    empty trace is reported, not failed.  Returns the step's ``wall_ms``
+    and ``busy_ms``."""
     import torch
     from torch.autograd import DeviceType
 
@@ -1233,7 +1488,8 @@ def profile_phase(argv) -> None:
     shape = ShapeConfig("smoke", args.seq_len, args.global_batch, "train")
     batch_fn = make_batch_fn(DataConfig(cfg.vocab, args.seq_len,
                                         args.global_batch, args.seed))
-    tag = f"profile[{cfg.name}{' bucketed' if run.wants_buckets() else ''}]"
+    tag = (f"profile[{cfg.name}{' bucketed' if run.wants_buckets() else ''}"
+           f"{' telemetry' if run.telemetry else ''}]")
     with mesh.dp_group(dev) as group:
         topo = MeshTopo.from_group(group, model=mesh.model_group())
         ts = steps.make_init(cfg, run, topo, dev, args.seed)
@@ -1264,9 +1520,10 @@ def profile_phase(argv) -> None:
           f"device idle share {max(0.0, 1 - busy_ms / wall_ms):.1%}; a sum "
           f"that also counts the GPU-side annotation ranges gives "
           f"{counted_ms:.1f} ms", flush=True)
+    out = {"wall_ms": wall_ms, "busy_ms": busy_ms}
     if not work:
         print(f"{tag}: the profiler saw no device time", flush=True)
-        return
+        return out
     by_class: dict[str, list] = {}
     for e in work:
         c = by_class.setdefault(_kernel_class(e.key), [0.0, 0])
@@ -1291,6 +1548,7 @@ def profile_phase(argv) -> None:
         else:
             print(f"{tag}: range {e.key} x{e.count}: host "
                   f"{e.cpu_time_total / 1e3:.1f} ms", flush=True)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1314,7 +1572,12 @@ REF_RUNS = {"llama2-400m loco": _ref_args("llama2-400m", "loco"),
             "llama2-400m onebit": _ref_args("llama2-400m", "onebit"),
             "llama2-400m loco bucketed mix": _ref_args(
                 "llama2-400m", "loco", "--bucket-mb", "0.1", "--policy",
-                "embed=loco8,min=16384")}
+                "embed=loco8,min=16384"),
+            **{f"llama2-400m loco {' '.join(flags)}": _ref_args(
+                "llama2-400m", "loco", *flags) for flags in (
+                    ("--optimizer", "sgd"), ("--optimizer", "lamb"),
+                    ("--optimizer", "adafactor"), ("--quant-mode", "fixed"),
+                    ("--error-codec", "bf16"))}}
 REF_STEP0_RTOL, REF_ATOL = 2e-3, 2e-2
 UNIFORM_BUCKETS = ["--bucket-mb", "0.0625"]
 # three microbatches per step: the step's gradient and loss means divide

@@ -107,6 +107,35 @@ class Codec:
         computed in f32 and rounded to ``out_dtype``."""
         return self.decode_mean_ref(recv).to(out_dtype)
 
+    # ---- health-metric hooks (telemetry/metrics) ----------------------------
+    # Both return {field: f32 sum} with keys from telemetry.metrics
+    # UNIT_FIELDS; every value is a plain sum, so the step's one all-reduce
+    # adds them over the ranks.  They read already-materialised tensors
+    # (the synced gradient, the stored state) with plain torch ops and
+    # never launch a kernel, as the reference's never dispatch Pallas.
+
+    def grad_metrics(self, seg: torch.Tensor) -> dict[str, torch.Tensor]:
+        """Quantizer-health probe over one f32 gradient segment: the
+        segment re-quantised with this codec's wire config (saturation
+        rate, log2-scale range), a proxy for the per-node encode, whose
+        payload stays inside the backward.  Default: no probe."""
+        return {}
+
+    def state_metrics(self, state: torch.Tensor) -> dict[str, torch.Tensor]:
+        """Exact metrics of the stored error-feedback state."""
+        e = self.state_decode(state).float()
+        return {
+            "err_sq": torch.sum(e * e),
+            "err_sat_cnt": self._state_sat_count(state),
+            "err_tot": _f32(e.numel(), e.device),
+            "err_bad": torch.sum(~torch.isfinite(e)).float(),
+        }
+
+    def _state_sat_count(self, state: torch.Tensor) -> torch.Tensor:
+        """Stored error values pinned at the error codec's bound (0 for
+        unbounded float storage)."""
+        return _f32(0, state.device)
+
     def roundtrip(self, g: torch.Tensor, state: torch.Tensor,
                   gen: torch.Generator | None = None):
         """One-node encode -> decode: (dequantized contribution, new_state).
@@ -117,6 +146,22 @@ class Codec:
         wire, new_state = self.encode(g, state, gen)
         d = self.decode_mean({k: v[None] for k, v in wire.items()})
         return d, new_state
+
+
+def _f32(x, device) -> torch.Tensor:
+    # a fill on the device: no host-to-device copy, so no stream sync
+    return torch.full((), float(x), dtype=torch.float32, device=device)
+
+
+def _scale_stats(scales: torch.Tensor) -> dict[str, torch.Tensor]:
+    """log2-scale sums and the non-finite count of a probe's scales."""
+    finite = torch.isfinite(scales)
+    l2 = torch.where(finite, torch.log2(torch.clamp(scales, min=1e-30)),
+                     torch.zeros_like(scales))
+    return {"scale_l2_sum": torch.sum(l2),
+            "scale_l2_sqsum": torch.sum(l2 * l2),
+            "scale_cnt": _f32(scales.numel(), scales.device),
+            "scale_bad": torch.sum(~finite).float()}
 
 
 # ---------------------------------------------------------------------------
@@ -201,6 +246,21 @@ class _QuantizedCodec(Codec):
                                in zip(recv["payload"], recv["scales"])])
         return mean_rows(contrib)
 
+    def grad_metrics(self, seg):
+        qc = self.cfg.quant
+        x = seg.float()
+        if qc.mode == "fixed":
+            q = Q.quant_fixed(x, qc)
+            scales = torch.full((1,), qc.scale, dtype=torch.float32,
+                                device=x.device)
+        elif qc.mode == "tensor":
+            q, scales = Q.quant_tensor(x, qc)
+        else:
+            q, scales = Q.quant_block(x, qc)
+        return {"sat_cnt": torch.sum((q == qc.qmax) | (q == qc.qmin)).float(),
+                "sat_tot": _f32(q.numel(), x.device),
+                **_scale_stats(scales)}
+
     def _check_gen(self, gen):
         if self.cfg.quant.stochastic_rounding and gen is None:
             raise ValueError(
@@ -227,6 +287,18 @@ class LocoCodec(_QuantizedCodec):
 
     def _kernel_err(self):
         return "f8" if self.cfg.quant.error_codec == "f8" else None
+
+    def _state_sat_count(self, state):
+        # stored errors clipped at the codec bound: outliers the
+        # compensation state cannot represent (f8 saturates at +-448
+        # pre-scale, int8 at +-127; bf16/none storage is unbounded).  f8
+        # reads its codes: |code| == 0x7E is +-448 (0x7F is NaN).
+        ec = self.cfg.quant.error_codec
+        if ec == "f8":
+            return torch.sum((state.view(torch.uint8) & 0x7F) == 0x7E).float()
+        if ec == "int8":
+            return torch.sum(state.float().abs() >= 127.0).float()
+        return _f32(0, state.device)
 
     def encode_ref(self, g, state, gen=None):
         self._check_gen(gen)
@@ -321,6 +393,16 @@ class OnebitCodec(Codec):
         h, scale = self._compensate(g, state)
         packed, e_new = SP.onebit_pack_plain(h, scale)
         return {"payload": packed, "scales": scale.reshape(1)}, e_new
+
+    def grad_metrics(self, seg):
+        # sign compression has no clipping bound; "saturation" here is the
+        # positive-sign fraction (healthy gradients sit near 0.5), and the
+        # scale stats track the segment's L1 scale
+        x = seg.float()
+        scale = LQ._divide(torch.sum(torch.abs(x)), float(x.numel()))
+        return {"sat_cnt": torch.sum(x > 0).float(),
+                "sat_tot": _f32(x.numel(), x.device),
+                **_scale_stats(scale.reshape(1))}
 
     def decode_mean_ref(self, recv):
         D = recv["payload"].shape[0]

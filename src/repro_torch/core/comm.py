@@ -84,10 +84,11 @@ def divide(x: torch.Tensor, n: int) -> torch.Tensor:
     """``x / n`` rounded as one IEEE division on every device, as the
     reference computes it.  On CUDA torch divides by a Python scalar as
     ``x * (1/n)``, which rounds otherwise unless ``n`` is a power of two;
-    any other ``n`` divides by a device tensor."""
+    any other ``n`` divides by a device tensor (filled on the device: no
+    host-to-device copy, so no stream sync)."""
     if LQ.exact_inverse(n):
         return x / n
-    return x / torch.tensor(float(n), dtype=x.dtype, device=x.device)
+    return x / torch.full((), float(n), dtype=x.dtype, device=x.device)
 
 
 def fp_mean(summed: torch.Tensor, D: int) -> torch.Tensor:

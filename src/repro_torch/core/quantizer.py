@@ -79,7 +79,7 @@ def _to_blocks(x: torch.Tensor, block: int) -> torch.Tensor:
 def block_scales(xb: torch.Tensor, qmax: int) -> torch.Tensor:
     """(rows, block) f32 -> (rows, 1) scales ``qmax / max(absmax, 1e-30)``."""
     absmax = xb.abs().amax(dim=1, keepdim=True)
-    qm = torch.tensor(float(qmax), dtype=torch.float32, device=xb.device)
+    qm = torch.full((), float(qmax), dtype=torch.float32, device=xb.device)
     return qm / torch.clamp(absmax, min=1e-30)
 
 

@@ -135,7 +135,7 @@ def _divide(x: torch.Tensor, y: float) -> torch.Tensor:
     torch divides by a Python scalar as ``x * (1/y)``, which rounds
     otherwise unless ``y`` is a power of two; a device tensor divisor
     keeps the division (as the kernels and the reference compute it)."""
-    return x / torch.tensor(y, dtype=torch.float32, device=x.device)
+    return x / torch.full((), y, dtype=torch.float32, device=x.device)
 
 
 def fused_compress_plain(g: torch.Tensor, e: torch.Tensor, *, bits: int = 4,

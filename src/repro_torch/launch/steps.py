@@ -17,6 +17,11 @@ reduced over the world.
 Every division of the step's data by a count (microbatches, ranks, tp) is
 one IEEE division on any device (``comm.divide``).
 
+Under ``RunConfig.telemetry`` the step also computes the reference's
+compression-health metrics (``telemetry/metrics``) from the pre-clip
+synced gradients, the pre-reset error states and the update, and sends
+their sums with the loss in its one all-reduce.
+
 Each step makes the f32 master chunks autograd leaves (one per layer for
 stacked groups, so each layer's synced shard lands in its own ``.grad``),
 runs the microbatches, and writes the new chunks, optimizer moments and
@@ -43,6 +48,7 @@ from repro_torch.core.loco import SyncConfig, maybe_reset
 from repro_torch.models.transformer import DecoderLM, build_groups
 from repro_torch.optim import optimizers as OPT
 from repro_torch.optim.schedules import make_schedule
+from repro_torch.telemetry import metrics as METRICS
 from repro_torch.telemetry import profiler as PROF
 
 
@@ -75,6 +81,11 @@ class RunConfig:
     # next stage's encode.  The same bits and state layout as the flat
     # schedule (off: --no-overlap); only coalesced bucketed plans change.
     overlap: bool = True
+    # Compression-health metrics (telemetry/metrics): per-unit error
+    # norms, saturation rates and scale stats beside the loss.  No
+    # collective of their own: the packed vector rides the loss's one
+    # all-reduce.
+    telemetry: bool = False
 
     def wants_buckets(self) -> bool:
         return self.bucket_bytes > 0 or self.policy is not None
@@ -158,6 +169,21 @@ def _validate_sync_configs(run: RunConfig, plan: "BK.SyncPlan | None",
                 raise ValueError(f"{p.qualname}: {e}") from None
 
 
+def groups_inflight(run: RunConfig, plan: "BK.SyncPlan | None",
+                    topo: MeshTopo) -> int:
+    """Pipeline depth of this run's sync schedule, for the telemetry
+    stream's step records: 1 for one sync region; under ``run.overlap``
+    at most two stages' buffers are in flight, so min(2, max stages) over
+    the plan's params."""
+    if plan is None or not (run.coalesce and run.overlap):
+        return 1
+    depth = 1
+    for p in plan.params:
+        sched = WP.build_overlap_schedule(p, topo.dp)
+        depth = max(depth, min(2, sched.n_stages))
+    return depth
+
+
 @dataclasses.dataclass
 class TrainState:
     """One rank's train state: ``{group: {name: tensor}}`` trees of master
@@ -169,7 +195,16 @@ class TrainState:
 
 
 def _make_opt(run: RunConfig) -> OPT.Optimizer:
-    return OPT.OPTIMIZERS[run.optimizer](weight_decay=run.weight_decay)
+    """The reference's rule: ``adafactor`` runs as ``adafactor_flat``
+    (factored statistics need the logical shapes the flat chunks erase),
+    and only adam, adamw and lamb take the run's weight decay."""
+    name = run.optimizer
+    if name == "adafactor":
+        name = "adafactor_flat"
+    kw = {}
+    if name in ("adam", "adamw", "lamb"):
+        kw["weight_decay"] = run.weight_decay
+    return OPT.OPTIMIZERS[name](**kw)
 
 
 def make_init(cfg: ArchConfig, run: RunConfig, topo: MeshTopo,
@@ -243,7 +278,10 @@ def make_train_step(cfg: ArchConfig, run: RunConfig, topo: MeshTopo,
     losses included, mean over the dp x tp ranks), ``gnorm`` (pre-clip
     global norm) and ``lr``; MoE models add ``moe_aux`` and ``moe_z``, the
     router losses summed over layers, which ride the loss's one all-reduce
-    and are divided by dp * tp like it.
+    and are divided by dp * tp like it.  Under ``run.telemetry`` the
+    metrics of ``telemetry/metrics.metric_keys`` join them (0-dim CPU
+    tensors): their sums ride the same all-reduce, undivided, and are
+    finalized on the host.
     """
     model = DecoderLM(cfg, topo.tp, model_group=topo.model, sp=True)
     moe_metrics = bool(cfg.n_experts)
@@ -265,6 +303,8 @@ def make_train_step(cfg: ArchConfig, run: RunConfig, topo: MeshTopo,
     accum = local_batch // micro
     mask = {g.name: {i.name: 1.0 if i.decay else 0.0 for i in g.infos}
             for g in groups}
+    munits = (METRICS.metric_units(groups, sync, plan, topo, run.coalesce)
+              if run.telemetry else ())
 
     def step_fn(ts: TrainState, step: int, batch: dict) -> dict:
         rows = batch["tokens"][topo.rank * local_batch:
@@ -296,27 +336,46 @@ def make_train_step(cfg: ArchConfig, run: RunConfig, topo: MeshTopo,
                 local_sq = local_sq + s2
         dist.all_reduce(local_sq, group=topo.world)
         gnorm = torch.sqrt(local_sq)
+        if run.telemetry:
+            # the pre-clip synced gradients and the pre-reset states
+            with PROF.phase("metrics"):
+                mrows = METRICS.unit_rows(munits, grads, ts.states, topo.tp,
+                                          device)
         if run.clip_norm:
             cs = torch.clamp(run.clip_norm / torch.clamp(gnorm, min=1e-12),
                              max=1.0)
             grads = OPT.tree_map(lambda g: g * cs, grads)
 
         lr = sched(step)
+        chunks = ts.chunks
         with PROF.phase("apply"):
-            ts.chunks, ts.opt = opt.update(grads, ts.opt, ts.chunks,
+            ts.chunks, ts.opt = opt.update(grads, ts.opt, chunks,
                                            torch.tensor(step), lr, mask)
+        mvec = None
+        if run.telemetry:
+            with PROF.phase("metrics"):
+                mvec = torch.cat(mrows + [METRICS.global_tail(
+                    chunks, ts.chunks, groups, topo.tp, device)])
+        del chunks
         ts.states = reset_states(ts.states, step + 1, groups, run, plan)
 
         # microbatch means: summed in order, then divided (jnp.mean)
         parts = [divide(sum(losses[1:], losses[0]), accum)[None]]
         if moe_metrics:
             parts.append(divide(sum(mvs[1:], mvs[0]), accum))  # aux, z
+        n_mean = sum(p.numel() for p in parts)
+        if mvec is not None:
+            parts.append(mvec)
         packed = torch.cat(parts)
         dist.all_reduce(packed, group=topo.world)
-        packed = divide(packed, topo.dp * topo.tp)
-        metrics = {"loss": packed[0], "gnorm": gnorm, "lr": lr}
+        # the loss and router losses are means over the ranks; the metric
+        # sums stay sums
+        means = divide(packed[:n_mean], topo.dp * topo.tp)
+        metrics = {"loss": means[0], "gnorm": gnorm, "lr": lr}
         if moe_metrics:
-            metrics["moe_aux"], metrics["moe_z"] = packed[1], packed[2]
+            metrics["moe_aux"], metrics["moe_z"] = means[1], means[2]
+        if mvec is not None:
+            metrics.update(METRICS.finalize(packed[n_mean:].cpu(), munits))
         return metrics
 
     return step_fn

@@ -1,11 +1,14 @@
 """Wire-traffic accounting for the bucketed sync scheduler.
 
-Port of the flat-stage part of ``repro.telemetry.wire``: predicts, from a
+Port of ``repro.telemetry.wire`` without its tier rows: predicts, from a
 static :class:`~repro_torch.core.buckets.SyncPlan`, what each rank puts on
 the wire per sync, from each strategy's ``codec.wire_shapes`` (so the
 prediction byte-matches the encode's output tensors), and how many
-collectives the coalesced and the per-bucket schedules launch.  The
-training CLI prints :func:`format_report` of its plan at startup.
+collectives the coalesced and the per-bucket schedules launch; the MoE
+activation wire's bytes per step (:func:`moe_a2a_report`); and the decoded
+error-feedback norms of a train state.  The training CLI prints
+:func:`format_report` of its plan and :func:`format_moe_a2a` at startup,
+and writes :meth:`WireReport.record` into the telemetry stream.
 
 Conventions (the reference's): byte counts are per rank per sync of one
 parameter instance, times ``layers`` for stacked groups; ``fp`` buckets
@@ -19,11 +22,17 @@ not ported yet (ROADMAP item 11) and raise ``NotImplementedError``.
 from __future__ import annotations
 
 import dataclasses
+import json
+
+import torch
 
 from repro_torch.core import codec as codec_lib
+from repro_torch.core import quantizer as Q
 from repro_torch.core import wirepack as WP
-from repro_torch.core.buckets import Bucket, SyncPlan
+from repro_torch.core.act_comm import a2a_geometry
+from repro_torch.core.buckets import Bucket, ParamPlan, SyncPlan
 from repro_torch.core.loco import SyncConfig, state_dtype
+from repro_torch.telemetry import sink
 
 
 def payload_bytes(n_elems: int, cfg: SyncConfig) -> int:
@@ -170,6 +179,41 @@ class WireReport:
             out[b.tensor_class] = out.get(b.tensor_class, 0) + b.wire
         return out
 
+    def record(self) -> dict:
+        """The reference's ``wire_report`` record (telemetry/sink
+        envelope) of a one-pod plan: every byte intra-pod; no tier rows
+        yet (they come with hierarchical sync, ROADMAP item 11)."""
+        ici = sum(b.ici for b in self.buckets)
+        dcn = sum(b.dcn for b in self.buckets)
+        return {
+            **sink.envelope("wire_report"),
+            "total_wire_bytes": self.total_wire,
+            "fp32_bytes": self.fp32_bytes,
+            "bf16_bytes": self.bf16_bytes,
+            "state_bytes": self.state_bytes,
+            "ratio_vs_bf16": self.ratio_vs_bf16,
+            "pods": 1,
+            "wans": 1,
+            "ici_bytes": ici,
+            "dcn_bytes": dcn,
+            "wan_bytes": 0,
+            "bf16_dcn_bytes": 0,
+            "bf16_wan_bytes": 0,
+            "dcn_ratio_vs_bf16": 0.0,
+            "wan_ratio_vs_bf16": 0.0,
+            "tiers": [],
+            "by_class": self.by_class(),
+            "n_buckets": len(self.buckets),
+            "launches": {"per_bucket": self.launches_per_bucket,
+                         "coalesced": self.launches_coalesced,
+                         "comm_groups": self.comm_groups,
+                         "overlapped": self.launches_overlapped,
+                         "pipeline_stages": self.pipeline_stages},
+        }
+
+    def to_json(self) -> str:
+        return json.dumps(self.record(), indent=2)
+
 
 def bucket_wire(param: str, tclass: str, b: Bucket,
                 layers: int) -> BucketWire:
@@ -230,3 +274,111 @@ def format_report(rep: WireReport, max_rows: int = 12) -> str:
     if len(rep.buckets) > max_rows:
         lines.append(f"  ... {len(rep.buckets) - max_rows} more buckets")
     return "\n".join(lines)
+
+
+# ---------------------------------------------------------------------------
+# MoE activation wire (ep_a2a dispatch/combine, core/act_comm)
+# ---------------------------------------------------------------------------
+
+def moe_a2a_layer_bytes(cfg, n_tokens: int, tp: int) -> dict | None:
+    """Per-layer, per-direction bytes of one ep_a2a slot-buffer exchange,
+    byte-matched to what ``core/act_comm`` exchanges: the packed ``(tp,
+    row_bytes)`` u8 buffer (int8 payload padded to the 512 granule + one
+    f32 scale per block) or, for ``fp``, the bf16 ``(tp, El, cap, d)``
+    buffer.  ``n_tokens`` is the microbatch's token count (micro *
+    seq_len)."""
+    if not getattr(cfg, "n_experts", 0) or cfg.moe_impl != "ep_a2a":
+        return None
+    g = a2a_geometry(cfg, n_tokens, tp)
+    bf16 = tp * g["fp_row_bytes"]
+    wire = bf16 if cfg.moe_a2a_codec == "fp" else tp * g["row_bytes"]
+    return {"codec": cfg.moe_a2a_codec, "cap": g["cap"],
+            "exchange_bytes": wire, "bf16_exchange_bytes": bf16}
+
+
+def moe_a2a_report(cfg, shape, topo, microbatch: int) -> dict | None:
+    """Per-step MoE dispatch traffic (None for models without ep_a2a):
+    four exchanges per layer per microbatch (dispatch and combine, forward
+    and backward), times the layers and the microbatches.  Every byte
+    crosses the model group, which never leaves the pod: all ICI."""
+    local_batch = shape.global_batch // topo.dp
+    micro = min(microbatch, local_batch)
+    accum = local_batch // micro
+    per = moe_a2a_layer_bytes(cfg, micro * shape.seq_len, topo.tp)
+    if per is None:
+        return None
+    exchanges = 4 * cfg.n_layers * accum
+    step = per["exchange_bytes"] * exchanges
+    bf16_step = per["bf16_exchange_bytes"] * exchanges
+    return {
+        "codec": per["codec"], "cap": per["cap"],
+        "layers": cfg.n_layers, "exchanges_per_step": exchanges,
+        "exchange_bytes": per["exchange_bytes"],
+        "bf16_exchange_bytes": per["bf16_exchange_bytes"],
+        "per_step_bytes": step, "bf16_per_step_bytes": bf16_step,
+        "ratio_vs_bf16": step / max(bf16_step, 1),
+        "ici_bytes": step, "dcn_bytes": 0,
+    }
+
+
+def format_moe_a2a(rep: dict) -> str:
+    """Training-log line for the MoE activation wire."""
+    return (
+        f"moe_a2a/step/device: {rep['per_step_bytes'] / 2**20:.2f} MiB "
+        f"@{rep['codec']} ({rep['ratio_vs_bf16']:.3f}x of bf16 "
+        f"{rep['bf16_per_step_bytes'] / 2**20:.2f} MiB); "
+        f"cap={rep['cap']}, {rep['exchanges_per_step']} exchanges/step "
+        f"over {rep['layers']} layers (fwd+bwd, dispatch+combine); all ICI"
+    )
+
+
+# ---------------------------------------------------------------------------
+# decoded error-feedback norms
+# ---------------------------------------------------------------------------
+
+def decoded_error(state: torch.Tensor, cfg: SyncConfig) -> torch.Tensor:
+    """This rank's error-feedback buffer in f32 (what compensates the next
+    step)."""
+    if not cfg.needs_state():
+        return torch.zeros(1, dtype=torch.float32, device=state.device)
+    if cfg.strategy == "loco":
+        return Q.error_decode(state, cfg.quant)
+    return state.float()
+
+
+def bucket_error_sq_norms(states, pplan: ParamPlan, coalesce: bool = True):
+    """Squared L2 norm of each state unit's decoded error (this rank);
+    :func:`repro_torch.telemetry.metrics.error_sq_norms`."""
+    from repro_torch.telemetry import metrics
+
+    return metrics.error_sq_norms(states, pplan, coalesce)
+
+
+def error_sq_norm_local(states, groups, cfg: SyncConfig,
+                        plan: SyncPlan | None, tp: int = 1,
+                        coalesce: bool = True) -> torch.Tensor:
+    """Sum of squared decoded-error norms over every parameter of this
+    rank's state tree (per state unit under a plan).  TP-replicated
+    params hold the same state on every model rank, so theirs count
+    ``1/tp`` (the grad-norm convention); the caller sums over the ranks
+    and takes the square root."""
+    from repro_torch.core.flatparam import state_units
+
+    parts = []
+    for g in groups:
+        for info in g.infos:
+            s = states[g.name][info.name]
+            rep = 1.0 / tp if (info.tp_dim is None and tp > 1) else 1.0
+            if plan is not None and info.loco:
+                pp = plan.lookup(g.name, info.name)
+                for sb, u in zip(s, state_units(pp, coalesce)):
+                    e = decoded_error(sb, u.sync)
+                    parts.append(rep * torch.sum(e.float() ** 2))
+            elif info.loco and cfg.needs_state():
+                e = decoded_error(s, cfg)
+                parts.append(rep * torch.sum(e.float() ** 2))
+    total = torch.zeros((), dtype=torch.float32,
+                        device=parts[0].device if parts else None)
+    for p in parts:
+        total = total + p
+    return total

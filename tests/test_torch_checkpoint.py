@@ -37,6 +37,13 @@ reference's npz entries byte for byte for the same arrays, with the
 reference's fingerprint, and resumes the reference's checkpoint, each rank
 its ``(data, model)`` piece bit for bit, continuing within the loss
 limits of the reference's own continuation.
+
+The other optimizers' states (``sgd``'s empty tuple, ``adafactor``'s one
+tree as ``adafactor_flat``, ``lamb``'s two) on the reduced bucketed llama
+at dp 2: the port's npz is the reference's entry for entry and byte for
+byte, each package restores the other's, and both reshard it onto dp 4
+under another bucket layout into the same bytes; the CLI resumes each
+optimizer's run with the uninterrupted run's loss bit for bit.
 """
 import dataclasses
 import json
@@ -335,9 +342,9 @@ def _layout_spec(spec):
     return (*spec, 1, "llama")[:4]
 
 
-def reference_layout(name, dp, tp=1, arch="llama"):
+def reference_layout(name, dp, tp=1, arch="llama", n_opt=2):
     """(fingerprint, zero template) of one run at one dp x tp, built by
-    the reference."""
+    the reference, with ``n_opt`` chunk-mirroring optimizer trees."""
     if (arch, tp) not in _JGROUPS:
         _JGROUPS[arch, tp] = jsteps.build_model(ARCHS[arch][0], tp).groups()
     jgroups = _JGROUPS[arch, tp]
@@ -354,7 +361,7 @@ def reference_layout(name, dp, tp=1, arch="llama"):
 
     return (jsteps.state_fingerprint(jrun, jgroups, jtopo, plan),
             {"chunks": zeros(cshape), "states": zeros(sshape),
-             "opt": (zeros(cshape), zeros(cshape))})
+             "opt": tuple(zeros(cshape) for _ in range(n_opt))})
 
 
 @pytest.mark.parametrize("case", sorted(RESHARDS))
@@ -738,3 +745,67 @@ def test_reference_tp2_checkpoint_resumes_in_port(cross_tp):
     print(f"port {got} reference {losses[1:]} gaps {gaps}")
     assert gaps[0] <= STEP0_RTOL * abs(losses[1]), gaps
     assert max(gaps) <= LATER_ATOL, gaps
+
+
+# ---------------------------------------------------------------------------
+# the other optimizers' states: sgd's empty tuple, adafactor_flat's one
+# tree, lamb's two
+# ---------------------------------------------------------------------------
+
+OPT_TREES = {"sgd": 0, "adafactor": 1, "lamb": 2}
+
+
+def _opt_run(opt, name="A", jax_side=False):
+    return dataclasses.replace(_run(name, jax_side=jax_side), optimizer=opt)
+
+
+@pytest.mark.parametrize("opt", sorted(OPT_TREES))
+def test_optimizer_state_crosses_both_ways(opt, tmp_path):
+    """The port's npz of a bucketed dp-2 state with ``opt``'s optimizer
+    trees is the reference's, entry for entry and byte for byte; the
+    reference restores it, writes it back, and the port restores that
+    into the same bytes; the port reshards it onto dp 4 under another
+    bucket layout as the reference does."""
+    n = OPT_TREES[opt]
+    fp, tmpl = make_layout(_opt_run(opt), 2)
+    assert len(tmpl["opt"]) == n
+    jfp, jtmpl = reference_layout("A", 2, n_opt=n)
+    assert len(jsteps._make_opt(_opt_run(opt, jax_side=True)).init(
+        {"g": {"x": jnp.zeros(4)}})) == n
+    state = random_state(tmpl, seed=11)
+    CKPT.save(str(tmp_path / "port"), 1, state, fingerprint=fp)
+    got = JCKPT.restore(str(tmp_path / "port"), 1, jtmpl, fingerprint=jfp)
+    JCKPT.save(str(tmp_path / "ref"), 1, got, fingerprint=jfp)
+    port = np.load(tmp_path / "port" / MAN.ckpt_file(1))
+    ref = np.load(tmp_path / "ref" / MAN.ckpt_file(1))
+    assert sorted(port.files) == sorted(ref.files)
+    assert sum(k.startswith("opt/") for k in ref.files) == \
+        n * sum(k.startswith("chunks/") for k in ref.files)
+    for k in ref.files:
+        assert port[k].tobytes() == ref[k].tobytes(), k
+    back = serial.flatten(CKPT.restore(str(tmp_path / "ref"), 1, tmpl,
+                                       fingerprint=fp))
+    for k, v in serial.flatten(state).items():
+        assert _bytes(back[k]) == _bytes(v), k
+    fpt, tmplt = make_layout(_opt_run(opt, "B"), 4)
+    jfpt, jtmplt = reference_layout("B", 4, n_opt=n)
+    stored = serial.encode_arrays(serial.flatten(state))
+    moved = serial.encode_arrays(serial.flatten(
+        reshard(serial.decode_arrays(stored), fp, fpt, tmplt)))
+    jmoved = jserial.encode_arrays(jserial.flatten(
+        jreshard(jserial.decode_arrays(stored), jfp, jfpt, jtmplt)))
+    assert set(moved) == set(jmoved)
+    for k, a in jmoved.items():
+        assert moved[k].tobytes() == a.tobytes(), k
+
+
+@pytest.mark.parametrize("opt", sorted(OPT_TREES))
+def test_cli_resumes_each_optimizer(opt, tmp_path):
+    """Three steps saving at step 2, then a run resuming step 2 from the
+    same directory: the resumed step's loss is the uninterrupted run's,
+    bit for bit."""
+    argv = CLI + ["--optimizer", opt, "--steps", "3", "--ckpt-dir",
+                  str(tmp_path)]
+    full = ttrain.main(argv + ["--ckpt-every", "2"])["losses"]
+    res = ttrain.main(argv)
+    assert res["start"] == 2 and res["losses"] == full[2:]

@@ -331,3 +331,41 @@ def test_cuda_sp_collectives_at_world_size_1(cuda_device):
             assert torch.equal(y, x)
             y.backward(w)
             assert torch.equal(x.grad, w)
+
+
+def test_cuda_optimizer_scalar_divisions_are_ieee(cuda_device):
+    """The optimizers divide by a 0-dim scalar filled on the card
+    (``optimizers._on``), which gives the CPU's bits; a 0-dim CPU operand,
+    which torch on CUDA turns into a multiply by its inverse, does not."""
+    from repro_torch.optim import optimizers as OPT
+
+    m = torch.randn(1 << 20, generator=torch.Generator().manual_seed(7))
+    bc1, _ = OPT._bias_corrections(torch.tensor(2), 0.9, 0.999)
+    mc = m.to(cuda_device)
+    assert torch.equal((mc / OPT._on(bc1, mc)).cpu(), m / bc1)
+    assert not torch.equal((mc / bc1).cpu(), m / bc1)
+
+
+@pytest.mark.parametrize("mode", ["block", "fixed", "tensor"])
+def test_cuda_codec_metrics_match_cpu(cuda_device, mode):
+    """The telemetry hooks run plain torch on the card: the same counts
+    as on the CPU, sums within rtol 1e-5, and no kernel launch."""
+    from repro_torch.core import codec
+    from repro_torch.core.loco import SyncConfig
+    from repro_torch.core.quantizer import QuantConfig
+
+    c = codec.get_codec(SyncConfig(quant=QuantConfig(mode=mode)))
+    gen = torch.Generator().manual_seed(11)
+    g = torch.randn(1 << 16, generator=gen) * 1e-4
+    e = c.state_encode(torch.randn(1 << 16, generator=gen) * 2e-2)
+    LQ.reset_launches()
+    for cpu, card in ((c.grad_metrics(g), c.grad_metrics(g.to(cuda_device))),
+                      (c.state_metrics(e),
+                       c.state_metrics(e.to(cuda_device)))):
+        for k, v in cpu.items():
+            if k.endswith(("_cnt", "_tot", "_bad")):
+                assert float(card[k]) == float(v), k
+            else:
+                torch.testing.assert_close(card[k].cpu(), v, rtol=1e-5,
+                                           atol=0)
+    assert LQ.LAUNCHES == {}
