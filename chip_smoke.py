@@ -59,19 +59,37 @@ Phases, in order; any failure exits non-zero and prints no result:
       bit for bit): losses finite and falling, the loco kernels launched
       as derived, ``loco/apply``'s device time and the peak memory
       printed;
+   h. full-width llama2-400m, ``--sync topk`` (1% of each 512-block, no
+      kernel: plain torch ops), 3 steps, profiled at step 2: losses
+      finite, no loco kernel launched, ``loco/encode``'s device time and
+      the peak memory printed;
+   h'. full-width llama2-400m bucketed with ragged top-k buckets,
+      ``--bucket-mb 4 --policy "embed=loco8,body=loco4+topk1%,
+      min=1048576" --no-overlap``, 3 steps: the ragged leaves through the
+      coalesced packing, ``fused_compress`` launched by bit width as the
+      plan derives it;
    losses finite (and falling on a, b and d), every kernel of the path
    launched as often as the code says (counts derived from the parameter
    declarations, the sync plan's encode runs or stage pieces and the
    layer structure, below), split by bit width, and the bucketed sync's
    packed collectives as many as its schedule has groups; each path gives
-   the parent tree's losses bit for bit (``PARENT_LOSSES``: the
-   tensor-parallel code at tp = 1 moves no bit), and no model-group
-   collective or ``replicated_grad_psum`` is called;
+   its recorded losses bit for bit (``PARENT_LOSSES``, recorded on the
+   card once Adam divided and took its root as the CPU does), and no
+   model-group collective or ``replicated_grad_psum`` is called;
 3b. checkpoint: path d's command at full width, cut to CKPT_LAYERS layers:
    4 steps; the same 4 steps saving every 2 (``--ckpt-dir``,
    ``--ckpt-every 2``; the same losses); the step-4 file cut short; a new
    process resumes from step 2 and its steps 2-3 give the uninterrupted
    run's losses bit for bit (npz size, save and restore times printed);
+3c. hierarchical: ``comm.hierarchical_sync`` called on the card directly
+   over size-1 ``(pod, data)`` and ``(wan, pod, data)`` groups (NCCL puts
+   no two ranks on one card, so ``--pods 2`` cannot launch here), at path
+   a's largest LoCo length (32,768,000) and at a tp = 2 rank's
+   (16,384,000), for four schedules: loco4 -> naive8 (``hierarchical``),
+   loco4 -> naive4 (``+hier4``), loco8 -> naive8 -> topk 25% (3 tiers)
+   and onebit -> naive8; every shard and new state bit for bit with the
+   same call on the CPU (plain versions, gloo), and each kernel launched
+   as often as the schedule's legs derive;
 4. profile: one more full-width step of paths a, b, d and of path a
    with ``--telemetry`` under torch.profiler: device busy time (kernels,
    memcpys, memsets) by kernel class, the idle share and the ``loco/*``
@@ -86,7 +104,8 @@ Phases, in order; any failure exits non-zero and prints no result:
    ``--global-batch 12 --microbatch 4`` (three microbatches: the step's
    means divide by 3), and reduced llama2-400m with ``--optimizer sgd``,
    ``lamb`` and ``adafactor``, ``--quant-mode fixed`` and
-   ``--error-codec bf16``, printed as bit for bit or within the limits;
+   ``--error-codec bf16``, and reduced llama2-400m ``--sync topk``,
+   printed as bit for bit or within the limits;
    the step's divisions (``comm.divide`` at 3 and 6, the accum-3 gradient
    mean) give the CPU's bits on the card.  On
    the card, reduced llama2-400m with
@@ -132,6 +151,13 @@ BUCKET_ARGS = _train_args("llama2-400m", "loco", 3, "--bucket-mb", "4",
 # The same run on the flat schedule (the overlapped one is the default):
 # its losses must be path d's bit for bit.
 FLAT_ARGS = BUCKET_ARGS + ["--no-overlap"]
+# Paths h and h': the top-k codec (no kernel), flat and as ragged buckets
+# beside loco8 ones on the coalesced flat schedule (top-k buckets cannot
+# ride the pipelined one).
+H_ARGS = _train_args("llama2-400m", "topk", 3, "--profile-steps", "2:2")
+H2_ARGS = _train_args("llama2-400m", "loco", 3, "--bucket-mb", "4",
+                      "--policy", "embed=loco8,body=loco4+topk1%,"
+                      "min=1048576", "--no-overlap")
 # Paths e-g: the telemetry on paths a and b, and the other optimizers and
 # schedules.  Each run adds its --metrics-jsonl / --profile-dir paths.
 TELEMETRY_FLAGS = ["--telemetry", "--metrics-every", "1"]
@@ -204,12 +230,14 @@ def sync_runs(argv, tp: int = 1) -> dict[tuple[int, int], int]:
     15,728,640.  ``tp``: the same on one rank of a ``tp``-way model group,
     whose tensors are its TP-local slices (at tp = 2 on llama2-400m 524,288
     for the attention weights, 1,441,792 for the MLP, 16,384,000 for the
-    embedding and the head)."""
+    embedding and the head).  Top-k runs are not counted: that codec has
+    no kernel."""
     run, plan = _plan(argv, tp)
     out: dict[tuple[int, int], int] = {}
     for pp in plan.params:
         for u in sync_units(run, pp):
-            if u.sync.needs_state():
+            # top-k encodes with plain torch ops: no kernel
+            if u.sync.needs_state() and u.sync.strategy != "topk":
                 key = (u.chunk_total, u.sync.quant.bits)
                 out[key] = out.get(key, 0) + pp.layers
     return dict(sorted(out.items()))
@@ -884,6 +912,10 @@ def main(argv=None) -> int:
     _add(launches, checkpoint_phase(LQ, src))
     print(f"checkpoint: phase took {time.perf_counter() - t0:.1f} s",
           flush=True)
+    t0 = time.perf_counter()
+    _add(launches, hierarchical_phase(LQ, dev))
+    print(f"hierarchical: phase took {time.perf_counter() - t0:.1f} s",
+          flush=True)
     missing = [name for name, _, _ in KERNEL_ROWS if not launches.get(name)]
     if missing:
         raise AssertionError(f"train: kernels never launched: {missing}")
@@ -963,7 +995,7 @@ def expected_launches(argv, steps: int | None = None) -> dict:
         acts = EXCHANGES_PER_MOE_LAYER * cfg.n_layers * _backwards(argv,
                                                                    steps)
         want.update(act_encode=acts, act_decode=acts)
-    return want
+    return {k: v for k, v in want.items() if v}
 
 
 @contextlib.contextmanager
@@ -976,8 +1008,8 @@ def count_sync_collectives():
     issued = [0]
     issue = comm._SyncPass.issue
 
-    def counting(self, gplan, wires, fp_segs):
-        inflight = issue(self, gplan, wires, fp_segs)
+    def counting(self, gplan, wires, fp_segs, **kw):
+        inflight = issue(self, gplan, wires, fp_segs, **kw)
         issued[0] += len(inflight.works)
         return inflight
 
@@ -1078,21 +1110,21 @@ def _add(total: dict, launches: dict) -> None:
         total[k] = total.get(k, 0) + v
 
 
-# What the parent tree (before the TP-aware code) gave on the card, run P
-# of PERF.md (H100 80GB HBM3, 700 W): every path's losses.  At tp = 1 the
-# TP-aware code must move none of them by a bit.  (Launches and sync
+# What the card gave on every path once Adam divided and took its square
+# root as the CPU does (run AD of PERF.md, H100 80GB HBM3, 700 W): the
+# losses each later run must give bit for bit.  (Launches and sync
 # collectives are held against the counts derived from the code in
 # train_path.)
 PARENT_LOSSES = {
-    "a": [10.68307113647461, 10.063291549682617, 9.444741249084473,
-          9.204526901245117, 8.938225746154785, 8.848466873168945],
-    "b": [11.144638061523438, 10.528535842895508, 9.801465034484863,
-          9.565465927124023, 9.370441436767578, 9.285552978515625],
-    "c": [10.68307113647461, 10.269325256347656, 9.74044132232666],
-    "d": [10.68307113647461, 10.062225341796875, 9.441856384277344],
-    "d'": [10.68307113647461, 10.062225341796875, 9.441856384277344]}
-PARENT_CKPT_LOSSES = [10.762600898742676, 9.794729232788086,
-                      9.226005554199219, 9.016355514526367]
+    "a": [10.68307113647461, 10.063494682312012, 9.444881439208984,
+          9.20444107055664, 8.938138961791992, 8.848569869995117],
+    "b": [11.144638061523438, 10.52808666229248, 9.801839828491211,
+          9.564376831054688, 9.370319366455078, 9.285676956176758],
+    "c": [10.68307113647461, 10.268999099731445, 9.740999221801758],
+    "d": [10.68307113647461, 10.062131881713867, 9.441957473754883],
+    "d'": [10.68307113647461, 10.062131881713867, 9.441957473754883]}
+PARENT_CKPT_LOSSES = [10.762600898742676, 9.794771194458008,
+                      9.225784301757812, 9.016292572021484]
 
 
 def check_parent(name: str, res: dict, label: str | None = None) -> None:
@@ -1161,6 +1193,7 @@ def train_phase(LQ) -> dict:
                 runs[name].append(res)
         _add(total, telemetry_paths(LQ, runs["a"][0], runs["b"][0]))
         _add(total, optimizer_paths(LQ, runs["a"][0]))
+        _add(total, topk_paths(LQ, runs["a"][0]))
     print(f"train: model-group collectives and replicated_grad_psum called "
           f"{tp_calls[0]} times at tp = 1", flush=True)
     if tp_calls[0]:
@@ -1314,6 +1347,156 @@ def optimizer_paths(LQ, a: dict) -> dict:
                   f"{a['peak_mem_bytes'] / 2**30:.2f})"
                   + (f"; {_trace_line(res)}" if res["trace"] else ""),
                   flush=True)
+    return total
+
+
+def topk_paths(LQ, a: dict) -> dict:
+    """Paths h and h': the top-k codec flat (no kernel launched; its
+    encode's device time from the trace of step 2) and as ragged buckets
+    beside loco8 ones (fused_compress by bit width as derived).  Returns
+    their launches."""
+    import tempfile
+
+    total: dict[str, int] = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_topk_") as tmp:
+        launches, h = train_path(LQ, H_ARGS + ["--profile-dir", tmp], False)
+        _add(total, launches)
+        enc = h["trace"]["ranges"].get("loco/encode") if h["trace"] else None
+        if enc is None:
+            raise AssertionError(f"topk: no loco/encode range in the trace "
+                                 f"of step 2 ({h['trace']})")
+        print(f"topk: path h: losses {h['losses']} (path a {a['losses'][:3]}"
+              f"); loco/encode GPU-side span {enc:.2f} ms per step; peak "
+              f"device memory {h['peak_mem_bytes'] / 2**30:.2f} GiB (path a "
+              f"{a['peak_mem_bytes'] / 2**30:.2f}); {_trace_line(h)}",
+              flush=True)
+    launches, h2 = train_path(LQ, H2_ARGS, False)
+    _add(total, launches)
+    print(f"topk: path h': losses {h2['losses']}; fused_compress by bit "
+          f"width {launches_by_bits(H2_ARGS)} as derived", flush=True)
+    return total
+
+
+# ---------------------------------------------------------------------------
+# phase 3c: the hierarchical exchange on size-1 mesh axes
+# ---------------------------------------------------------------------------
+
+def hier_schedules() -> dict:
+    """name -> (SyncConfig, number of dp mesh axes): the four schedules
+    of the hierarchical phase."""
+    import dataclasses
+
+    from repro_torch.core.loco import SyncConfig, SyncTier
+    from repro_torch.core.quantizer import QuantConfig
+
+    loco4, loco8 = SyncConfig(), SyncConfig(quant=QuantConfig(bits=8))
+    naive = {b: SyncConfig(strategy="naive4", quant=QuantConfig(bits=b))
+             for b in (4, 8)}
+    return {
+        "loco4 -> naive8": (dataclasses.replace(loco4, hierarchical=True), 2),
+        "loco4 -> naive4 (+hier4)": (dataclasses.replace(
+            loco4, hierarchical=True, stage2=naive[4]), 2),
+        "loco8 -> naive8 -> topk 25%": (dataclasses.replace(
+            loco8, hierarchical=True, tiers=(
+                SyncTier(naive[8]), SyncTier(SyncConfig(
+                    strategy="topk", topk_frac=0.25)))), 3),
+        "onebit -> naive8": (SyncConfig(strategy="onebit",
+                                        hierarchical=True), 2),
+    }
+
+
+def hier_expected(cfg) -> dict:
+    """Kernel launches of one ``hierarchical_sync`` call, from its legs:
+    stage 1 encodes with the bucket's codec (``fused_compress`` for loco,
+    ``onebit_pack`` for onebit) and every block-quantized leg decodes with
+    ``dequant_mean``; naive4 encodes and top-k and onebit decode with
+    plain ops."""
+    from repro_torch.core.loco import sync_schedule
+
+    want: dict[str, int] = {}
+
+    def add(name):
+        want[name] = want.get(name, 0) + 1
+
+    for i, c in enumerate([cfg] + [t.sync for t in sync_schedule(cfg)]):
+        if c.strategy == "onebit":
+            add("onebit_pack")
+        elif c.strategy in ("loco", "naive4") and c.quant.mode == "block":
+            if i == 0 and c.strategy == "loco":
+                add("fused_compress")
+            add("dequant_mean")
+    return want
+
+
+def hierarchical_phase(LQ, dev) -> dict:
+    """``comm.hierarchical_sync`` on the card over size-1 mesh axes (built
+    by ``launch.mesh.mesh_axes``), at path a's largest LoCo length and a
+    tp = 2 rank's, for every schedule of ``hier_schedules``: each kernel
+    launched as ``hier_expected`` derives, and the shard and the new state
+    bit for bit with the same call on the CPU (the plain versions).
+    Returns the card's launches."""
+    import torch
+
+    from repro_torch.core import codec as codec_lib
+    from repro_torch.core import comm
+    from repro_torch.launch import mesh
+
+    sizes = (max(loco_sizes(TRAIN_ARGS)), max(loco_sizes(TRAIN_ARGS,
+                                                         TP_LOCAL)))
+    cases = [(name, cfg, axes, n) for name, (cfg, axes) in
+             hier_schedules().items() for n in sizes]
+
+    def inputs(cfg, n):
+        gen = torch.Generator(device=dev).manual_seed(n % 9973)
+        g = _grad(n, gen, dev).to(torch.bfloat16)
+        err = "f8" if codec_lib.get_codec(cfg).state_dtype() == \
+            torch.float8_e4m3fn else "bf16"
+        return g, _err(n, err, gen, dev)
+
+    def run(device, record):
+        out = {}
+        with mesh.dp_group(device) as world:
+            axes = {2: mesh.mesh_axes(world, 1, pods=1),
+                    3: mesh.mesh_axes(world, 1, pods=1, wans=1)}
+            for name, cfg, k, n in cases:
+                g, st = inputs(cfg, n)
+                if device.type == "cpu":
+                    g, st = g.cpu(), st.cpu()
+                LQ.reset_launches()
+                t = time.perf_counter()
+                shard, new = comm.hierarchical_sync(g, st, cfg, axes[k])
+                if device.type == "cuda":
+                    torch.cuda.synchronize()
+                secs = time.perf_counter() - t
+                record(name, n, cfg, dict(LQ.LAUNCHES), secs)
+                out[name, n] = (shard.cpu(), new.cpu())
+                del g, st, shard, new
+        return out
+
+    total: dict[str, int] = {}
+
+    def on_card(name, n, cfg, launches, secs):
+        want = hier_expected(cfg)
+        print(f"hierarchical: {name} at {n:,} on the card: launches "
+              f"{launches} (derived {want}); {secs * 1e3:.1f} ms host wall",
+              flush=True)
+        if launches != want:
+            raise AssertionError(f"hierarchical: {name} at {n:,} launched "
+                                 f"{launches}, want {want}")
+        _add(total, launches)
+
+    card = run(dev, on_card)
+    torch.cuda.empty_cache()
+    cpu = run(torch.device("cpu"), lambda *a: None)
+    for key, (shard, new) in card.items():
+        want_shard, want_new = cpu[key]
+        ok = _same(shard, want_shard) and _same(new, want_new)
+        print(f"hierarchical: {key[0]} at {key[1]:,}: shard {shard.dtype} "
+              f"{tuple(shard.shape)}, state {new.dtype}: "
+              f"{'bit for bit with the CPU' if ok else 'DIFFERS'} (max |d| "
+              f"shard {_max_abs(shard, want_shard):.3e})", flush=True)
+        if not ok:
+            raise AssertionError(f"hierarchical: {key} differs from the CPU")
     return total
 
 
@@ -1577,7 +1760,8 @@ REF_RUNS = {"llama2-400m loco": _ref_args("llama2-400m", "loco"),
                 "llama2-400m", "loco", *flags) for flags in (
                     ("--optimizer", "sgd"), ("--optimizer", "lamb"),
                     ("--optimizer", "adafactor"), ("--quant-mode", "fixed"),
-                    ("--error-codec", "bf16"))}}
+                    ("--error-codec", "bf16"))},
+            "llama2-400m topk": _ref_args("llama2-400m", "topk")}
 REF_STEP0_RTOL, REF_ATOL = 2e-3, 2e-2
 UNIFORM_BUCKETS = ["--bucket-mb", "0.0625"]
 # three microbatches per step: the step's gradient and loss means divide

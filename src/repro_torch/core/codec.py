@@ -1,7 +1,7 @@
 """Wire-codec registry: one implementation per sync strategy.
 
-Port of ``repro.core.codec`` for the quantized strategies (``loco``,
-``ef``, ``naive4``) and ``onebit``:
+Port of ``repro.core.codec``: the quantized strategies (``loco``, ``ef``,
+``naive4``), ``onebit`` and the ragged block top-k (``topk``):
 
 * ``encode(g, state) -> (wire, new_state)``: the per-node compressor;
   ``wire`` is a dict of tensors that crosses the all-to-all;
@@ -18,7 +18,8 @@ every quantized codec in block mode -- through
 :mod:`repro_torch.kernels.sign_pack`; their wrappers launch the CUDA kernel
 for a CUDA tensor and run the plain version for a CPU tensor.  The other
 cells (fixed/tensor modes, naive4 encode, stochastic rounding) run the
-codec's own plain ops (``encode_ref``/``decode_mean_ref``) on any device.
+codec's own plain ops (``encode_ref``/``decode_mean_ref``) on any device,
+as does ``topk``, which is plain jnp in the reference (no Pallas kernel).
 """
 from __future__ import annotations
 
@@ -41,15 +42,29 @@ class WireLeaf:
     ``comm``: ``split`` -- row ``i`` of ``reshape(D, -1)`` goes to peer ``i``
     (all-to-all); ``gather`` -- per-node metadata every peer needs
     (all-gather); ``none`` -- static metadata known to every peer already.
+
+    ``count_of`` makes the leaf **ragged**: a capacity-padded array of
+    fixed-size slots (``shape`` is the static capacity) whose sibling leaf
+    ``count_of`` (one u32 per slot group, in the same wire dict) says how
+    many leading slots of each group are live.  Slots at or past the count
+    are dead: the encoder writes zeros there and the receiver re-zeroes
+    them after the exchange (``wirepack.mask_by_count``), so the wire
+    geometry stays static while its information varies.  Ragged leaves
+    are ``comm="split"``.
     """
 
     shape: tuple[int, ...]
     dtype: torch.dtype
     comm: Literal["split", "gather", "none"] = "split"
+    count_of: str | None = None
 
     @property
     def nbytes(self) -> int:
         return math.prod(self.shape) * self.dtype.itemsize
+
+    @property
+    def ragged(self) -> bool:
+        return self.count_of is not None
 
 
 class Codec:
@@ -70,6 +85,14 @@ class Codec:
 
     def needs_state(self) -> bool:
         return self.cfg.needs_state()
+
+    def init_state(self, n: int,
+                   device: torch.device | str = "cpu") -> torch.Tensor:
+        """A zero state for an ``(n,)`` segment (a ``(1,)`` f32 dummy when
+        stateless)."""
+        if self.needs_state():
+            return torch.zeros(n, dtype=self.state_dtype(), device=device)
+        return torch.zeros(1, dtype=torch.float32, device=device)
 
     def state_decode(self, state: torch.Tensor) -> torch.Tensor:
         """Stored compressor state -> logical f32 error values."""
@@ -381,8 +404,14 @@ class OnebitCodec(Codec):
 
     @staticmethod
     def _compensate(g, state):
+        """``h = g + e`` and its scale ``mean |h|``, summed in f64 and
+        rounded once to f32: the same bits on the CPU and on the card,
+        whose f32 reductions add in other orders."""
         h = g.float() + state.float()
-        return h, torch.mean(torch.abs(h))
+        total = torch.sum(torch.abs(h), dtype=torch.float64)
+        n = torch.full((), float(h.numel()), dtype=torch.float64,
+                       device=h.device)
+        return h, (total / n).float()
 
     def encode(self, g, state, gen=None, *, inplace=False):
         h, scale = self._compensate(g, state)
@@ -408,3 +437,135 @@ class OnebitCodec(Codec):
         D = recv["payload"].shape[0]
         bits = Q.unpack_signs(recv["payload"]).float()
         return mean_rows((2.0 * bits - 1.0) * recv["scales"].reshape(D, 1))
+
+
+# ---------------------------------------------------------------------------
+# topk: block-local top-k sparsification with error feedback (ragged wire)
+# ---------------------------------------------------------------------------
+
+# Selection block: top-k is taken per contiguous TOPK_SEL-element block of
+# the compensated gradient.  Equal to buckets.ALIGN, so every bucket edge is
+# a selection-block edge and every wire leaf splits evenly over the peers.
+TOPK_SEL = 512
+
+
+def topk_k(cfg: SyncConfig) -> int:
+    """Live slots kept per TOPK_SEL block (>= 1)."""
+    return max(1, min(TOPK_SEL, int(round(cfg.topk_frac * TOPK_SEL))))
+
+
+def topk_cap(cfg: SyncConfig) -> int:
+    """Static slot capacity per block: k rounded up to a multiple of 4 (the
+    wire budget; keeps each block's idx/val bytes 8-byte aligned);
+    ``topk_frac=1.0`` gives TOPK_SEL, the dense special case."""
+    return min(TOPK_SEL, -(-topk_k(cfg) // 4) * 4)
+
+
+def _live(cnt: torch.Tensor, cap: int) -> torch.Tensor:
+    """``(..., u, cap)`` mask of the slots below each group's u32 count
+    (read through an int32 view: counts never exceed TOPK_SEL)."""
+    c = cnt.view(torch.int32).to(torch.int64)
+    return torch.arange(cap, device=cnt.device) < c[..., None]
+
+
+def _topk_scatter(idx: torch.Tensor, val: torch.Tensor,
+                  cnt: torch.Tensor) -> torch.Tensor:
+    """Reconstruct ``(u * TOPK_SEL,)`` f32 from capacity-padded ``(u, cap)``
+    slots: the one decode of the encoder (exact error feedback) and the
+    receiver.  Dead slots (at or past ``cnt``) add zero at index 0; live
+    indices within a block are distinct, so no add collides with another
+    nonzero one and the result is exact on any device."""
+    u, cap = idx.shape
+    live = _live(cnt, cap)
+    v = torch.where(live, val.float(), torch.zeros((), device=val.device))
+    i = torch.where(live, idx.view(torch.int16).to(torch.int64), 0)
+    out = torch.zeros((u, TOPK_SEL), dtype=torch.float32, device=val.device)
+    return out.scatter_add_(1, i, v).reshape(-1)
+
+
+def topk_select(a: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The ``k`` largest entries of each row of the non-negative ``a``
+    (``|h|``) and their indices, in descending order, equal values by
+    ascending index: the order of ``jax.lax.top_k``.  ``torch.topk``
+    orders ties as it likes, on the CPU and on the card alike, so it runs
+    on unique int64 keys: a non-negative f32's bits order as its value,
+    and the reversed column breaks ties toward the lower index."""
+    w = a.shape[1]
+    col = torch.arange(w - 1, -1, -1, device=a.device)
+    key = a.contiguous().view(torch.int32).to(torch.int64) * w + col
+    idx = (w - 1) - torch.topk(key, k, dim=1).values % w
+    return torch.gather(a, 1, idx), idx
+
+
+@register_codec
+class TopKCodec(Codec):
+    """SparseLoCo-style block top-k with LoCo error feedback.
+
+    Per TOPK_SEL block of the compensated gradient ``h = g + e``, the
+    ``topk_k`` largest-|h| entries cross the wire as (u16 index, bf16
+    value) pairs in a capacity-padded ragged leaf pair, with a u32 live
+    count per block; what is not sent feeds the LoCo moving-average error
+    (Eqns. 2, 5, 7 with the sparse reconstruction as ``d``).  Exact zeros
+    are never sent, so a count lands anywhere in ``[0, k]``.
+    """
+
+    strategy = "topk"
+
+    def state_dtype(self):
+        return Q.error_dtype(self.cfg.quant)
+
+    def state_decode(self, state):
+        return Q.error_decode(state, self.cfg.quant)
+
+    def state_encode(self, e):
+        return Q.error_encode(e, self.cfg.quant)
+
+    def _state_sat_count(self, state):
+        bound = {"f8": 448.0, "int8": 127.0}.get(self.cfg.quant.error_codec)
+        if bound is None:
+            return _f32(0, state.device)
+        return torch.sum(state.float().abs() >= bound).float()
+
+    def wire_shapes(self, n: int) -> dict[str, WireLeaf]:
+        if n % TOPK_SEL:
+            raise ValueError(f"topk needs a multiple of {TOPK_SEL} elements, "
+                             f"got {n}")
+        u = n // TOPK_SEL
+        cap = topk_cap(self.cfg)
+        return {
+            "cnt": WireLeaf((u,), torch.uint32),
+            "idx": WireLeaf((u * cap,), torch.uint16, count_of="cnt"),
+            "val": WireLeaf((u * cap,), torch.bfloat16, count_of="cnt"),
+        }
+
+    def encode_ref(self, g, state, gen=None):
+        cfg, qc = self.cfg, self.cfg.quant
+        k, cap = topk_k(cfg), topk_cap(cfg)
+        e = Q.error_decode(state, qc)
+        h = g.float() + e                                        # Eqn. (2)
+        hb = h.reshape(-1, TOPK_SEL)
+        u = hb.shape[0]
+        av, ai = topk_select(hb.abs(), k)   # descending: the live slots lead
+        valid = av > 0
+        cnt = valid.sum(dim=1, dtype=torch.int32)
+        vals = torch.gather(hb, 1, ai)
+        val_w = torch.zeros((u, cap), dtype=torch.bfloat16, device=h.device)
+        val_w[:, :k] = torch.where(valid, vals, torch.zeros_like(vals))
+        idx_w = torch.zeros((u, cap), dtype=torch.int16, device=h.device)
+        idx_w[:, :k] = torch.where(valid, ai, torch.zeros_like(ai))
+        idx_w = idx_w.view(torch.uint16)
+        cnt = cnt.view(torch.uint32)
+        d = _topk_scatter(idx_w, val_w, cnt)   # == receiver reconstruction
+        e_tilde = (1.0 - cfg.beta) * e + cfg.beta * (h - d)      # Eqn. (5)
+        return ({"cnt": cnt, "idx": idx_w.reshape(-1),
+                 "val": val_w.reshape(-1)},
+                Q.error_encode(e_tilde, qc))                     # Eqn. (7)
+
+    def decode_mean_ref(self, recv):
+        cnt = recv["cnt"]
+        D, u = cnt.shape
+        cap = recv["idx"].shape[1] // u
+        contrib = _topk_scatter(recv["idx"].reshape(D * u, cap),
+                                recv["val"].reshape(D * u, cap),
+                                cnt.reshape(D * u))
+        return mean_rows(contrib.reshape(D, -1))

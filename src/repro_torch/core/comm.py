@@ -1,11 +1,14 @@
 """Collective helpers and the distributed gradient sync.
 
-Port of the flat path of ``repro.core.comm``.  Where the reference ran
-inside ``shard_map`` over mesh axes, the port runs on each rank of one
-``torch.distributed`` process group spanning the data-parallel ranks (rank
-order ``pod * DATA + data``, see :mod:`repro_torch.launch.mesh`), so
-sequential ``all_gather``/``reduce_scatter``/``all_to_all`` stay mutually
-inverse in chunk order.
+Port of ``repro.core.comm``.  Where the reference ran inside ``shard_map``
+over mesh axes, the port runs on each rank of one ``torch.distributed``
+process group spanning the data-parallel ranks (rank order
+``(wan * PODS + pod) * DATA + data``, see :mod:`repro_torch.launch.mesh`),
+so sequential ``all_gather``/``reduce_scatter``/``all_to_all`` stay
+mutually inverse in chunk order.  The hierarchical exchange also needs
+each mesh axis on its own: a :class:`MeshAxis` is one axis's name and this
+rank's process group over it, and a tuple of them, outermost first, takes
+the place of the reference's ``dp_axes``.
 
 ``dist_sync`` is the distributed form of the strategies in
 :mod:`repro_torch.core.loco`: quantize locally, exchange the low-bit payload
@@ -14,10 +17,17 @@ with one packed u8 all-to-all over the group, decompress and average
 ``dist_sync_runs`` do so per bucketed plan, coalesced into one packed
 collective per comm group, flat or pipelined over the plan's overlap
 stages with asynchronous collectives.
+
+Buckets whose config sets ``hierarchical`` route through
+:func:`hierarchical_sync` (or its coalesced in-plan legs): the bucket's
+codec inside the pod (the ``data`` axis), then a stateless codec on the pod
+means across pods (the ``pod`` axis), and one more leg per outer tier of a
+``tiers`` schedule (the ``wan`` axis).
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import torch
 import torch.distributed as dist
@@ -39,6 +49,29 @@ _REDUCE_SCATTER = getattr(dist, "reduce_scatter_single", None) \
 
 def axis_size(group) -> int:
     return dist.get_world_size(group)
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class MeshAxis:
+    """One data-parallel mesh axis as this rank sees it: the axis name
+    (``wan``, ``pod`` or ``data``) and the process group over the ranks
+    that differ from this one on that axis only, in axis order."""
+
+    name: str
+    group: object
+
+    @property
+    def size(self) -> int:
+        return dist.get_world_size(self.group)
+
+    @property
+    def index(self) -> int:
+        """This rank's coordinate on the axis."""
+        return dist.get_rank(self.group)
+
+
+def _names(axes) -> tuple[str, ...]:
+    return tuple(a.name for a in axes)
 
 
 def all_gather_flat(x: torch.Tensor, group, async_op: bool = False):
@@ -101,6 +134,19 @@ def fp_mean(summed: torch.Tensor, D: int) -> torch.Tensor:
 # distributed gradient synchronization (one segment)
 # ---------------------------------------------------------------------------
 
+def _mask_ragged(recv: dict[str, torch.Tensor],
+                 shapes: dict[str, codec_lib.WireLeaf]
+                 ) -> dict[str, torch.Tensor]:
+    """Re-zero received ragged leaves past their in-band counts.  Slots
+    past a block's count carry no information and the wire is not trusted:
+    masking on receipt makes ``decode_mean`` independent of whatever bytes
+    crossed in the dead slots."""
+    for name, leaf in shapes.items():
+        if leaf.ragged:
+            recv[name] = WP.mask_by_count(recv[name], recv[leaf.count_of])
+    return recv
+
+
 def exchange_wire(
     wire: dict[str, torch.Tensor],
     shapes: dict[str, codec_lib.WireLeaf],
@@ -111,10 +157,11 @@ def exchange_wire(
 
     Returns the received dict: each leaf with a leading peer axis ``D``
     (``split`` -> all-to-all rows, ``gather`` -> per-peer metadata,
-    ``none`` -> the local copy broadcast).  All ``split`` leaves ride ONE
-    packed u8 all-to-all and all ``gather`` leaves ONE packed all-gather:
-    collectives move bytes verbatim and the dtype views are exact, so the
-    received tensors are bit-identical to one collective per leaf.
+    ``none`` -> the local copy broadcast); ragged leaves come back zeroed
+    past their counts.  All ``split`` leaves ride ONE packed u8 all-to-all
+    and all ``gather`` leaves ONE packed all-gather: collectives move bytes
+    verbatim and the dtype views are exact, so the received tensors are
+    bit-identical to one collective per leaf.
     """
     recv = {}
     split = [n for n, l in shapes.items() if l.comm == "split"]
@@ -139,7 +186,7 @@ def exchange_wire(
             piece = WP.from_bytes(got[:, off:off + w], shapes[name].dtype)
             recv[name] = piece.reshape(D, *wire[name].shape)
             off += w
-    return recv
+    return _mask_ragged(recv, shapes)
 
 
 def _cadence_on(step: int, every: int) -> bool:
@@ -171,6 +218,7 @@ def dist_sync(
     *,
     out_dtype: torch.dtype = torch.float32,
     inplace: bool = False,
+    axes: tuple[MeshAxis, ...] | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Synchronize one flat gradient segment across the group.
 
@@ -187,15 +235,31 @@ def dist_sync(
     inplace: the caller no longer needs ``state``: on an on-cadence step
            the codec may write the new state into it (off-cadence steps
            read the old state after the encode, so they never do).
+    axes:  the dp mesh axes, outermost first (:class:`MeshAxis`; None: one
+           ``data`` axis over ``group``), which a ``hierarchical`` config
+           exchanges over one at a time (:func:`hierarchical_sync`).
     returns (g_shard (n/D,) in ``out_dtype``, new_state): the *averaged*
     gradient piece this rank owns, and the updated local compressor state
     (``state`` itself when written in place).
     """
     n = g.shape[0]
     D = axis_size(group)
-    if cfg.hierarchical or cfg.tiers:
-        raise NotImplementedError(
-            "hierarchical / multi-tier sync is not ported yet (ROADMAP.md)")
+    gated = step is not None and cfg.needs_state()
+    if gated and cfg.every != 1:
+        # an off-cadence step folds g into the OLD state after the encode,
+        # so only an on-cadence step may overwrite it
+        inplace = inplace and cfg.every > 1 and _cadence_on(step, cfg.every)
+    if cfg.hierarchical:
+        # routed before the fp and ef21 cases (never silently flattened):
+        # what the exchange cannot serve raises in hierarchical_sync, and
+        # with the bucket named when the step is built
+        shard, new_state = hierarchical_sync(
+            g, state, cfg, (MeshAxis("data", group),) if axes is None
+            else axes, gen, step, out_dtype=out_dtype, inplace=inplace)
+        if gated:
+            shard, new_state = _cadence_select(g, state, cfg, step, shard,
+                                               new_state)
+        return shard, new_state
     if cfg.strategy == "fp":
         # 16-bit-style baseline: reduce-scatter mean (bf16 wire)
         with PROF.phase("exchange"):
@@ -207,11 +271,6 @@ def dist_sync(
             "strategy='ef' or 'loco'")
 
     codec = codec_lib.get_codec(cfg)
-    gated = step is not None and cfg.needs_state()
-    if gated and cfg.every != 1:
-        # an off-cadence step folds g into the OLD state after the encode,
-        # so only an on-cadence step may overwrite it
-        inplace = inplace and cfg.every > 1 and _cadence_on(step, cfg.every)
     with PROF.phase("encode"):            # compensate + quantize (Alg. 1)
         wire, new_state = codec.encode(g, state, gen, inplace=inplace)
     with PROF.phase("exchange"):          # low-bit all-to-all (section 3.3)
@@ -274,6 +333,7 @@ def dist_sync_buckets(
     overlap: bool = False,
     out_dtype: torch.dtype = torch.float32,
     inplace: bool = False,
+    axes: tuple[MeshAxis, ...] | None = None,
 ) -> tuple[torch.Tensor, tuple[torch.Tensor, ...]]:
     """Synchronize a full local gradient bucket by bucket.
 
@@ -287,12 +347,13 @@ def dist_sync_buckets(
 
     With ``coalesce`` (the default) the plan's buckets encode as fused runs
     and cross the network in one packed collective per comm group
-    (:func:`repro_torch.core.wirepack.build_group_plan`); ``coalesce=False``
-    runs :func:`dist_sync` once per bucket, the parity oracle.  ``overlap``
+    (:func:`repro_torch.core.wirepack.build_group_plan`; a hierarchical
+    bucket's two legs are packed per leg); ``coalesce=False`` runs
+    :func:`dist_sync` once per bucket, the parity oracle.  ``overlap``
     pipelines the coalesced schedule over the stages of
     :func:`repro_torch.core.wirepack.build_overlap_schedule` (see
     :func:`_dist_sync_overlapped`) and requires ``coalesce``.  All give the
-    same bits.  ``inplace`` and ``step`` as in :func:`dist_sync`.
+    same bits.  ``inplace``, ``step`` and ``axes`` as in :func:`dist_sync`.
     """
     if len(states) != len(plan.buckets):
         raise ValueError(f"{plan.qualname}: {len(states)} states for "
@@ -306,12 +367,13 @@ def dist_sync_buckets(
     if coalesce:
         return _dist_sync_coalesced(gm, states, plan, group, run_space=False,
                                     step=step, out_dtype=out_dtype,
-                                    inplace=inplace, overlap=overlap)
+                                    inplace=inplace, overlap=overlap,
+                                    axes=axes)
     shards, new_states = [], []
     for b, st in zip(plan.buckets, states):
         sh, ns = dist_sync(gm[:, b.offset:b.chunk_end].reshape(-1), st,
                            b.sync, group, step=step, out_dtype=out_dtype,
-                           inplace=inplace)
+                           inplace=inplace, axes=axes)
         shards.append(sh)
         new_states.append(ns)
     return torch.cat(shards), tuple(new_states)
@@ -327,6 +389,7 @@ def dist_sync_runs(
     overlap: bool = False,
     out_dtype: torch.dtype = torch.float32,
     inplace: bool = False,
+    axes: tuple[MeshAxis, ...] | None = None,
 ) -> tuple[torch.Tensor, tuple[torch.Tensor, ...]]:
     """:func:`dist_sync_buckets` (coalesced) with RUN-space states.
 
@@ -342,7 +405,7 @@ def dist_sync_runs(
     return _dist_sync_coalesced(_grad_view(g, plan, group), run_states, plan,
                                 group, run_space=True, step=step,
                                 out_dtype=out_dtype, inplace=inplace,
-                                overlap=overlap)
+                                overlap=overlap, axes=axes)
 
 
 @dataclasses.dataclass
@@ -356,8 +419,8 @@ class _Inflight:
     works: list
     sent: list
     red: torch.Tensor | None = None      # reduce-scatter output (bf16 sums)
-    a2a: torch.Tensor | None = None      # all-to-all receive buffer
-    gat: torch.Tensor | None = None      # all-gather receive buffer
+    # receive buffers of the all-to-alls and all-gathers, by (stage, kind)
+    bufs: dict = dataclasses.field(default_factory=dict)
 
 
 class _SyncPass:
@@ -373,17 +436,29 @@ class _SyncPass:
     D > 1.  Tier-0 cadence (``every > 1``) is gated per unit: off cadence
     the state folds the gradient in (``e <- e + g``) and the shard is
     zero, and only an on-cadence unit may have its state written in
-    place."""
+    place.  A hierarchical unit's stage-1 wire is regrouped for the
+    ``data`` axis, decoded into the pod mean, re-encoded by the stage-2
+    codec and exchanged over the ``pod`` axis (``axes``, outermost
+    first: ``(pod, data)``)."""
 
     def __init__(self, gm, states, group, run_space, step, out_dtype,
-                 inplace):
+                 inplace, axes=None):
         self.gm, self.states, self.group = gm, states, group
         self.run_space, self.step = run_space, step
         self.out_dtype, self.inplace = out_dtype, inplace
         self.D = gm.shape[0]
+        self.axes = axes
+        self.Pp, self.Dd = ((axes[0].size, axes[-1].size) if axes
+                            else (1, self.D))
         self.new_states = list(states)
         self.shards: dict[int, torch.Tensor] = {}
         self.off_cadence: list[int] = []
+
+    def _stage_group(self, stage: str):
+        """The process group a wire stage crosses."""
+        if stage == "flat":
+            return self.group
+        return (self.axes[-1] if stage == "hier1" else self.axes[0]).group
 
     def encode(self, units) -> tuple[dict, dict]:
         """Encode ``(run index, unit)`` pairs into fresh pack inputs:
@@ -394,8 +469,12 @@ class _SyncPass:
             seg = self.gm[:, u.offset:u.offset + u.chunk_total].reshape(-1)
             if u.sync.strategy == "fp":
                 fp_segs[u.slot] = seg.to(torch.bfloat16)
-            else:
-                wires[u.slot] = self._encode_unit(ri, u, seg)
+                continue
+            wire = self._encode_unit(ri, u, seg)
+            if u.sync.hierarchical:
+                wire = _regroup_wire(codec_lib.get_codec(u.sync), wire,
+                                     seg.shape[0], self.Pp, self.Dd)
+            wires[u.slot] = wire
         return wires, fp_segs
 
     def _encode_unit(self, ri, u, seg) -> dict[str, torch.Tensor]:
@@ -405,6 +484,8 @@ class _SyncPass:
             raise NotImplementedError(
                 "ef21 has no distributed form (receiver-side state); "
                 "use strategy='ef' or 'loco'")
+        if cfg.hierarchical:
+            _check_hier_codec(cfg)
         codec = codec_lib.get_codec(cfg)
         on = True
         if self.step is not None and cfg.every > 1:
@@ -460,31 +541,36 @@ class _SyncPass:
             new_states[pos] = select(ns, states[pos])
         return wire
 
-    def issue(self, gplan: WP.WireGroupPlan, wires: dict,
-              fp_segs: dict) -> _Inflight:
-        """Start a stage's packed collectives, asynchronously: at most one
-        bf16 reduce-scatter (fp runs), one u8 all-to-all (``split``
-        leaves) and one all-gather (``gather`` leaves)."""
+    def issue(self, gplan: WP.WireGroupPlan, wires: dict, fp_segs: dict,
+              stages=("flat", "hier1")) -> _Inflight:
+        """Start the packed collectives of ``stages``, asynchronously: per
+        stage at most one u8 all-to-all (``split`` leaves) and one
+        all-gather (``gather`` leaves), each over the stage's group, and
+        with ``flat`` one bf16 reduce-scatter (fp runs)."""
         inf = _Inflight(works=[], sent=[])
 
-        def start(collective, x):
-            out, work = collective(x, self.group, async_op=True)
+        def start(collective, x, group):
+            out, work = collective(x, group, async_op=True)
             inf.works.append(work)
             inf.sent.append(x)
             return out
 
         rg = gplan.group("flat", "reduce")
-        if rg is not None:
+        if rg is not None and "flat" in stages:
             inf.red = start(psum_scatter_flat,
-                            WP.pack_reduce(rg, fp_segs).contiguous())
-        ga = gplan.group("flat", "a2a")
-        if ga is not None:
-            inf.a2a = start(all_to_all_chunks,
-                            WP.pack_a2a(ga, wires).contiguous())
-        gg = gplan.group("flat", "gather")
-        if gg is not None:
-            inf.gat = start(all_gather_flat,
-                            WP.pack_gather(gg, wires).contiguous())
+                            WP.pack_reduce(rg, fp_segs).contiguous(),
+                            self.group)
+        for stage in stages:
+            ga = gplan.group(stage, "a2a")
+            if ga is not None:
+                inf.bufs[stage, "a2a"] = start(
+                    all_to_all_chunks, WP.pack_a2a(ga, wires).contiguous(),
+                    self._stage_group(stage))
+            gg = gplan.group(stage, "gather")
+            if gg is not None:
+                inf.bufs[stage, "gather"] = start(
+                    all_gather_flat, WP.pack_gather(gg, wires).contiguous(),
+                    self._stage_group(stage))
         return inf
 
     def complete(self, gplan: WP.WireGroupPlan, inf: _Inflight,
@@ -500,31 +586,55 @@ class _SyncPass:
             self.shards.update(WP.unpack_reduce(
                 gplan.group("flat", "reduce"),
                 fp_mean(inf.red, self.D).to(self.out_dtype)))
-        if inf.a2a is not None:
-            for slot, leaves in WP.unpack_a2a(gplan.group("flat", "a2a"),
-                                              inf.a2a).items():
-                recv.setdefault(slot, {}).update(leaves)
-        if inf.gat is not None:
-            gg = gplan.group("flat", "gather")
-            shapes: dict[int, dict[str, tuple]] = {}
-            for l in gg.leaves:
-                shapes.setdefault(l.bucket, {})[l.name] = \
-                    wires[l.bucket][l.name].shape
-            for slot, leaves in WP.unpack_gather(
-                    gg, inf.gat.reshape(gg.peers, -1), shapes).items():
+        for (stage, kind), buf in inf.bufs.items():
+            grp = gplan.group(stage, kind)
+            if kind == "a2a":
+                got = WP.unpack_a2a(grp, buf)
+            else:
+                shapes: dict[int, dict[str, tuple]] = {}
+                for l in grp.leaves:
+                    shapes.setdefault(l.bucket, {})[l.name] = \
+                        wires[l.bucket][l.name].shape
+                got = WP.unpack_gather(grp, buf.reshape(grp.peers, -1),
+                                       shapes)
+            for slot, leaves in got.items():
                 recv.setdefault(slot, {}).update(leaves)
         return recv
 
-    def decode(self, units, wires: dict, recv: dict) -> None:
-        """Decode-mean every non-fp unit into its shard."""
+    def decode(self, units, wires: dict, recv: dict,
+               gplan: WP.WireGroupPlan) -> None:
+        """Decode-mean every non-fp unit into its shard.  A hierarchical
+        unit's stage-1 decode is its pod mean, which the stage-2 codec
+        re-encodes; every such unit's stage-2 wire then crosses the pod
+        axis in one packed exchange and decodes into its shard."""
+        wires2: dict[int, dict[str, torch.Tensor]] = {}
+        codecs2: dict[int, tuple[codec_lib.Codec, int]] = {}
         for _, u in units:
             if u.sync.strategy == "fp":
                 continue
             codec = codec_lib.get_codec(u.sync)
             r = dict(recv.get(u.slot, {}))
+            if not u.sync.hierarchical:
+                r.update(_none_leaves(codec, self.D * u.chunk_total,
+                                      wires[u.slot], self.D))
+                self.shards[u.slot] = codec.decode_mean(r, self.out_dtype)
+                continue
             r.update(_none_leaves(codec, self.D * u.chunk_total,
-                                  wires[u.slot], self.D))
-            self.shards[u.slot] = codec.decode_mean(r, self.out_dtype)
+                                  wires[u.slot], self.Dd))
+            pod_mean = codec.decode_mean(r)
+            codec2 = codec_lib.get_codec(loco_lib.validate_stage2(u.sync))
+            n2 = pod_mean.shape[0]
+            wires2[u.slot], _ = codec2.encode(
+                pod_mean, codec2.init_state(n2, pod_mean.device))
+            codecs2[u.slot] = (codec2, n2)
+        if not wires2:
+            return
+        recv2 = self.complete(gplan, self.issue(gplan, wires2, {},
+                                                stages=("hier2",)), wires2)
+        for slot, (codec2, n2) in codecs2.items():
+            r = dict(recv2.get(slot, {}))
+            r.update(_none_leaves(codec2, n2, wires2[slot], self.Pp))
+            self.shards[slot] = codec2.decode_mean(r, self.out_dtype)
 
     def result(self, units) -> tuple[torch.Tensor, tuple[torch.Tensor, ...]]:
         """The shard (units partition chunk space in offset order) and the
@@ -534,7 +644,6 @@ class _SyncPass:
         parts = [self.shards[u.slot] for _, u in units]
         out = parts[0] if len(parts) == 1 else torch.cat(parts)
         return out, tuple(self.new_states)
-
 
 def _dist_sync_coalesced(
     gm: torch.Tensor,
@@ -546,6 +655,7 @@ def _dist_sync_coalesced(
     out_dtype: torch.dtype,
     inplace: bool,
     overlap: bool = False,
+    axes: tuple[MeshAxis, ...] | None = None,
 ) -> tuple[torch.Tensor, tuple[torch.Tensor, ...]]:
     """The coalesced schedule over ``gm`` (the ``(D, C)`` gradient view):
     encode every run, one packed collective per comm group, decode every
@@ -554,16 +664,24 @@ def _dist_sync_coalesced(
     schedule is this flat one.  The pipelined schedule cannot carry
     cadence buckets (a stage piece cannot gate its whole run's
     accumulator): refused here and, with the bucket named, when the step
-    is built (``launch.steps._validate_sync_configs``)."""
+    is built (``launch.steps._validate_sync_configs``).  A plan with
+    hierarchical buckets needs ``axes`` = ``(pod, data)``."""
     D = gm.shape[0]
     runs = WP.encode_runs(plan)
     want = len(runs) if run_space else len(plan.buckets)
     if len(states) != want:
         raise ValueError(f"{plan.qualname}: {len(states)} states, want "
                          f"{want} ({'runs' if run_space else 'buckets'})")
-    sp = _SyncPass(gm, states, group, run_space, step, out_dtype, inplace)
+    if any(b.sync.hierarchical and b.sync.strategy != "fp"
+           for b in plan.buckets):
+        axes = (MeshAxis("data", group),) if axes is None else axes
+        _check_hier_axes(axes)
+    else:
+        axes = None
+    sp = _SyncPass(gm, states, group, run_space, step, out_dtype, inplace,
+                   axes)
     if overlap:
-        sched = WP.build_overlap_schedule(plan, D)
+        sched = WP.build_overlap_schedule(plan, D, pods=sp.Pp)
         if sched.pipelined:
             cadenced = [b for b in plan.buckets if b.sync.every > 1]
             if step is not None and cadenced:
@@ -573,14 +691,14 @@ def _dist_sync_coalesced(
                     "overlap schedule; run cadence plans with overlap "
                     "disabled")
             return _dist_sync_overlapped(sp, sched)
-    gplan = WP.build_group_plan(plan, D)
+    gplan = WP.build_group_plan(plan, D, pods=sp.Pp)
     units = list(enumerate(runs))
     with PROF.phase("encode"):
         wires, fp_segs = sp.encode(units)
     with PROF.phase("exchange"):
         recv = sp.complete(gplan, sp.issue(gplan, wires, fp_segs), wires)
     with PROF.phase("decode"):
-        sp.decode(units, wires, recv)
+        sp.decode(units, wires, recv, gplan)
     return sp.result(units)
 
 
@@ -592,7 +710,9 @@ def _dist_sync_overlapped(sp: _SyncPass, sched: WP.OverlapSchedule):
     wait for stage k-1 and decode it, issue stage k.  At most two stages'
     pack buffers are alive at once.  Where the reference pins the encode
     into the exchange's window with ``lax.optimization_barrier``, the port
-    gets the overlap from ``async_op=True`` collectives.
+    gets the overlap from ``async_op=True`` collectives.  A hierarchical
+    piece's stage-2 leg exchanges within its stage's decode, as the
+    reference's does.
 
     Bit-exact with the flat schedule by construction: each piece's encoded
     bytes equal its slice of the flat schedule's buffers (fusible codecs
@@ -616,12 +736,161 @@ def _dist_sync_overlapped(sp: _SyncPass, sched: WP.OverlapSchedule):
         stage, pwires, pinf = prev
         with PROF.phase("decode", group=k - 1):
             sp.decode(units(stage), pwires,
-                      sp.complete(stage.gplan, pinf, pwires))
+                      sp.complete(stage.gplan, pinf, pwires), stage.gplan)
         with PROF.phase("exchange", group=k):
             inflight = sp.issue(stages[k].gplan, wires, fp_segs)
         prev = (stages[k], wires, inflight)
     stage, pwires, pinf = prev
     with PROF.phase("decode", group=len(stages) - 1):
         sp.decode(units(stage), pwires,
-                  sp.complete(stage.gplan, pinf, pwires))
+                  sp.complete(stage.gplan, pinf, pwires), stage.gplan)
     return sp.result([u for st in stages for u in units(st)])
+
+
+# ---------------------------------------------------------------------------
+# hierarchical (multi-tier) exchange over the nested dp mesh axes
+# ---------------------------------------------------------------------------
+
+def _check_hier_axes(axes: tuple[MeshAxis, ...], ntiers: int = 1) -> None:
+    if len(axes) == 1 + ntiers:
+        return
+    if ntiers == 1:
+        raise ValueError(
+            f"hierarchical sync needs a (pod, data) mesh; got dp axes "
+            f"{_names(axes)!r} — use the flat exchange (hierarchical=False) "
+            "on single-axis meshes")
+    raise ValueError(
+        f"a {ntiers}-tier sync schedule needs {1 + ntiers} dp mesh axes "
+        f"(one per exchange leg, innermost first); got {len(axes)}: "
+        f"{_names(axes)!r}")
+
+
+def _check_hier_codec(cfg: SyncConfig) -> None:
+    if cfg.strategy not in codec_lib.CODECS:
+        raise ValueError(
+            f"hierarchical sync needs a registered wire codec for stage 1; "
+            f"strategy {cfg.strategy!r} has none "
+            f"(registered: {sorted(codec_lib.CODECS)})")
+
+
+def _regroup_chunks(arr: torch.Tensor, Pp: int, Dd: int) -> torch.Tensor:
+    """Flat chunk-major wire leaf -> ``(Dd, Pp * k)`` rows for the exchange
+    over the inner axis.
+
+    The segment's flat chunk order is ``r = p * Dd + d``; data-peer ``d``'s
+    row must carry the ``Pp`` chunks ``{p * Dd + d : p}``, so reshape to
+    ``(Pp, Dd, k)`` and move the pod axis inward.  ``k`` is the per-chunk
+    leaf length (payload bytes, block scales, packed signs, top-k slots),
+    whole because bucket edges are 512-aligned.  The transpose runs on the
+    leaf's bytes (exact for any dtype, the unsigned ones included).
+    """
+    k, rem = divmod(arr.shape[0], Pp * Dd)
+    if rem:
+        raise ValueError(f"leaf of {arr.shape[0]} elements does not split "
+                         f"into {Pp} x {Dd} chunks")
+    b = WP.to_bytes(arr).reshape(Pp, Dd, -1).transpose(0, 1)
+    return WP.from_bytes(b.reshape(Dd, -1), arr.dtype)
+
+
+def _regroup_wire(codec: codec_lib.Codec, wire: dict, n: int, Pp: int,
+                  Dd: int) -> dict[str, torch.Tensor]:
+    """A wire dict with every ``split`` leaf regrouped (flat) for the
+    inner axis; ``gather``/``none`` leaves are per node and stay."""
+    return {name: (_regroup_chunks(wire[name], Pp, Dd).reshape(-1)
+                   if leaf.comm == "split" else wire[name])
+            for name, leaf in codec.wire_shapes(n).items()}
+
+
+def hierarchical_sync(
+    g: torch.Tensor,
+    state: torch.Tensor,
+    cfg: SyncConfig,
+    axes: tuple[MeshAxis, ...],
+    gen: torch.Generator | None = None,
+    step: int | None = None,
+    *,
+    out_dtype: torch.dtype = torch.float32,
+    inplace: bool = False,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Codec-level N-tier exchange over the nested dp mesh ``axes``
+    (outermost first).
+
+    The tier list is :func:`repro_torch.core.loco.sync_schedule`'s: the
+    classic ``hierarchical=True`` config is ONE outer tier (stage 2) over a
+    ``(pod, data)`` mesh; an explicit ``cfg.tiers`` schedule runs one leg
+    per tier over ever outer axes (stage 1 crosses ``axes[-1]``, tier
+    ``t`` crosses ``axes[-2 - t]``).
+
+    Stage 1: the bucket's own codec (its CUDA kernels on the card) encodes
+    the local segment as the flat path would; its ``split`` leaves are
+    regrouped so row ``d`` carries the chunks data-peer ``d`` owns, the
+    wire crosses the innermost axis only (``gather`` leaves all-gathered,
+    so each peer's payload decodes with its own metadata), and
+    ``decode_mean`` gives the f32 mean over the inner group of the chunks
+    this device group owns.
+
+    Tier ``t``: the tier's codec (stateless, or ``topk`` from a fresh zero
+    state, :func:`repro_torch.core.loco.validate_tier_codec`) re-encodes
+    the running mean, exchanges it over the tier's axis with
+    :func:`exchange_wire` and decodes the mean, so every leg is the flat
+    path's encode -> exchange -> decode_mean and sim == dist holds by
+    construction (:func:`repro_torch.core.loco.sim_sync_hier`).
+
+    Tier cadence (``tier.every > 1``, DESIGN.md section 16): a tier
+    exchanges when ``step % every == every - 1``; off cadence each device
+    keeps its OWN group's running mean (its slice of the tier input at its
+    index on the tier's axis).  Every rank evaluates the same cadence, so
+    an off-cadence tier issues no collective (the reference's SPMD form
+    still runs them and selects).
+
+    The device with flat dp rank r ends with flat chunk r, as with the
+    flat exchange, so the FSDP layout is unchanged.  Error feedback
+    covers stage 1 only: the new state is the flat path's, bit for bit.
+    Returns (shard (n/D,) in ``out_dtype``, new_state).
+    """
+    tiers = loco_lib.sync_schedule(cfg)
+    _check_hier_axes(axes, len(tiers))
+    _check_hier_codec(cfg)
+    sizes = [a.size for a in axes]
+    Dd = sizes[-1]
+    rem = math.prod(sizes[:-1])   # chunk groups left after stage 1
+    n = g.shape[0]
+
+    # --- stage 1: own codec, innermost-axis exchange -----------------------
+    codec = codec_lib.get_codec(cfg)
+    with PROF.phase("encode"):
+        wire, new_state = codec.encode(g, state, gen, inplace=inplace)
+        shapes1 = codec.wire_shapes(n)
+        wire1 = _regroup_wire(codec, wire, n, rem, Dd)
+    with PROF.phase("exchange"):
+        recv1 = exchange_wire(wire1, shapes1, Dd, axes[-1].group)
+    with PROF.phase("decode"):
+        cur = codec.decode_mean(recv1)               # (rem * c,) f32
+
+    # --- outer tiers: stateless re-encode, one mesh axis per tier ----------
+    for t, tier in enumerate(tiers):
+        ax, P = axes[-2 - t], sizes[-2 - t]
+        rem //= P          # chunk groups left after THIS tier
+        codec_t = codec_lib.get_codec(loco_lib.validate_tier_codec(tier.sync))
+        n_t = cur.shape[0]
+        if step is not None and tier.every > 1 \
+                and not _cadence_on(step, tier.every):
+            # off cadence: my group's running mean of my chunks -- my slice
+            # of the tier input (my index on this axis is the fast
+            # coordinate of the remaining chunk order)
+            cur = cur.reshape(rem, P, n_t // (rem * P))[:, ax.index] \
+                .reshape(-1)
+            continue
+        with PROF.phase("encode"):
+            wire_t, _ = codec_t.encode(cur, codec_t.init_state(n_t,
+                                                               cur.device))
+            shapes_t = codec_t.wire_shapes(n_t)
+            if rem > 1:
+                # the stage-1 interleave: this tier's peer coordinate is
+                # the fast index of the remaining chunk order
+                wire_t = _regroup_wire(codec_t, wire_t, n_t, rem, P)
+        with PROF.phase("exchange"):
+            recv_t = exchange_wire(wire_t, shapes_t, P, ax.group)
+        with PROF.phase("decode"):
+            cur = codec_t.decode_mean(recv_t)        # (n_t / P,) f32
+    return cur.to(out_dtype), new_state

@@ -99,7 +99,13 @@ class MeshTopo:
     sync), its size and this rank's index there (``rank``); the ``model``
     group (``launch.mesh.mesh_groups``), its size ``tp`` and this rank's
     index there (``tp_rank``); and the ``world`` group over every rank,
-    on which the global norm and the loss are reduced."""
+    on which the global norm and the loss are reduced.
+
+    On a multi-pod mesh the flat data group is also cut by mesh axis:
+    ``axes`` holds one ``comm.MeshAxis`` per dp axis, outermost first
+    (``(wan,) pod, data``), which the hierarchical sync exchanges over;
+    ``pods`` and ``wans`` are the sizes of the ``pod`` and ``wan`` axes
+    (1 without them), and ``dp_axes`` their names, as in the reference."""
 
     group: object       # torch.distributed process group over the dp ranks
     dp: int
@@ -107,21 +113,32 @@ class MeshTopo:
     tp: int = 1
     model: object = None  # process group over the tp ranks
     tp_rank: int = 0
+    axes: tuple = ()    # comm.MeshAxis per dp axis, outermost first
+    pods: int = 1
+    wans: int = 1
 
     @property
     def world(self):
         """The group over all dp * tp ranks (the data group at tp = 1)."""
         return self.group if self.tp == 1 else dist.group.WORLD
 
+    @property
+    def dp_axes(self) -> tuple[str, ...]:
+        return tuple(a.name for a in self.axes) or ("data",)
+
     @staticmethod
-    def from_group(group, model=None) -> "MeshTopo":
-        """The topology of the data group ``group`` and the model group
-        ``model`` (None: ``tp = 1`` with no model group)."""
+    def from_group(group, model=None, axes=None) -> "MeshTopo":
+        """The topology of the data group ``group``, the model group
+        ``model`` (None: ``tp = 1`` with no model group) and the dp mesh
+        ``axes`` (None: one flat ``data`` axis)."""
+        sizes = {a.name: a.size for a in axes or ()}
         topo = MeshTopo(group=group, dp=dist.get_world_size(group),
                         rank=dist.get_rank(group),
                         tp=1 if model is None else dist.get_world_size(model),
                         model=model,
-                        tp_rank=0 if model is None else dist.get_rank(model))
+                        tp_rank=0 if model is None else dist.get_rank(model),
+                        axes=tuple(axes or ()), pods=sizes.get("pod", 1),
+                        wans=sizes.get("wan", 1))
         if topo.tp > 1 and dist.get_world_size() != topo.dp * topo.tp:
             raise ValueError(f"dp {topo.dp} x tp {topo.tp} ranks do not make "
                              f"the world of {dist.get_world_size()}")
@@ -314,14 +331,16 @@ def materialize(chunk: torch.Tensor, state, info: ParamInfo,
     bucket syncs on its own (``overlap`` has nothing to pipeline there).
     """
     w = chunk.to(compute_dtype)
+    axes = topo.axes or None
     if info.loco and pplan is not None and coalesce:
         flat = gather_with_sync_runs(w, state, pplan, topo.group, step=step,
-                                     overlap=overlap)
+                                     overlap=overlap, axes=axes)
     elif info.loco and pplan is not None:
         flat = gather_with_sync_buckets(w, state, pplan, topo.group,
-                                        coalesce=False, step=step)
+                                        coalesce=False, step=step, axes=axes)
     elif info.loco:
-        flat = gather_with_sync(w, state, cfg, topo.group, step=step)
+        flat = gather_with_sync(w, state, cfg, topo.group, step=step,
+                                axes=axes)
     else:
         flat = gather_fp(w, topo.group)
     n = info.numel_local(topo.tp)

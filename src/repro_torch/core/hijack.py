@@ -48,10 +48,11 @@ def _reject_stochastic_rounding(cfg: SyncConfig) -> None:
 
 class _GatherWithSync(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, w_chunk, state, cfg, group, step):
+    def forward(ctx, w_chunk, state, cfg, group, step, axes):
         # state is read and written in backward only: kept on ctx as is
         # (not saved for backward) because backward updates it in place
         ctx.state, ctx.cfg, ctx.group, ctx.step = state, cfg, group, step
+        ctx.axes = axes
         return all_gather_flat(w_chunk, group)
 
     @staticmethod
@@ -60,25 +61,28 @@ class _GatherWithSync(torch.autograd.Function):
         # the optimizer sees it, as in the reference
         g_shard, new_state = dist_sync(g_full, ctx.state, ctx.cfg, ctx.group,
                                        step=ctx.step, out_dtype=g_full.dtype,
-                                       inplace=True)
+                                       inplace=True, axes=ctx.axes)
         if new_state is not ctx.state:
             ctx.state.copy_(new_state)
-        return g_shard, None, None, None, None
+        return g_shard, None, None, None, None, None
 
 
 def gather_with_sync(w_chunk: torch.Tensor, state: torch.Tensor,
                      cfg: SyncConfig, group,
-                     step: int | None = None) -> torch.Tensor:
+                     step: int | None = None,
+                     axes: tuple | None = None) -> torch.Tensor:
     """FSDP all-gather whose backward runs the configured sync strategy.
 
     w_chunk: (n/D,) local flat parameter chunk (bf16 on the wire)
     state:   this rank's compressor state, shape (n,) (full local-gradient
              size), updated in place by the backward.
     step:    step index for the cadence gate (None = step 0).
+    axes:    the dp mesh axes a hierarchical config exchanges over
+             (``comm.MeshAxis``, outermost first; None: one flat axis).
     """
     _reject_stochastic_rounding(cfg)
     return _GatherWithSync.apply(w_chunk, state, cfg, group,
-                                 0 if step is None else step)
+                                 0 if step is None else step, axes)
 
 
 class _GatherWithSyncPlan(torch.autograd.Function):
@@ -110,7 +114,8 @@ def _reject_plan_stochastic_rounding(plan: ParamPlan) -> None:
 def gather_with_sync_buckets(w_chunk: torch.Tensor, states: tuple,
                              plan: ParamPlan, group, coalesce: bool = True,
                              step: int | None = None,
-                             overlap: bool = False) -> torch.Tensor:
+                             overlap: bool = False,
+                             axes: tuple | None = None) -> torch.Tensor:
     """FSDP all-gather whose backward runs the bucketed sync schedule.
 
     w_chunk: (C,) local flat parameter chunk (C = plan.chunklen)
@@ -121,10 +126,11 @@ def gather_with_sync_buckets(w_chunk: torch.Tensor, states: tuple,
              :func:`~repro_torch.core.comm.dist_sync` per bucket.
     overlap: pipeline the packed exchange over the plan's overlap stages
              (requires ``coalesce``; the same bits).
+    axes:    as in :func:`gather_with_sync`, for hierarchical buckets.
     """
     _reject_plan_stochastic_rounding(plan)
     sync = functools.partial(dist_sync_buckets, plan=plan, group=group,
-                             coalesce=coalesce, overlap=overlap)
+                             coalesce=coalesce, overlap=overlap, axes=axes)
     return _GatherWithSyncPlan.apply(w_chunk, tuple(states), sync, group,
                                      0 if step is None else step)
 
@@ -132,16 +138,18 @@ def gather_with_sync_buckets(w_chunk: torch.Tensor, states: tuple,
 def gather_with_sync_runs(w_chunk: torch.Tensor, run_states: tuple,
                           plan: ParamPlan, group,
                           step: int | None = None,
-                          overlap: bool = False) -> torch.Tensor:
+                          overlap: bool = False,
+                          axes: tuple | None = None) -> torch.Tensor:
     """FSDP all-gather whose backward runs the coalesced bucketed schedule
     over run-space compressor states (one buffer per encode run, updated
     in place by the backward); the same result as
     :func:`gather_with_sync_buckets` in another state layout.  ``overlap``
     pipelines it within this one backward over the plan's overlap stages
-    (:func:`~repro_torch.core.comm.dist_sync_runs`)."""
+    (:func:`~repro_torch.core.comm.dist_sync_runs`); ``axes`` as in
+    :func:`gather_with_sync`."""
     _reject_plan_stochastic_rounding(plan)
     sync = functools.partial(dist_sync_runs, plan=plan, group=group,
-                             overlap=overlap)
+                             overlap=overlap, axes=axes)
     return _GatherWithSyncPlan.apply(w_chunk, tuple(run_states), sync, group,
                                      0 if step is None else step)
 

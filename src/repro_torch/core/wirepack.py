@@ -1,6 +1,6 @@
 """Wire coalescer: one packed collective per comm group, not per bucket-leaf.
 
-Port of the flat stage of ``repro.core.wirepack``.  The bucketed scheduler
+Port of ``repro.core.wirepack``.  The bucketed scheduler
 (:mod:`repro_torch.core.buckets`) buys per-bucket wire policies at the price
 of launches: each bucket would issue its own collective per wire leaf.
 This module groups a plan's buckets, when the step is built, by exchange
@@ -8,16 +8,23 @@ kind and lays every (encode run, wire leaf) of a group out at a fixed byte
 offset inside one packed buffer:
 
 * ``a2a``: each leaf's per-peer rows side by side in a ``(peers,
-  row_bytes)`` ``uint8`` buffer, ONE all-to-all over the dp group;
+  row_bytes)`` ``uint8`` buffer, ONE all-to-all over the group;
 * ``gather``: per-node metadata leaves in one flat ``uint8`` buffer, ONE
   all-gather;
 * ``reduce``: the ``fp`` buckets' bf16 segments, ONE reduce-scatter
   (elements, not bytes: the network adds here).
 
+Groups are keyed by stage as well: ``flat`` crosses the whole dp group;
+a hierarchical bucket's stage 1 (``hier1``, its own codec) crosses the
+innermost ``data`` axis and its stage 2 (``hier2``, the stateless codec on
+the pod means) the ``pod`` axis, each its own process group.
+
 The byte views are exact and collectives move bytes verbatim, so the
 packed exchange is bit-identical to one collective per bucket-leaf; the
 512-aligned chunk geometry of :mod:`repro_torch.core.buckets` keeps every
-leaf's per-peer row a whole number of bytes (checked here).
+leaf's per-peer row a whole number of bytes (checked here).  Ragged
+(capacity-padded top-k) leaves ride the ``a2a`` groups with their count
+leaf and are re-zeroed past the count on receipt (:func:`mask_by_count`).
 
 Adjacent buckets with the same fusible config also *encode* as one segment
 (:class:`EncodeRun`): under a uniform policy a parameter has one run, one
@@ -29,10 +36,6 @@ each with its own group plan, which ``core/comm`` pipelines.  The
 reference's piece-space state carry (``StateLeaf`` ... ``merge_state_pieces``
 and the f8 -> f16 widening) works around XLA:CPU's f8 emitters and is not
 ported: a piece's state is a column slice of its run's peer-major buffer.
-
-Not ported yet: ragged leaves and ``mask_by_count`` (top-k) and the
-hierarchical ``hier1``/``hier2`` stages (ROADMAP item 11).  A plan that
-needs them is refused here with ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -44,9 +47,11 @@ from typing import Literal
 import torch
 
 from repro_torch.core import codec as codec_lib
+from repro_torch.core import loco as loco_lib
 from repro_torch.core.buckets import ParamPlan
 from repro_torch.core.loco import SyncConfig
 
+Stage = Literal["flat", "hier1", "hier2"]
 Kind = Literal["a2a", "gather", "reduce"]
 
 
@@ -82,7 +87,8 @@ def dtype_name(dtype: torch.dtype) -> str:
 
 
 _DTYPES = {dtype_name(d): d for d in (torch.int8, torch.uint8, torch.float32,
-                                      torch.bfloat16, torch.float8_e4m3fn)}
+                                      torch.bfloat16, torch.float8_e4m3fn,
+                                      torch.uint16, torch.uint32)}
 
 
 # ---------------------------------------------------------------------------
@@ -97,7 +103,7 @@ class EncodeRun:
     are elementwise per 256-block, and bucket edges are 512-aligned, so
     ``encode(concat) == concat(encode)``.  ``tensor``/``onebit`` scales and
     stochastic rounding depend on the whole segment and never fuse;
-    hierarchical buckets stay singleton runs.  ``slot`` (the first member's
+    hierarchical and top-k buckets stay singleton runs.  ``slot`` (the first member's
     bucket index) keys the run's wire tensors in the packed buffers.
     """
 
@@ -195,15 +201,19 @@ class PackedLeaf:
     nbytes: int
     elems: int           # leaf elements per peer row (a2a/reduce) or total (gather)
     dtype: str           # dtype name (a string keeps the dataclass hashable)
+    # ragged leaf: name of the same run's u32 count leaf in this group; the
+    # leaf is capacity-padded (offset/nbytes are the static budget) and
+    # unpack re-zeroes the slots at or past the count
+    count_of: str | None = None
 
 
 @dataclasses.dataclass(frozen=True)
 class WireGroup:
     """All the wire tensors that ride one packed collective."""
 
-    stage: str           # "flat": the port has no hierarchical stages yet
+    stage: Stage
     kind: Kind
-    peers: int
+    peers: int           # exchange group size (D flat, Dd hier1, pods hier2)
     row_bytes: int       # per-peer bytes (a2a/reduce: row; gather: local buffer)
     leaves: tuple[PackedLeaf, ...]
 
@@ -221,8 +231,10 @@ class WireGroupPlan:
         return None
 
     def launches(self) -> int:
-        """Collectives issued per sync: one per group (the port's dp group
-        is one process group, so each group crosses it once)."""
+        """Collectives issued per sync: one per group.  Every group crosses
+        one process group (the flat dp group, or one mesh axis's group for
+        the hierarchical stages), where the reference's flat groups launch
+        once per mesh axis they span."""
         return len(self.groups)
 
 
@@ -231,32 +243,41 @@ def _leaf_entries(cfg, n: int) -> list[tuple[str, "codec_lib.WireLeaf"]]:
     return list(codec_lib.get_codec(cfg).wire_shapes(n).items())
 
 
-def refuse_unported(where: str, cfg: SyncConfig) -> None:
-    """Raise ``NotImplementedError`` for a config the port's bucketed sync
-    cannot run yet: top-k and multi-tier (hierarchical, ``tiers``) sync."""
-    if cfg.strategy == "topk":
-        raise NotImplementedError(
-            f"{where}: the topk codec (ragged wire leaves) is not ported "
-            "yet (ROADMAP item 11)")
-    if cfg.hierarchical or cfg.tiers:
-        raise NotImplementedError(
-            f"{where}: hierarchical / multi-tier sync is not ported yet "
-            "(ROADMAP item 11)")
-
-
-def _plan_groups(qualname: str, segs, D: int) -> WireGroupPlan:
-    """Group-layout walk over offset-ordered encode runs or stage pieces."""
+def _plan_groups(qualname: str, segs, D: int, pods: int) -> WireGroupPlan:
+    """Group-layout walk over offset-ordered encode runs or stage pieces
+    (both give the same group geometry for the same segments, which keeps
+    the overlapped exchange bit-exact).  ``pods`` is the inter-pod axis
+    size: a hierarchical run's stage 1 crosses ``D / pods`` peers, its
+    stage 2 ``pods``."""
+    dd = D // max(pods, 1)
     builders: dict[tuple, list[PackedLeaf]] = {}
     offs: dict[tuple, int] = {}
 
-    def add(kind: Kind, bucket: int, name: str, nbytes: int, elems: int,
-            dtype) -> None:
-        sig = ("flat", kind, D)
+    def add(stage: Stage, kind: Kind, peers: int, bucket: int, name: str,
+            nbytes: int, elems: int, dtype, count_of=None) -> None:
+        sig = (stage, kind, peers)
         off = offs.get(sig, 0)
         builders.setdefault(sig, []).append(PackedLeaf(
             bucket=bucket, name=name, offset=off, nbytes=nbytes,
-            elems=elems, dtype=dtype_name(dtype)))
+            elems=elems, dtype=dtype_name(dtype), count_of=count_of))
         offs[sig] = off + nbytes
+
+    def check_ragged(leaf, entries, where: str) -> None:
+        """The ragged-leaf contract: split only, its count leaf in the same
+        wire."""
+        if not leaf.ragged:
+            return
+        if leaf.comm != "split":
+            raise ValueError(
+                f"{where}: ragged leaves must be comm='split' "
+                f"(got {leaf.comm!r}); the capacity-padded row layout only "
+                "exists on the all-to-all")
+        cnt = dict(entries).get(leaf.count_of)
+        if cnt is None or cnt.comm != "split":
+            raise ValueError(
+                f"{where}: count leaf {leaf.count_of!r} missing from the "
+                "wire dict (or not comm='split'); a ragged leaf's count "
+                "must ride the same all-to-all")
 
     for run in segs:
         cfg = run.sync
@@ -264,26 +285,68 @@ def _plan_groups(qualname: str, segs, D: int) -> WireGroupPlan:
         if cfg.strategy == "fp":
             # summed on the wire: bf16 elements, one reduce-scatter for
             # every fp run of the plan
-            add("reduce", run.slot, "seg", nbytes=2 * run.chunk_total,
-                elems=run.chunk_total, dtype=torch.bfloat16)
+            add("flat", "reduce", D, run.slot, "seg",
+                nbytes=2 * run.chunk_total, elems=run.chunk_total,
+                dtype=torch.bfloat16)
             continue
-        refuse_unported(f"{qualname}[{run.slot}]", cfg)
-        for name, leaf in _leaf_entries(cfg, seg):
+        hier = cfg.hierarchical
+        if hier and len(loco_lib.sync_schedule(cfg)) > 1:
+            raise ValueError(
+                f"{qualname}[{run.slot}]: the coalesced exchange supports "
+                f"at most one outer tier; "
+                f"{len(loco_lib.sync_schedule(cfg))} are configured — run "
+                "deeper schedules on the monolithic path (--no-coalesce)")
+        stage1: Stage = "hier1" if hier else "flat"
+        peers1 = dd if hier else D
+        entries1 = _leaf_entries(cfg, seg)
+        for name, leaf in entries1:
+            if hier and leaf.ragged:
+                raise ValueError(
+                    f"{qualname}[{run.slot}].{name}: ragged (capacity-"
+                    "padded) leaves cannot ride the coalesced hierarchical "
+                    "stage-1 leg — the chunk regroup would interleave "
+                    "capacity padding; run topk-over-hier buckets on the "
+                    "monolithic path (--no-coalesce)")
+            check_ragged(leaf, entries1, f"{qualname}[{run.slot}].{name}")
             if leaf.comm == "split":
-                row, rem = divmod(leaf.nbytes, D)
-                erow, erem = divmod(math.prod(leaf.shape), D)
+                row, rem = divmod(leaf.nbytes, peers1)
+                erow, erem = divmod(math.prod(leaf.shape), peers1)
                 if rem or erem:
                     raise ValueError(
                         f"{qualname}[{run.slot}].{name}: leaf of "
                         f"{leaf.nbytes} bytes does not split over "
-                        f"{D} peers; bucket edges must stay "
+                        f"{peers1} peers; bucket edges must stay "
                         "512-aligned (see buckets.ALIGN)")
-                add("a2a", run.slot, name, nbytes=row, elems=erow,
-                    dtype=leaf.dtype)
+                add(stage1, "a2a", peers1, run.slot, name, nbytes=row,
+                    elems=erow, dtype=leaf.dtype, count_of=leaf.count_of)
             elif leaf.comm == "gather":
-                add("gather", run.slot, name, nbytes=leaf.nbytes,
-                    elems=math.prod(leaf.shape), dtype=leaf.dtype)
+                add(stage1, "gather", peers1, run.slot, name,
+                    nbytes=leaf.nbytes, elems=math.prod(leaf.shape),
+                    dtype=leaf.dtype)
             # comm == "none": static metadata, never exchanged
+        if hier:
+            cfg2 = loco_lib.validate_stage2(cfg)
+            for name, leaf in _leaf_entries(cfg2, seg // dd):
+                if leaf.ragged:
+                    raise ValueError(
+                        f"{qualname}[{run.slot}].stage2 (tier 1).{name}: "
+                        "ragged (capacity-padded) leaves cannot ride the "
+                        "coalesced stage-2 leg; run topk outer tiers on "
+                        "the monolithic path (--no-coalesce)")
+                if leaf.comm == "split":
+                    row, rem = divmod(leaf.nbytes, pods)
+                    if rem:
+                        raise ValueError(
+                            f"{qualname}[{run.slot}].stage2.{name}: "
+                            f"{leaf.nbytes} bytes do not split over "
+                            f"{pods} pods")
+                    add("hier2", "a2a", pods, run.slot, name, nbytes=row,
+                        elems=math.prod(leaf.shape) // pods,
+                        dtype=leaf.dtype)
+                elif leaf.comm == "gather":
+                    add("hier2", "gather", pods, run.slot, name,
+                        nbytes=leaf.nbytes, elems=math.prod(leaf.shape),
+                        dtype=leaf.dtype)
 
     groups = tuple(
         WireGroup(stage=sig[0], kind=sig[1], peers=sig[2],
@@ -293,15 +356,17 @@ def _plan_groups(qualname: str, segs, D: int) -> WireGroupPlan:
 
 
 @lru_cache(maxsize=None)
-def build_group_plan(plan: ParamPlan, D: int) -> WireGroupPlan:
-    """Group one parameter's encode runs by exchange kind.
+def build_group_plan(plan: ParamPlan, D: int, pods: int = 1) -> WireGroupPlan:
+    """Group one parameter's encode runs by exchange signature (stage,
+    kind, peers).
 
-    ``D`` is the dp-group size.  Raises if a leaf's bytes do not divide
-    evenly over the group (the 512-aligned bucket geometry guarantees they
-    do for every codec), and ``NotImplementedError`` for runs the port
-    cannot exchange yet (top-k, hierarchical).
+    ``D`` is the dp-group size, ``pods`` the inter-pod axis size (1 = one
+    pod).  Raises if a leaf's bytes do not divide evenly over its peer
+    group (the 512-aligned bucket geometry guarantees they do for every
+    codec), or for what the coalesced exchange cannot carry (more than one
+    outer tier; ragged leaves on a hierarchical leg).
     """
-    return _plan_groups(plan.qualname, encode_runs(plan), D)
+    return _plan_groups(plan.qualname, encode_runs(plan), D, pods)
 
 
 # ---------------------------------------------------------------------------
@@ -312,8 +377,8 @@ def build_group_plan(plan: ParamPlan, D: int) -> WireGroupPlan:
 class StagePiece:
     """One overlap stage's slice of an encode run.
 
-    Non-fusible runs (``tensor``/``onebit`` scales, stochastic rounding)
-    are *atomic*: their whole-segment statistics make a split lossy, so a
+    Non-fusible runs (``tensor``/``onebit`` scales, stochastic rounding,
+    hierarchical and top-k buckets) are *atomic*: their whole-segment statistics make a split lossy, so a
     piece always covers the full run.  Fusible runs may split at bucket
     edges: ``block``/``fixed`` quantization, the error codecs and the
     receiver mean are elementwise per 256-block and bucket edges are
@@ -401,7 +466,7 @@ class OverlapSchedule:
 
 
 @lru_cache(maxsize=None)
-def build_overlap_schedule(plan: ParamPlan, D: int,
+def build_overlap_schedule(plan: ParamPlan, D: int, pods: int = 1,
                            max_stages: int = 2) -> OverlapSchedule:
     """Partition a plan's encode runs into pipeline stages.
 
@@ -450,7 +515,7 @@ def build_overlap_schedule(plan: ParamPlan, D: int,
                     offset=off, chunk_elems=ces,
                     col_off=off - runs[ri].offset,
                     run_total=runs[ri].chunk_total, sync=runs[ri].sync))
-        gplan = _plan_groups(plan.qualname, pieces, D)
+        gplan = _plan_groups(plan.qualname, pieces, D, pods)
         last = pieces[-1]
         stages.append(ScheduleStage(
             index=len(stages), ready=last.offset + last.chunk_total,
@@ -480,15 +545,56 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
     return t
 
 
+# the signed dtype of each unsigned wide dtype's bits: torch computes
+# little on uint16/uint32 (on CUDA least of all), so the mask selects on
+# a view with the same bits
+_SIGNED_VIEW = {torch.uint16: torch.int16, torch.uint32: torch.int32}
+
+
+def mask_by_count(arr: torch.Tensor, cnt: torch.Tensor) -> torch.Tensor:
+    """Zero a ragged leaf's dead slots: ``arr`` is ``(..., units * slots)``,
+    ``cnt`` the matching ``(..., units)`` u32 live counts; slot ``j`` of a
+    unit survives iff ``j < cnt``.  The receiving half of the ragged wire
+    contract, shared by the packed (:func:`unpack_a2a`) and the per-leaf
+    (``comm.exchange_wire``) exchanges: the bytes past a count are dead
+    padding and may hold anything, so masking makes the decode independent
+    of them."""
+    units = cnt.shape[-1]
+    slots, rem = divmod(arr.shape[-1], units)
+    if rem:
+        raise ValueError(f"ragged leaf of shape {tuple(arr.shape)} does not "
+                         f"split into {units} slot groups")
+    view = _SIGNED_VIEW.get(arr.dtype)
+    a = (arr.view(view) if view is not None else arr).reshape(
+        *arr.shape[:-1], units, slots)
+    live = (torch.arange(slots, device=arr.device)
+            < cnt.view(torch.int32).to(torch.int64)[..., None])
+    out = torch.where(live, a, torch.zeros((), dtype=a.dtype,
+                                           device=a.device))
+    out = out.reshape(arr.shape)
+    return out.view(arr.dtype) if view is not None else out
+
+
 def unpack_a2a(group: WireGroup,
                recv: torch.Tensor) -> dict[int, dict[str, torch.Tensor]]:
     """Received ``(peers, row_bytes)`` buffer -> per-run recv leaves, each
-    ``(peers, row_elems)``, bit-identical to the per-leaf exchange."""
+    ``(peers, row_elems)``, bit-identical to the per-leaf exchange.  Ragged
+    leaves are re-zeroed past their count (two passes: dense leaves first,
+    so every ragged leaf's count rows are decoded already)."""
     out: dict[int, dict[str, torch.Tensor]] = {}
+    ragged: list[PackedLeaf] = []
     for l in group.leaves:
+        if l.count_of is not None:
+            ragged.append(l)
+            continue
         piece = recv[:, l.offset:l.offset + l.nbytes]
         out.setdefault(l.bucket, {})[l.name] = _aligned(
             from_bytes(piece, _DTYPES[l.dtype]))
+    for l in ragged:
+        piece = from_bytes(recv[:, l.offset:l.offset + l.nbytes],
+                           _DTYPES[l.dtype])
+        out.setdefault(l.bucket, {})[l.name] = mask_by_count(
+            piece, out[l.bucket][l.count_of])
     return out
 
 

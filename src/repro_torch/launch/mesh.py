@@ -6,9 +6,13 @@ becomes two ``torch.distributed`` groups per rank over a world of
 order).  The ``data`` group of a rank holds the ranks with its model index
 (the FSDP chunks, the LoCo and fp gradient sync); the ``model`` group holds
 the ranks with its data index (the tensor-, sequence- and expert-parallel
-collectives of ``models/``).  A multi-pod layout is a flat data group of
-the same size (rank ``pod * DATA + data``, the order ``repro.core.comm``
-chunks by).
+collectives of ``models/``).
+
+The multi-pod mesh ``(wan, pod, data, model)`` keeps that flat data group
+(its rank order ``(wan * PODS + pod) * DATA + data`` is the flat dp chunk
+order, so the FSDP layout does not change): global rank
+``((wan * PODS + pod) * DATA + data) * TP + model``.  :func:`mesh_axes`
+cuts it into one group per dp mesh axis for the hierarchical sync.
 
 On a CUDA device the groups run NCCL, on the CPU gloo.  Without an
 existing group and without ``torchrun``'s environment, :func:`dp_group`
@@ -87,6 +91,57 @@ def mesh_groups(tp: int = 1):
             if me // tp == d:
                 model = g
     return data, model
+
+
+def mesh_axes(data, tp: int = 1, pods: int = 0, wans: int = 0) -> tuple:
+    """This rank's dp mesh axes, outermost first, as ``comm.MeshAxis``es:
+    ``(data,)`` over the flat data group ``data`` (:func:`mesh_groups`) on a
+    flat mesh, ``(pod, data)`` with ``pods``, ``(wan, pod,
+    data)`` with ``wans`` (which implies a pod axis, of size ``pods or
+    1``), as the reference's ``make_local_mesh`` lays them out.  The flat
+    dp group of ``dp = world / tp`` ranks splits into ``wans x pods x
+    DATA``; each axis's group holds the ranks that differ from this one on
+    that axis only, in axis order.  Every rank creates every group, in the
+    same order (torch requires it)."""
+    from repro_torch.core.comm import MeshAxis
+
+    world, me = dist.get_world_size(), dist.get_rank()
+    if tp < 1 or world % tp:
+        raise ValueError(f"a world of {world} ranks does not split into "
+                         f"tensor-parallel groups of {tp}")
+    dp = world // tp
+    if not pods and not wans:
+        return (MeshAxis("data", data),)
+    shape = {"wan": wans, "pod": pods or 1} if wans else {"pod": pods}
+    outer = 1
+    for v in shape.values():
+        outer *= v
+    if dp % outer:
+        raise ValueError(f"dp = {dp} ranks do not split into "
+                         + " x ".join(f"{v} {k}s" for k, v in shape.items()))
+    shape["data"] = dp // outer
+    names = list(shape)
+    sizes = [shape[k] for k in names]
+    strides = [1] * len(sizes)
+    for i in range(len(sizes) - 2, -1, -1):
+        strides[i] = strides[i + 1] * sizes[i + 1]
+    f, m = divmod(me, tp)                     # flat dp rank, model index
+    coord = [f // strides[i] % sizes[i] for i in range(len(sizes))]
+    axes = []
+    for i, name in enumerate(names):
+        mine = None
+        # every line of the flat dp order along axis i, over every model
+        # index, in one fixed order
+        base_coords = [c for c in range(dp) if c // strides[i] % sizes[i] == 0]
+        for m2 in range(tp):
+            for b in base_coords:
+                ranks = [(b + j * strides[i]) * tp + m2
+                         for j in range(sizes[i])]
+                grp = dist.new_group(ranks)
+                if m2 == m and b == f - coord[i] * strides[i]:
+                    mine = grp
+        axes.append(MeshAxis(name, mine))
+    return tuple(axes)
 
 
 def model_group(tp: int = 1):

@@ -121,17 +121,18 @@ def _validate_sync_configs(run: RunConfig, plan: "BK.SyncPlan | None",
     """Reject, when the step is built and with the bucket named, the
     configs the in-backward sync cannot honor: stochastic rounding (no
     generator reaches the backward), strategies without a wire codec,
-    cadence without state or off period boundaries, and what the port has
-    not ported yet (top-k, hierarchical and multi-tier sync:
-    ``NotImplementedError``).  Under ``run.coalesce`` the wire-group plans
-    are built here too, so a packing problem names its parameter, and
-    under ``run.overlap`` the overlap schedules, which refuse cadence
-    buckets on a pipelined schedule."""
+    cadence without state or off period boundaries, and hierarchical
+    buckets on meshes or with codecs the tiered exchange cannot serve (a
+    single pod, too few mesh axes for the tiers, fp, a stateful tier
+    codec, tier cadence on the coalesced exchange).  Under
+    ``run.coalesce`` the wire-group plans are built here too, so a packing
+    problem names its parameter, and under ``run.overlap`` the overlap
+    schedules, which refuse cadence and top-k buckets on a pipelined
+    schedule.  The messages are the reference's."""
     cfgs = ([(f"{p.qualname}[{b.index}]", b.sync)
              for p in plan.params for b in p.buckets]
             if plan is not None else [("sync", run.sync)])
     for where, c in cfgs:
-        WP.refuse_unported(where, c)
         if c.strategy != "fp" and c.quant.stochastic_rounding:
             raise ValueError(
                 f"{where}: stochastic_rounding cannot run inside the "
@@ -149,12 +150,15 @@ def _validate_sync_configs(run: RunConfig, plan: "BK.SyncPlan | None",
             loco_lib.validate_cadence(c)
         except ValueError as e:
             raise ValueError(f"{where}: {e}") from None
+        if c.hierarchical:
+            _validate_tiers(where, c, run, plan, topo)
     if plan is not None and run.coalesce:
+        pods = max(topo.pods, 1)
         for p in plan.params:
             try:
-                WP.build_group_plan(p, topo.dp)
+                WP.build_group_plan(p, topo.dp, pods=pods)
                 if run.overlap:
-                    sched = WP.build_overlap_schedule(p, topo.dp)
+                    sched = WP.build_overlap_schedule(p, topo.dp, pods=pods)
                     if sched.pipelined:
                         for b in p.buckets:
                             if b.sync.every > 1:
@@ -165,8 +169,59 @@ def _validate_sync_configs(run: RunConfig, plan: "BK.SyncPlan | None",
                                     "(a stage piece cannot gate the whole "
                                     "run's accumulator); launch with "
                                     "--no-overlap.")
+                            if b.sync.strategy == "topk":
+                                raise ValueError(
+                                    f"bucket {b.index}: ragged "
+                                    "(capacity-padded) topk leaves cannot "
+                                    "ride the pipelined overlap schedule's "
+                                    "stage pieces; launch with "
+                                    "--no-overlap.")
             except ValueError as e:
                 raise ValueError(f"{p.qualname}: {e}") from None
+
+
+def _validate_tiers(where: str, c: SyncConfig, run: RunConfig,
+                    plan: "BK.SyncPlan | None", topo: MeshTopo) -> None:
+    """The hierarchical checks of :func:`_validate_sync_configs` for one
+    bucket: the mesh has one axis per exchange leg with real outer
+    groups, the bucket has a wire codec, every tier codec is valid, and a
+    tier cadence runs only on the monolithic exchange."""
+    tiers = loco_lib.sync_schedule(c)
+    if len(tiers) == 1:
+        if len(topo.dp_axes) != 2 or topo.pods < 2:
+            raise ValueError(
+                f"{where}: hierarchical sync needs a multi-pod "
+                f"(pod, data) mesh; this mesh has dp axes "
+                f"{topo.dp_axes!r} with {topo.pods} pod(s) — a "
+                "size-1 pod axis would pay the stage-2 "
+                "requantization error for zero DCN saving. Launch "
+                "with --pods >= 2 or drop the +hier policy flag.")
+    elif (len(topo.dp_axes) != 1 + len(tiers) or topo.pods < 2
+          or topo.wans < 2):
+        raise ValueError(
+            f"{where}: a {len(tiers)}-tier sync schedule needs "
+            f"{1 + len(tiers)} dp mesh axes with >= 2 devices per "
+            f"outer axis; this mesh has dp axes {topo.dp_axes!r} "
+            f"({topo.wans} wan group(s), {topo.pods} pod(s)). "
+            "Launch with --wans >= 2 and --pods >= 2, or drop the "
+            "+wan policy flag.")
+    if c.strategy == "fp":
+        raise ValueError(
+            f"{where}: hierarchical sync has no meaning for the fp "
+            "reduce-scatter baseline (there is no wire codec to "
+            "stage); drop +hier for this bucket.")
+    for t, tier in enumerate(tiers):
+        try:
+            loco_lib.validate_tier_codec(tier.sync)
+        except ValueError as e:
+            raise ValueError(f"{where} tier {t + 1}: {e}") from None
+        if tier.every > 1 and plan is not None and run.coalesce:
+            raise ValueError(
+                f"{where} tier {t + 1}: tier cadence "
+                f"every={tier.every} is only supported on the "
+                "monolithic exchange (the coalesced in-plan "
+                "two-stage leg has no own-slice bypass); launch "
+                "with --no-coalesce.")
 
 
 def groups_inflight(run: RunConfig, plan: "BK.SyncPlan | None",
@@ -179,7 +234,8 @@ def groups_inflight(run: RunConfig, plan: "BK.SyncPlan | None",
         return 1
     depth = 1
     for p in plan.params:
-        sched = WP.build_overlap_schedule(p, topo.dp)
+        sched = WP.build_overlap_schedule(p, topo.dp,
+                                          pods=max(topo.pods, 1))
         depth = max(depth, min(2, sched.n_stages))
     return depth
 

@@ -17,12 +17,21 @@
   torchrun --nproc-per-node 4 -m repro_torch.launch.train \\
       --arch llama2-400m --tp 2 --sync loco --seq-len 1024 --global-batch 8
 
+  torchrun --nproc-per-node 4 -m repro_torch.launch.train \\
+      --arch llama2-400m --reduced --pods 2 --hierarchical --device cpu
+
 Runs on the CUDA card unless ``--device cpu`` is given; without a card it
 raises rather than fall back.  Under ``torchrun`` the world of ``dp * tp``
 ranks splits into ``--tp``-rank model groups (tensor, sequence and expert
 parallelism) and ``dp``-rank data groups (global rank ``data * tp +
 model``, ``launch.mesh.mesh_groups``); otherwise the run is one rank in a
-world-size-1 group.  Prints the reference's ``step N loss=... gnorm=...
+world-size-1 group.  ``--pods P`` (and ``--wans W``) cut the dp ranks
+into the reference's ``(wan, pod, data)`` mesh, global rank ``((wan * P +
+pod) * DATA + data) * tp + model``; ``--hierarchical`` (or a ``+hier``
+policy bucket) then syncs in two legs, the codec inside each pod and an
+8-bit block codec across pods, and a ``+wan:topkN%everyK`` bucket adds a
+top-k leg across the WAN groups.  ``--sync topk`` is the ragged block
+top-k codec.  Prints the reference's ``step N loss=... gnorm=...
 lr=... tok/s=...`` lines (MoE models add the router losses ``moe_aux`` and
 ``moe_z``); ``tok/s`` leaves out the first step, which pays the warm-up
 (kernel build, allocator growth).  With ``--bucket-mb`` or ``--policy`` the
@@ -94,8 +103,20 @@ def build_args(argv=None):
     ap.add_argument("--microbatch", type=int, default=1)
     ap.add_argument("--tp", type=int, default=1,
                     help="tensor-parallel degree; dp = world size / tp")
+    ap.add_argument("--pods", type=int, default=0,
+                    help="size of the pod mesh axis (0 = no pod axis): the "
+                         "dp ranks split into pods x data")
+    ap.add_argument("--wans", type=int, default=0,
+                    help="size of the outermost WAN mesh axis for 3-tier "
+                         "sync schedules (policy flag "
+                         "'...+wan:topkN%%everyK'); needs --pods >= 2")
     ap.add_argument("--sync", default="loco",
-                    choices=["fp", "loco", "ef", "naive4", "onebit"])
+                    choices=["fp", "loco", "ef", "naive4", "onebit", "topk"])
+    ap.add_argument("--hierarchical", action="store_true",
+                    help="two-stage (pod, data) exchange for every bucket: "
+                         "the bucket's codec intra-pod, 8-bit block across "
+                         "pods; needs --pods >= 2. Per-bucket control via "
+                         "--policy '...+hier'")
     ap.add_argument("--quant-mode", default="block",
                     choices=["block", "fixed", "tensor"],
                     help="gradient codec scaling: per-256 block absmax "
@@ -187,7 +208,8 @@ def make_run(args) -> RunConfig:
                       quant=QuantConfig(mode=args.quant_mode,
                                         scale=args.quant_scale,
                                         error_codec=args.error_codec),
-                      beta=args.beta, reset_every=args.reset_every)
+                      beta=args.beta, reset_every=args.reset_every,
+                      hierarchical=args.hierarchical)
     policy = parse_policy(args.policy, sync) if args.policy else None
     return RunConfig(sync=sync, optimizer=args.optimizer, lr=args.lr,
                      schedule=args.schedule, warmup_steps=args.warmup,
@@ -213,12 +235,11 @@ def make_cfg(args):
 
 def _header(args, fingerprint: dict, topo: MeshTopo,
             moe_rep: dict | None) -> dict:
-    """The telemetry stream's header fields, under the reference's names
-    (one flat data axis: no pods, no WAN)."""
+    """The telemetry stream's header fields, under the reference's names."""
     return dict(run=dict(vars(args)), fingerprint=fingerprint,
-                topo=dict(dp=topo.dp, tp=topo.tp, pods=1, wans=1,
-                          dp_axes=["data"], tp_axis="model",
-                          devices=topo.dp * topo.tp),
+                topo=dict(dp=topo.dp, tp=topo.tp, pods=topo.pods,
+                          wans=topo.wans, dp_axes=list(topo.dp_axes),
+                          tp_axis="model", devices=topo.dp * topo.tp),
                 **({"moe_a2a": moe_rep} if moe_rep is not None else {}))
 
 
@@ -244,11 +265,14 @@ def main(argv=None) -> dict:
     metrics_every = args.metrics_every or args.log_every
     with mesh.dp_group(device):
         data, model = mesh.mesh_groups(args.tp)
-        topo = MeshTopo.from_group(data, model=model)
+        topo = MeshTopo.from_group(
+            data, model=model,
+            axes=mesh.mesh_axes(data, args.tp, args.pods, args.wans))
         step_fn = make_train_step(cfg, run, topo, device, shape)
         groups = build_groups(cfg, topo.tp)
         plan = build_sync_plan(run, groups, topo)
-        wire_rep = WIRE.plan_report(plan) if plan is not None else None
+        wire_rep = (WIRE.plan_report(plan, pods=topo.pods, wans=topo.wans)
+                    if plan is not None else None)
         if wire_rep is not None:
             print(WIRE.format_report(wire_rep), flush=True)
         moe_rep = WIRE.moe_a2a_report(cfg, shape, topo, run.microbatch)

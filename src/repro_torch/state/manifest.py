@@ -13,8 +13,7 @@ records, per checkpoint:
   reshards through logical space (``reshard=True``,
   :mod:`repro_torch.state.reshard`), or fails loudly naming every
   differing field.  The port's fingerprint of a configuration equals the
-  reference's: its data-parallel group is one flat group (``pods = wans =
-  1``, dp axes ``["data"]``).
+  reference's, the mesh's ``pods``, ``wans`` and dp axes included.
 
 The manifest keeps **history** (newest last); ``--ckpt-keep`` prunes it to
 the newest N entries and deletes the files of the rest.  All writes go
@@ -115,7 +114,8 @@ def build_fingerprint(groups, topo, sync: SyncConfig,
     arrays).  The recorded ``buckets`` are the STATE units the tree stores
     (:func:`repro_torch.core.flatparam.state_units`): one per encode run
     under ``coalesce``, one per bucket otherwise.  The overlap schedule
-    changes none of it.  ``topo`` needs ``dp`` and ``tp``.
+    changes none of it.  ``topo`` needs ``dp`` and ``tp``; its ``pods``,
+    ``wans`` and ``dp_axes`` default to one flat ``data`` axis.
     """
     planned = plan is not None
     if plan is None:
@@ -143,8 +143,10 @@ def build_fingerprint(groups, topo, sync: SyncConfig,
             params.append(p)
     return {
         "version": VERSION,
-        "topo": {"dp": topo.dp, "tp": topo.tp, "pods": 1, "wans": 1,
-                 "dp_axes": ["data"]},
+        "topo": {"dp": topo.dp, "tp": topo.tp,
+                 "pods": getattr(topo, "pods", 1),
+                 "wans": getattr(topo, "wans", 1),
+                 "dp_axes": list(getattr(topo, "dp_axes", ("data",)))},
         "planned": planned,
         "params": params,
     }

@@ -9,6 +9,7 @@ of what the port has not ported (top-k, ``+hier``, ``+wan:``) and of what
 no in-backward sync can run.
 """
 import dataclasses
+import re
 import types
 
 import pytest
@@ -248,6 +249,25 @@ def _build(group, spec, overlap=True, **kw):
                            ShapeConfig("t", 32, 8, "train"))
 
 
+def _reference_verdict(spec, overlap=True):
+    """The reference's build-time verdict on the same run at dp = 1 (one
+    pod): its ValueError message, or None when it builds."""
+    from repro.core.flatparam import MeshTopo as JTopo
+    from repro.launch import steps as jsteps
+
+    run = jsteps.RunConfig(bucket_bytes=1 << 16, overlap=overlap,
+                           policy=JPOL.parse_policy(spec, JSync()))
+    topo = JTopo(dp_axes=("data",), tp_axis="model", dp=1, tp=1)
+    groups = jsteps.build_model(jreduced(jget_arch("llama2-400m")),
+                                1).groups()
+    try:
+        jsteps._validate_sync_configs(
+            run, jsteps.build_sync_plan(run, groups, topo), topo)
+    except ValueError as e:
+        return str(e)
+    return None
+
+
 @pytest.mark.parametrize("spec,what", [
     ("body=loco+topk1%", "topk"),
     ("embed=topk", "topk"),
@@ -256,11 +276,29 @@ def _build(group, spec, overlap=True, **kw):
     ("body=loco+wan:topk0.5%every16", "hierarchical"),
 ])
 def test_unported_buckets_are_refused(group1, spec, what):
-    with pytest.raises(NotImplementedError,
-                       match=rf"^\w+/\w+\[\d+\]: .*{what}"):
-        _build(group1, spec)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 11"):
-        _build(group1, spec)
+    """Top-k and tiered buckets are ported: on one pod the step build does
+    what the reference's does with the same run, for the pipelined and the
+    flat schedule -- a single-pod ``+hier`` or ``+wan:`` bucket and a top-k
+    bucket on a pipelined overlap schedule are refused with the
+    reference's ValueError, word for word, and what the reference builds
+    builds."""
+    verdicts = []
+    for overlap in (True, False):
+        want = _reference_verdict(spec, overlap)
+        verdicts.append(want)
+        if want is None:
+            _build(group1, spec, overlap=overlap)
+            continue
+        with pytest.raises(ValueError) as e:
+            _build(group1, spec, overlap=overlap)
+        assert str(e.value) == want
+        assert re.match(r"^\w+/\w+(\[\d+\])?: ", want), want
+    if what == "hierarchical":
+        assert all(v is not None and ("--pods >= 2" in v or "--wans >= 2"
+                                      in v) for v in verdicts), verdicts
+    else:
+        assert verdicts[1] is None and verdicts[0] is not None \
+            and "--no-overlap" in verdicts[0], verdicts
 
 
 @pytest.mark.parametrize("spec,kw,match", [

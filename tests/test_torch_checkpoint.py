@@ -397,6 +397,66 @@ def test_reshard_across_tp_is_refused():
         reshard(as_data(random_state(tmpls)), fps, fpt, tmplt)
 
 
+def _pod_layout(spec, tp=2):
+    """make_layout of a ``spec``-policy run (128 KiB buckets) on the
+    reference's ``TOPO_POD``: dp 4 as pods 2 x data 2, tp 2; its
+    fingerprint is the one the reference writes for the same run."""
+    from repro_torch.core.comm import MeshAxis
+
+    run = tsteps.RunConfig(sync=SYNC, bucket_bytes=128 << 10,
+                           policy=TPOL.parse_policy(spec, SYNC))
+    topo = MeshTopo(group=None, dp=4, rank=0, tp=tp, pods=2,
+                    axes=(MeshAxis("pod", None), MeshAxis("data", None)))
+    groups = build_groups(TCFG, tp)
+    ts = tsteps.make_init(TCFG, run, topo, torch.device("cpu"))
+    fp = tsteps.state_fingerprint(run, groups, topo,
+                                  tsteps.build_sync_plan(run, groups, topo))
+    jrun = jsteps.RunConfig(sync=JSync(), bucket_bytes=128 << 10,
+                            policy=JPOL.parse_policy(spec, JSync()))
+    jgroups = jsteps.build_model(JCFG, tp).groups()
+    jtopo = JFP.MeshTopo(dp_axes=("pod", "data"), tp_axis="model", dp=4,
+                         tp=tp, pods=2)
+    jfp = jsteps.state_fingerprint(jrun, jgroups, jtopo,
+                                   jsteps.build_sync_plan(jrun, jgroups,
+                                                          jtopo))
+    assert json.dumps(fp, sort_keys=True) == json.dumps(jfp, sort_keys=True)
+    return fp, CKPT.global_template(ts, 4, tp)
+
+
+def test_hier_bucket_state_round_trip():
+    """``+hier`` changes the wire, not the state layout: on the pod mesh
+    (whose ``pods``/``dp_axes`` the fingerprint records as the
+    reference's) migrating flat <-> hier buckets at the same dp keeps
+    every stored state byte (``tests/test_checkpoint.py``'s case)."""
+    fpF, tmplF = _pod_layout("embed=loco8")
+    fpH, tmplH = _pod_layout("embed=loco8,body=loco4+hier")
+    assert fpH["topo"] == {"dp": 4, "tp": 2, "pods": 2, "wans": 1,
+                           "dp_axes": ["pod", "data"]}
+    diff = fingerprint_diff(fpF, fpH)
+    assert any("hierarchical" in d for d in diff), diff
+    state = random_state(tmplF)
+    out = reshard(as_data(state), fpF, fpH, tmplH)
+    back = reshard(as_data(out), fpH, fpF, tmplF)
+    flat, flat_back = serial.flatten(state), serial.flatten(back)
+    for k in flat:
+        if k.startswith("states/"):
+            assert _bytes(flat_back[k]) == _bytes(flat[k]), k
+
+
+def test_tier_schedule_mismatch_names_tier(tmp_path):
+    """Restoring across differing tier schedules fails loudly with the
+    differing tier named: a WAN cadence change redefines what the carried
+    accumulator means mid-period."""
+    fpA, tmplA = _pod_layout("body=loco4+hier+wan:topk1%every16")
+    fpB, tmplB = _pod_layout("body=loco4+hier+wan:topk1%every8")
+    diff = fingerprint_diff(fpA, fpB)
+    assert any("tiers.tier2.every" in d for d in diff), diff
+    CKPT.save(str(tmp_path), 4, random_state(tmplA), fingerprint=fpA)
+    with pytest.raises(CheckpointMismatch) as ei:
+        CKPT.restore(str(tmp_path), 4, tmplB, fingerprint=fpB)
+    assert "tiers.tier2.every" in str(ei.value)
+
+
 # ---------------------------------------------------------------------------
 # facade: mismatch failures, integrity, history
 # ---------------------------------------------------------------------------

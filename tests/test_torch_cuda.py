@@ -369,3 +369,96 @@ def test_cuda_codec_metrics_match_cpu(cuda_device, mode):
                 torch.testing.assert_close(card[k].cpu(), v, rtol=1e-5,
                                            atol=0)
     assert LQ.LAUNCHES == {}
+
+
+@pytest.mark.parametrize("step", [0, 1, 2])
+def test_cuda_adam_update_is_the_cpus(cuda_device, step):
+    """One Adam update of a 2^20-element leaf gives the CPU's bits on the
+    card: the bias corrections divide on the card (``optimizers._on``),
+    as on the CPU, where a 0-dim CPU divisor would multiply by the
+    inverse."""
+    from repro_torch.optim import optimizers as OPT
+
+    gen = torch.Generator().manual_seed(17 + step)
+    p, g = (torch.randn(1 << 20, generator=gen) for _ in range(2))
+    m, v = (torch.randn(1 << 20, generator=gen) * 1e-2 for _ in range(2))
+    v = v.abs()
+    opt = OPT.adam()
+    lr = torch.tensor(3e-4)
+
+    def update(dev):
+        tree = lambda x: {"g": {"w": x.to(dev)}}   # noqa: E731
+        new, (m2, v2) = opt.update(tree(g), (tree(m), tree(v)), tree(p),
+                                   torch.tensor(step), lr, {"g": {"w": 1.0}})
+        return [t["g"]["w"].cpu() for t in (new, m2, v2)]
+
+    for a, b in zip(update(cuda_device), update(torch.device("cpu"))):
+        assert torch.equal(a, b)
+
+
+def test_cuda_topk_selection_is_the_cpus_on_ties(cuda_device):
+    """The top-k codec's stable selection orders equal |h| by index on the
+    card as on the CPU (and as ``jax.lax.top_k``): the wire and the error
+    state of a gradient made of ties are the CPU's, byte for byte."""
+    from repro_torch.core import codec
+    from repro_torch.core import wirepack as WP
+    from repro_torch.core.loco import SyncConfig
+
+    gen = torch.Generator().manual_seed(5)
+    n = 64 * codec.TOPK_SEL
+    levels = torch.tensor([0.0, 1e-3, 2e-3, -2e-3])
+    g = levels[torch.randint(0, 4, (n,), generator=gen)]
+    for frac in (0.01, 0.25):
+        c = codec.get_codec(SyncConfig(strategy="topk", topk_frac=frac))
+        st = c.init_state(n)
+        cw, cs = c.encode(g, st)
+        gw, gs = c.encode(g.to(cuda_device), st.to(cuda_device))
+        for k in cw:
+            assert torch.equal(WP.to_bytes(gw[k]).cpu(), WP.to_bytes(cw[k]))
+        assert torch.equal(gs.cpu().view(torch.uint8), cs.view(torch.uint8))
+        recv = {k: v[None] for k, v in gw.items()}
+        assert torch.equal(c.decode_mean(recv).cpu(),
+                           c.decode_mean({k: v[None] for k, v in cw.items()}))
+
+
+@pytest.mark.parametrize("name", ["classic", "hier4", "three-tier",
+                                  "onebit"])
+def test_cuda_hierarchical_sync_is_the_cpus(cuda_device, name):
+    """``comm.hierarchical_sync`` over size-1 mesh axes on the card gives
+    the CPU's shard and state bit for bit (kernels against plain
+    versions, through every leg)."""
+    import torch.distributed as dist
+
+    from repro_torch.core import comm
+    from repro_torch.core.loco import SyncConfig, SyncTier
+    from repro_torch.core.quantizer import QuantConfig
+    from repro_torch.launch import mesh
+
+    naive = lambda b: SyncConfig(strategy="naive4",   # noqa: E731
+                                 quant=QuantConfig(bits=b))
+    cfg, k = {
+        "classic": (SyncConfig(hierarchical=True), 2),
+        "hier4": (SyncConfig(hierarchical=True, stage2=naive(4)), 2),
+        "three-tier": (SyncConfig(quant=QuantConfig(bits=8),
+                                  hierarchical=True,
+                                  tiers=(SyncTier(naive(8)), SyncTier(
+                                      SyncConfig(strategy="topk",
+                                                 topk_frac=0.25)))), 3),
+        "onebit": (SyncConfig(strategy="onebit", hierarchical=True), 2),
+    }[name]
+    gen = torch.Generator().manual_seed(9)
+    n = 256 * 1024
+    g = (torch.randn(n, generator=gen) * 1e-3).to(torch.bfloat16)
+    st = (torch.randn(n, generator=gen) * 100).clamp(-448, 448).to(
+        torch.float8_e4m3fn if name != "onebit" else torch.bfloat16)
+    out = {}
+    for dev in (cuda_device, torch.device("cpu")):
+        with mesh.dp_group(dev) as world:
+            axes = mesh.mesh_axes(world, 1, pods=1, wans=1 if k == 3 else 0)
+            shard, new = comm.hierarchical_sync(g.to(dev), st.to(dev), cfg,
+                                                axes)
+            out[dev.type] = (shard.cpu(), new.cpu())
+        assert not dist.is_initialized()
+    (a, b), (c, d) = out["cuda"], out["cpu"]
+    assert torch.equal(a, c)
+    assert torch.equal(_bytes(b), _bytes(d))

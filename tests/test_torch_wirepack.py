@@ -138,12 +138,20 @@ def test_group_plan_refusals():
                         chunklen=384, layers=1, buckets=(b,))
     with pytest.raises(ValueError, match="512-aligned"):
         TWP.build_group_plan(bad, 4)
-    for cfg, what in ((tloco.SyncConfig(hierarchical=True), "hierarchical"),
-                      (tloco.SyncConfig(strategy="topk"), "topk")):
-        plan = make_plan(((None, cfg), LOCO4), 1, D=4)
-        with pytest.raises(NotImplementedError,
-                           match=rf"g/p\[0\]: .*{what}.*ROADMAP item 11"):
-            TWP.build_group_plan(plan, 4)
+    # hierarchical and top-k runs are ported: their group plans are the
+    # reference's (one pod: stage 1 over the whole group, stage 2 over one
+    # peer; the ragged top-k leaves with their count leaf)
+    for kw in (dict(hierarchical=True), dict(strategy="topk")):
+        pair = (jloco.SyncConfig(**kw), tloco.SyncConfig(**kw))
+        jg = JWP.build_group_plan(make_plan((pair, LOCO4), 0, D=4), 4,
+                                  pods=1)
+        tg = TWP.build_group_plan(make_plan((pair, LOCO4), 1, D=4), 4)
+        assert [(g.stage, g.kind, g.peers, g.row_bytes,
+                 [(l.bucket, l.name, l.offset, l.nbytes, l.elems, l.dtype,
+                   l.count_of) for l in g.leaves]) for g in tg.groups] == [
+            (g.stage, g.kind, g.peers, g.row_bytes,
+             [(l.bucket, l.name, l.offset, l.nbytes, l.elems, l.dtype,
+               l.count_of) for l in g.leaves]) for g in jg.groups]
 
 
 def _wires(plan, seed=0):
