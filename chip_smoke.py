@@ -68,6 +68,22 @@ Phases, in order; any failure exits non-zero and prints no result:
       min=1048576" --no-overlap``, 3 steps: the ragged leaves through the
       coalesced packing, ``fused_compress`` launched by bit width as the
       plan derives it;
+   i. path a's command with ``--fidelity-every 3 --metrics-jsonl``
+      (probes at steps 2 and 5): path a's losses bit for bit; its
+      launches and collectives, less the probes' derived ones (per probe
+      backward and LoCo tensor one more ``fused_compress``, two more
+      ``dequant_mean`` and one reference reduce-scatter), path a's; two
+      ``fidelity`` records with
+      finite global cosine, relative L2 and compensation gain, printed
+      with the peak memory, the unprofiled probe step's time against the
+      other steps' and the device busy time and launches of probe step
+      5, traced;
+   j. path b's command with ``--moe-a2a block8+ef`` (the combine's error
+      feedback), 3 steps: losses finite and falling, step 0 within 2e-3
+      relative of path b's (its second microbatch reads the first's
+      residual), ``act_encode`` and ``act_decode`` launched as derived
+      (the residual's local decode twice more per layer and microbatch),
+      the peak memory printed;
    losses finite (and falling on a, b and d), every kernel of the path
    launched as often as the code says (counts derived from the parameter
    declarations, the sync plan's encode runs or stage pieces and the
@@ -87,9 +103,11 @@ Phases, in order; any failure exits non-zero and prints no result:
    a's largest LoCo length (32,768,000) and at a tp = 2 rank's
    (16,384,000), for four schedules: loco4 -> naive8 (``hierarchical``),
    loco4 -> naive4 (``+hier4``), loco8 -> naive8 -> topk 25% (3 tiers)
-   and onebit -> naive8; every shard and new state bit for bit with the
-   same call on the CPU (plain versions, gloo), and each kernel launched
-   as often as the schedule's legs derive;
+   and onebit -> naive8, each also with the fidelity probe at the
+   smaller length; every shard,
+   new state and reference stack bit for bit with the same call on the
+   CPU (plain versions, gloo), and each kernel launched as often as the
+   schedule's legs (and the probe's roundtrips) derive;
 4. profile: one more full-width step of paths a, b, d and of path a
    with ``--telemetry`` under torch.profiler: device busy time (kernels,
    memcpys, memsets) by kernel class, the idle share and the ``loco/*``
@@ -104,8 +122,15 @@ Phases, in order; any failure exits non-zero and prints no result:
    ``--global-batch 12 --microbatch 4`` (three microbatches: the step's
    means divide by 3), and reduced llama2-400m with ``--optimizer sgd``,
    ``lamb`` and ``adafactor``, ``--quant-mode fixed`` and
-   ``--error-codec bf16``, and reduced llama2-400m ``--sync topk``,
-   printed as bit for bit or within the limits;
+   ``--error-codec bf16``, reduced llama2-400m ``--sync topk``, reduced
+   llama2-400m ``--fidelity-every 1`` (whose fidelity metrics must also
+   agree: the global cosine within 1e-4, the others within 5e-2
+   relative) and
+   reduced deepseek-v3-moe ``--moe-a2a block8+ef``, printed as bit for
+   bit or within the limits; reduced deepseek-v3-moe at one microbatch
+   per step gives block8's step-0 loss under block8+ef bit for bit;
+   lamb, adafactor and adafactor_flat updates and the step's gradient
+   norm and clip scale give the CPU's bits on the card;
    the step's divisions (``comm.divide`` at 3 and 6, the accum-3 gradient
    mean) give the CPU's bits on the card.  On
    the card, reduced llama2-400m with
@@ -158,6 +183,14 @@ H_ARGS = _train_args("llama2-400m", "topk", 3, "--profile-steps", "2:2")
 H2_ARGS = _train_args("llama2-400m", "loco", 3, "--bucket-mb", "4",
                       "--policy", "embed=loco8,body=loco4+topk1%,"
                       "min=1048576", "--no-overlap")
+# Path i: path a's command (6 steps: the cosine schedule spans --steps, so
+# a shorter run's learning rates are not path a's) with a fidelity probe
+# at steps 2 and 5 (the stream adds a fidelity record per probe; step 5 is
+# traced); path j: path b's command with the combine's error feedback, 3
+# steps.
+I_ARGS = TRAIN_ARGS + ["--fidelity-every", "3", "--metrics-every", "1",
+                       "--profile-steps", "5:5"]
+J_ARGS = _train_args("deepseek-v3-moe", "loco", 3, "--moe-a2a", "block8+ef")
 # Paths e-g: the telemetry on paths a and b, and the other optimizers and
 # schedules.  Each run adds its --metrics-jsonl / --profile-dir paths.
 TELEMETRY_FLAGS = ["--telemetry", "--metrics-every", "1"]
@@ -182,6 +215,9 @@ G_ARGS = {name: _train_args("llama2-400m", "loco", 3, *flags, *(
 # and once in the backward (the cotangent rides the same wire), and calls
 # act_encode and act_decode once each time.
 EXCHANGES_PER_MOE_LAYER = 2 * 3
+# block8+ef: the combine's forward and its recomputation also decode the
+# local codes once each for the residual
+EF_DECODES_PER_MOE_LAYER = EXCHANGES_PER_MOE_LAYER + 2
 
 
 def _plan(argv, tp: int = 1):
@@ -928,6 +964,7 @@ def main(argv=None) -> int:
           f"against {a['busy_ms']:.1f} ms ({tel['busy_ms'] / a['busy_ms']:.3f}"
           f"x); step {tel['wall_ms']:.1f} against {a['wall_ms']:.1f} ms "
           f"(information: steps spread 2-2.6x between calls)", flush=True)
+    time_grad_norm(dev, rate)
     print(f"profile: phase took {time.perf_counter() - t0:.1f} s", flush=True)
     t0 = time.perf_counter()
     reference_phase()
@@ -976,25 +1013,45 @@ def launches_by_bits(argv, steps: int | None = None) -> dict[int, int]:
     return out
 
 
+def probe_backwards(argv, steps: int | None = None) -> int:
+    """Microbatch backwards of the fidelity-probe steps (``step % N == N -
+    1`` under ``--fidelity-every N``) among the first ``steps`` steps."""
+    from repro_torch.launch import train
+
+    args = train.build_args(argv)
+    n, steps = args.fidelity_every, args.steps if steps is None else steps
+    probes = sum(1 for s in range(steps) if n and s % n == n - 1)
+    return probes * (args.global_batch // args.microbatch)
+
+
 def expected_launches(argv, steps: int | None = None) -> dict:
     """Launches each kernel of a training run (of ``steps`` steps, default
     all) must make, from the code: per microbatch backward one
     fused_compress and one dequant_mean per stateful encode of the sync
     (one per LoCo tensor on the monolithic path, one per encode run or, on
     the overlapped bucketed schedule, per stage piece; one onebit_pack
-    with --sync onebit), and per MoE layer and microbatch
-    EXCHANGES_PER_MOE_LAYER act_encode and act_decode."""
+    with --sync onebit); on a fidelity-probe step's backward, per such
+    encode also the counterfactual's encode from a zero state (one more
+    fused_compress or onebit_pack) and the live and counterfactual
+    decodes at D = 1 (two more dequant_mean; onebit decodes with plain
+    ops); per MoE layer and microbatch EXCHANGES_PER_MOE_LAYER act_encode
+    and act_decode, and under block8+ef EF_DECODES_PER_MOE_LAYER
+    act_decode."""
     from repro_torch.launch import train
 
     args = train.build_args(argv)
     cfg = train.make_cfg(args)
     loco = sum(launches_by_bits(argv, steps).values())
-    want = ({"onebit_pack": loco} if args.sync == "onebit" else
-            {"fused_compress": loco, "dequant_mean": loco})
-    if cfg.family == "moe" and cfg.moe_a2a_codec == "block8":
-        acts = EXCHANGES_PER_MOE_LAYER * cfg.n_layers * _backwards(argv,
-                                                                   steps)
-        want.update(act_encode=acts, act_decode=acts)
+    per = sum(n for (_, _), n in sync_runs(argv).items())
+    probe = per * probe_backwards(argv, steps)
+    want = ({"onebit_pack": loco + probe} if args.sync == "onebit" else
+            {"fused_compress": loco + probe, "dequant_mean": loco + 2 * probe})
+    if cfg.family == "moe" and cfg.moe_a2a_codec in ("block8", "block8+ef"):
+        mb = cfg.n_layers * _backwards(argv, steps)
+        dec = (EF_DECODES_PER_MOE_LAYER if cfg.moe_a2a_codec == "block8+ef"
+               else EXCHANGES_PER_MOE_LAYER)
+        want.update(act_encode=EXCHANGES_PER_MOE_LAYER * mb,
+                    act_decode=dec * mb)
     return {k: v for k, v in want.items() if v}
 
 
@@ -1111,27 +1168,30 @@ def _add(total: dict, launches: dict) -> None:
 
 
 # What the card gave on every path once Adam divided and took its square
-# root as the CPU does (run AD of PERF.md, H100 80GB HBM3, 700 W): the
-# losses each later run must give bit for bit.  (Launches and sync
+# root as the CPU does (run AD of PERF.md, H100 80GB HBM3, 700 W), and
+# b and c once the clip's norm summed in f64 and took its root as the
+# CPU does (run AG; a, d and the checkpoint run did not move): the losses
+# each later run must give bit for bit.  (Launches and sync
 # collectives are held against the counts derived from the code in
 # train_path.)
 PARENT_LOSSES = {
     "a": [10.68307113647461, 10.063494682312012, 9.444881439208984,
           9.20444107055664, 8.938138961791992, 8.848569869995117],
-    "b": [11.144638061523438, 10.52808666229248, 9.801839828491211,
-          9.564376831054688, 9.370319366455078, 9.285676956176758],
-    "c": [10.68307113647461, 10.268999099731445, 9.740999221801758],
+    "b": [11.144638061523438, 10.528348922729492, 9.801494598388672,
+          9.565112113952637, 9.370633125305176, 9.285699844360352],
+    "c": [10.68307113647461, 10.269109725952148, 9.740499496459961],
     "d": [10.68307113647461, 10.062131881713867, 9.441957473754883],
     "d'": [10.68307113647461, 10.062131881713867, 9.441957473754883]}
 PARENT_CKPT_LOSSES = [10.762600898742676, 9.794771194458008,
                       9.225784301757812, 9.016292572021484]
 
 
-def check_parent(name: str, res: dict, label: str | None = None) -> None:
+def check_parent(name: str, res: dict, label: str | None = None,
+                 want: list | None = None) -> None:
     """The run ``label`` (default: path ``name``) gave path ``name``'s
-    parent losses bit for bit, as far as it ran."""
+    parent losses (or ``want``) bit for bit, as far as it ran."""
     got = res["losses"]
-    want = PARENT_LOSSES[name][:len(got)]
+    want = (PARENT_LOSSES[name] if want is None else want)[:len(got)]
     label = label or name
     ok = got == want
     print(f"train: path {label} losses {got} against path {name}'s parent "
@@ -1194,6 +1254,8 @@ def train_phase(LQ) -> dict:
         _add(total, telemetry_paths(LQ, runs["a"][0], runs["b"][0]))
         _add(total, optimizer_paths(LQ, runs["a"][0]))
         _add(total, topk_paths(LQ, runs["a"][0]))
+        _add(total, fidelity_paths(LQ, runs["a"][0]))
+        _add(total, ef_path(LQ, runs["b"][0]))
     print(f"train: model-group collectives and replicated_grad_psum called "
           f"{tp_calls[0]} times at tp = 1", flush=True)
     if tp_calls[0]:
@@ -1246,13 +1308,14 @@ def check_stream(path: str, steps: int, moe: bool) -> list[dict]:
     return out
 
 
-def _trace_line(res: dict) -> str:
+def _trace_line(res: dict, step: int = 2) -> str:
     t = res["trace"]
     if not t or not os.path.exists(t["path"]):
         raise AssertionError(f"telemetry: no trace file written ({t})")
     ranges = ", ".join(f"{k} {v:.2f} ms" for k, v in sorted(
         t["ranges"].items()) if k in ("loco/apply", "loco/metrics"))
-    return (f"trace of step 2 {os.path.getsize(t['path']):,} bytes; device "
+    return (f"trace of step {step} {os.path.getsize(t['path']):,} bytes; "
+            f"device "
             f"busy {t['device_busy_ms']:.1f} ms, {t['device_launches']} "
             f"launches; {ranges}")
 
@@ -1378,6 +1441,97 @@ def topk_paths(LQ, a: dict) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 3, paths i and j: the fidelity probe and the MoE wire's EF
+# ---------------------------------------------------------------------------
+
+def fidelity_paths(LQ, a: dict) -> dict:
+    """Path i: path a's command, probes at steps 2 and 5.  Its losses are
+    path a's bit for bit; its launches and collectives less the probes'
+    (derived: per probe backward and LoCo tensor one fused_compress, two
+    dequant_mean and one reference reduce-scatter) are path a's, so the
+    other steps are path a's steps; the stream holds 2 fidelity records
+    with
+    finite ``fidelity/cos``, ``rel_l2`` and ``comp_gain``, which the
+    port's validator accepts.  Prints their values, the peak memory, the
+    unprofiled probe step 2's time against the other steps' and the
+    trace of probe step 5 (device busy time, launches, ``loco/probe``'s
+    span).  Returns its launches."""
+    import tempfile
+
+    from repro_torch.telemetry import sink
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_fid_") as tmp:
+        path = os.path.join(tmp, "i.jsonl")
+        launches, i = train_path(LQ, I_ARGS + ["--metrics-jsonl", path,
+                                               "--profile-dir", tmp], True)
+        trace = _trace_line(i, 5)
+        check_parent("a", i, "i")
+        res = sink.validate_stream(path)
+        with open(path) as f:
+            recs = [json.loads(line) for line in f]
+    want_kinds = {"header": 1, "step": 6, "fidelity": 2, "summary": 1}
+    if res["errors"] or res["kinds"] != want_kinds:
+        raise AssertionError(f"fidelity: stream {res}, want {want_kinds}")
+    n_a, n_i = len(a["losses"]), len(i["losses"])
+    tensors = sum(n for n in sync_runs(I_ARGS).values())
+    probe_bw = probe_backwards(I_ARGS)
+    extra_l = {"fused_compress": tensors * probe_bw,
+               "dequant_mean": 2 * tensors * probe_bw}
+    extra_c = {"_REDUCE_SCATTER": tensors * probe_bw}
+    for what, got, per_a, extra in (
+            ("launches", launches, a["launches"], extra_l),
+            ("collectives", i["collectives"], a["collectives"], extra_c)):
+        base = {k: v - extra.get(k, 0) for k, v in got.items()}
+        want = {k: v // n_a * n_i for k, v in per_a.items()}
+        if {k: v for k, v in base.items() if v} != want or any(
+                v % n_a for v in per_a.values()):
+            raise AssertionError(f"fidelity: path i {what} {got} less the "
+                                 f"probes' {extra} != path a's {want}")
+    fids = [r for r in recs if r["kind"] == "fidelity"]
+    steps = {r["step"]: r["step_ms"] for r in recs if r["kind"] == "step"}
+    for r in fids:
+        m = r["metrics"]
+        keys = ("fidelity/cos", "fidelity/rel_l2", "fidelity/comp_gain")
+        if not all(math.isfinite(m[k]) for k in keys) or not all(
+                math.isfinite(v) for v in m.values()):
+            raise AssertionError(f"fidelity: step {r['step']}: {m}")
+        print(f"fidelity: path i step {r['step']}: "
+              + ", ".join(f"{k} {m[k]:.6f}" for k in keys)
+              + f"; {len(m)} keys", flush=True)
+    if [r["step"] for r in fids] != [2, 5]:
+        raise AssertionError(
+            f"fidelity: probes at {[r['step'] for r in fids]}")
+    probe_span = i["trace"]["ranges"].get("loco/probe", 0.0)
+    print(f"fidelity: path i: losses path a's; launches and collectives "
+          f"path a's plus {extra_l} and {extra_c}; peak device memory "
+          f"{i['peak_mem_bytes'] / 2**30:.2f} GiB (path a "
+          f"{a['peak_mem_bytes'] / 2**30:.2f}); step ms: probe step 2 "
+          f"{steps[2]:.1f}, the others "
+          + ", ".join(f"{steps[k]:.1f}" for k in (1, 3, 4))
+          + f"; {trace}; loco/probe GPU-side span "
+          f"{probe_span:.2f} ms", flush=True)
+    return launches
+
+
+def ef_path(LQ, b: dict) -> dict:
+    """Path j: path b's command with ``--moe-a2a block8+ef``, 3 steps.
+    Losses finite and falling; step 0 within the MoE limit (2e-3
+    relative) of path b's: its first microbatch is block8's (a zero
+    residual), its second reads the first's residual, so the step's mean
+    moves; act_encode and act_decode launched as derived.  Prints the
+    peak memory against path b's.  Returns its launches."""
+    launches, j = train_path(LQ, J_ARGS, True)
+    gap = abs(j["losses"][0] - b["losses"][0])
+    print(f"ef: path j losses {j['losses']} (path b {b['losses'][:3]}); "
+          f"step-0 gap {gap:.3e}; moe_aux {j['moe_aux']}; peak device "
+          f"memory {j['peak_mem_bytes'] / 2**30:.2f} GiB (path b "
+          f"{b['peak_mem_bytes'] / 2**30:.2f})", flush=True)
+    if gap > REF_STEP0_RTOL * abs(b["losses"][0]):
+        raise AssertionError(f"ef: path j's step 0 left path b's: {gap}")
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # phase 3c: the hierarchical exchange on size-1 mesh axes
 # ---------------------------------------------------------------------------
 
@@ -1405,25 +1559,27 @@ def hier_schedules() -> dict:
     }
 
 
-def hier_expected(cfg) -> dict:
+def hier_expected(cfg, probe: bool = False) -> dict:
     """Kernel launches of one ``hierarchical_sync`` call, from its legs:
     stage 1 encodes with the bucket's codec (``fused_compress`` for loco,
     ``onebit_pack`` for onebit) and every block-quantized leg decodes with
     ``dequant_mean``; naive4 encodes and top-k and onebit decode with
-    plain ops."""
+    plain ops.  A ``probe`` call also encodes stage 1's segment from a
+    zero state and decodes it and the live wire at D = 1."""
     from repro_torch.core.loco import sync_schedule
 
     want: dict[str, int] = {}
 
-    def add(name):
-        want[name] = want.get(name, 0) + 1
+    def add(name, n=1):
+        want[name] = want.get(name, 0) + n
 
     for i, c in enumerate([cfg] + [t.sync for t in sync_schedule(cfg)]):
         if c.strategy == "onebit":
-            add("onebit_pack")
+            add("onebit_pack", 1 + (probe and i == 0))
         elif c.strategy in ("loco", "naive4") and c.quant.mode == "block":
             if i == 0 and c.strategy == "loco":
-                add("fused_compress")
+                add("fused_compress", 1 + probe)
+                add("dequant_mean", 2 * probe)
             add("dequant_mean")
     return want
 
@@ -1433,7 +1589,9 @@ def hierarchical_phase(LQ, dev) -> dict:
     by ``launch.mesh.mesh_axes``), at path a's largest LoCo length and a
     tp = 2 rank's, for every schedule of ``hier_schedules``: each kernel
     launched as ``hier_expected`` derives, and the shard and the new state
-    bit for bit with the same call on the CPU (the plain versions).
+    bit for bit with the same call on the CPU (the plain versions); and
+    the same call with the fidelity probe, whose reference stack too is
+    the CPU's bit for bit (on size-1 axes every mean is one value, exact).
     Returns the card's launches."""
     import torch
 
@@ -1459,27 +1617,30 @@ def hierarchical_phase(LQ, dev) -> dict:
             axes = {2: mesh.mesh_axes(world, 1, pods=1),
                     3: mesh.mesh_axes(world, 1, pods=1, wans=1)}
             for name, cfg, k, n in cases:
-                g, st = inputs(cfg, n)
-                if device.type == "cpu":
-                    g, st = g.cpu(), st.cpu()
-                LQ.reset_launches()
-                t = time.perf_counter()
-                shard, new = comm.hierarchical_sync(g, st, cfg, axes[k])
-                if device.type == "cuda":
-                    torch.cuda.synchronize()
-                secs = time.perf_counter() - t
-                record(name, n, cfg, dict(LQ.LAUNCHES), secs)
-                out[name, n] = (shard.cpu(), new.cpu())
-                del g, st, shard, new
+                # the probe at a tp = 2 rank's length (the smaller)
+                for probe in (False, True)[:1 + (n == min(sizes))]:
+                    g, st = inputs(cfg, n)
+                    if device.type == "cpu":
+                        g, st = g.cpu(), st.cpu()
+                    LQ.reset_launches()
+                    t = time.perf_counter()
+                    got = comm.hierarchical_sync(g, st, cfg, axes[k],
+                                                 probe=probe, group=world)
+                    if device.type == "cuda":
+                        torch.cuda.synchronize()
+                    secs = time.perf_counter() - t
+                    record(name, n, cfg, probe, dict(LQ.LAUNCHES), secs)
+                    out[name, n, probe] = tuple(x.cpu() for x in got)
+                    del g, st, got
         return out
 
     total: dict[str, int] = {}
 
-    def on_card(name, n, cfg, launches, secs):
-        want = hier_expected(cfg)
-        print(f"hierarchical: {name} at {n:,} on the card: launches "
-              f"{launches} (derived {want}); {secs * 1e3:.1f} ms host wall",
-              flush=True)
+    def on_card(name, n, cfg, probe, launches, secs):
+        want = hier_expected(cfg, probe)
+        print(f"hierarchical: {name} at {n:,}{' probe' if probe else ''} "
+              f"on the card: launches {launches} (derived {want}); "
+              f"{secs * 1e3:.1f} ms host wall", flush=True)
         if launches != want:
             raise AssertionError(f"hierarchical: {name} at {n:,} launched "
                                  f"{launches}, want {want}")
@@ -1488,11 +1649,14 @@ def hierarchical_phase(LQ, dev) -> dict:
     card = run(dev, on_card)
     torch.cuda.empty_cache()
     cpu = run(torch.device("cpu"), lambda *a: None)
-    for key, (shard, new) in card.items():
-        want_shard, want_new = cpu[key]
-        ok = _same(shard, want_shard) and _same(new, want_new)
+    for key, got in card.items():
+        shard, new = got[:2]
+        want_shard, want_new = cpu[key][:2]
+        ok = all(_same(x, y) for x, y in zip(got, cpu[key]))
+        refs = (f", reference stack {tuple(got[2].shape)}"
+                if len(got) > 2 else "")
         print(f"hierarchical: {key[0]} at {key[1]:,}: shard {shard.dtype} "
-              f"{tuple(shard.shape)}, state {new.dtype}: "
+              f"{tuple(shard.shape)}, state {new.dtype}{refs}: "
               f"{'bit for bit with the CPU' if ok else 'DIFFERS'} (max |d| "
               f"shard {_max_abs(shard, want_shard):.3e})", flush=True)
         if not ok:
@@ -1583,11 +1747,7 @@ def checkpoint_phase(LQ, src: Path) -> dict:
         print(f"checkpoint: {CKPT_LAYERS} of llama2-400m's 24 layers at "
               "full width", flush=True)
         launches, full = train_path(LQ, CKPT_ARGS, True)
-        print(f"checkpoint: losses {full['losses']} against the parent's "
-              f"{PARENT_CKPT_LOSSES}", flush=True)
-        if full["losses"] != PARENT_CKPT_LOSSES:
-            raise AssertionError("checkpoint: the losses moved from the "
-                                 "parent's")
+        check_parent("checkpoint", full, want=PARENT_CKPT_LOSSES)
         _add(total, launches)
         with timed_calls(CKPT, "save_train_state") as save_s:
             launches, saved = train_path(LQ, argv + ["--ckpt-every", "2"],
@@ -1649,6 +1809,37 @@ def _kernel_class(name: str) -> str:
     return "other (elementwise, reductions, fills)"
 
 
+def time_grad_norm(dev, rate: float) -> None:
+    """Device time of the step's exact gradient norm (the per-leaf f64 sums
+    of ``steps.grad_norm``, ``comm.sum_f64``) over path b's gradient
+    shapes (1.34B f32 elements, random), beside the f32 ``torch.sum(x *
+    x)`` per leaf that it replaced; the total is checked against the f32
+    form's.  Printed, not gated."""
+    import torch
+
+    from repro_torch.core.comm import sum_f64
+    from repro_torch.launch import train
+    from repro_torch.models.transformer import build_groups
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    leaves = [torch.randn(math.prod(i.shape) * (g.n_layers or 1),
+                          device=dev, generator=gen)
+              for g in build_groups(train.make_cfg(
+                  train.build_args(MOE_ARGS)), 1) for i in g.infos]
+    exact = device_ms(lambda: sum(sum_f64(x, x) for x in leaves).float())
+    plain = device_ms(lambda: sum(torch.sum(x * x) for x in leaves))
+    got = float(sum(sum_f64(x, x) for x in leaves))
+    want = float(sum(torch.sum(x * x) for x in leaves))
+    if abs(got - want) > 1e-4 * want:
+        raise AssertionError(f"grad norm: f64 sum {got} against f32 {want}")
+    n = sum(x.numel() for x in leaves)
+    print(f"grad norm: {n:,} f32 elements in {len(leaves)} leaves (path "
+          f"b's): f64 sums {exact:.3f} ms against f32 sums {plain:.3f} ms; "
+          f"HBM bound {4 * n / rate * 1e3:.3f} ms", flush=True)
+    del leaves
+    torch.cuda.empty_cache()
+
+
 def profile_phase(argv) -> None:
     """Where one full-width step spends device time: median wall time of
     two unprofiled steps, then one step under torch.profiler.  Device busy
@@ -1675,7 +1866,7 @@ def profile_phase(argv) -> None:
            f"{' telemetry' if run.telemetry else ''}]")
     with mesh.dp_group(dev) as group:
         topo = MeshTopo.from_group(group, model=mesh.model_group())
-        ts = steps.make_init(cfg, run, topo, dev, args.seed)
+        ts = steps.make_init(cfg, run, topo, dev, args.seed, shape)
         step_fn = steps.make_train_step(cfg, run, topo, dev, shape)
         walls = []
         for s in range(3):
@@ -1761,7 +1952,24 @@ REF_RUNS = {"llama2-400m loco": _ref_args("llama2-400m", "loco"),
                     ("--optimizer", "sgd"), ("--optimizer", "lamb"),
                     ("--optimizer", "adafactor"), ("--quant-mode", "fixed"),
                     ("--error-codec", "bf16"))},
-            "llama2-400m topk": _ref_args("llama2-400m", "topk")}
+            "llama2-400m topk": _ref_args("llama2-400m", "topk"),
+            "llama2-400m loco --fidelity-every 1": _ref_args(
+                "llama2-400m", "loco", "--fidelity-every", "1"),
+            "deepseek-v3-moe loco block8+ef": _ref_args(
+                "deepseek-v3-moe", "loco", "--moe-a2a", "block8+ef")}
+# The probe's fidelity metrics, card against CPU: the global cosine within
+# FID_COS_ATOL, a unit's cosine within UNIT_COS_ATOL, every other value
+# within FID_RTOL (the synced gradients differ by the bf16 backward's
+# rounding, as between the port and the reference on the CPU: 9e-6,
+# 6.7e-5 and 2.6e-2 at most there, while a unit built from unaccumulated
+# or misaligned rows reads 0.16 off or more,
+# tests/test_torch_fidelity_train.py).
+FID_COS_ATOL, UNIT_COS_ATOL, FID_RTOL = 1e-4, 1e-3, 5e-2
+# One microbatch per step: block8+ef's residual is zero when the step's
+# only microbatch reads it, so its step-0 loss is block8's bit for bit.
+EF_ACCUM1 = {codec: _ref_args("deepseek-v3-moe", "loco", "--moe-a2a", codec,
+                              "--global-batch", "2", "--steps", "1")
+             for codec in ("block8", "block8+ef")}
 REF_STEP0_RTOL, REF_ATOL = 2e-3, 2e-2
 UNIFORM_BUCKETS = ["--bucket-mb", "0.0625"]
 # three microbatches per step: the step's gradient and loss means divide
@@ -1817,6 +2025,95 @@ def check_divisions() -> None:
                              "card is not the CPU's")
 
 
+def check_optimizers_exact() -> None:
+    """lamb, adafactor (factored, a 1024 x 1024 leaf) and adafactor_flat
+    updates of a 2^20-element leaf at steps 0-2, and the step's
+    ``grad_norm`` and ``clip_scale`` (at clip 1.0 and 0.37), give the
+    CPU's bits on the card: roots correctly rounded, reciprocal roots
+    divided, norms and means summed in f64 and rounded once."""
+    import torch
+
+    from repro_torch.core.flatparam import MeshTopo, ParamGroup, ParamInfo
+    from repro_torch.launch import mesh, steps
+    from repro_torch.optim import optimizers as OPT
+
+    gen = torch.Generator().manual_seed(19)
+    shape = (1024, 1024)
+    p, g = (torch.randn(shape, generator=gen) for _ in range(2))
+    v = torch.randn(shape, generator=gen).abs() * 1e-2
+    m = torch.randn(shape, generator=gen) * 1e-2
+    lr = torch.tensor(1e-3)
+    results = {}
+
+    def tree(x, dev, flat):
+        return {"g": {"w": (x.reshape(-1) if flat else x).to(dev)}}
+
+    def leaves(x):
+        if isinstance(x, dict):
+            return [t for v in x.values() for t in leaves(v)]
+        if isinstance(x, (tuple, list)):
+            return [t for v in x for t in leaves(v)]
+        return [x]
+
+    for dev in (torch.device("cuda", 0), torch.device("cpu")):
+        out = []
+        for step in range(3):
+            for name, flat, state in (
+                    ("lamb", True, lambda d: (tree(m, d, True),
+                                              tree(v, d, True))),
+                    ("adafactor_flat", True, lambda d: (tree(v, d, True),)),
+                    ("adafactor", False, lambda d: (
+                        (v[:, 0].to(d), v[0].to(d)),))):
+                opt = OPT.OPTIMIZERS[name]()
+                new, st = opt.update(tree(g, dev, flat), state(dev),
+                                     tree(p, dev, flat), torch.tensor(step),
+                                     lr, {"g": {"w": 1.0}})
+                out += leaves(new) + leaves(st)
+        groups = [ParamGroup("g", (ParamInfo("w", shape),), n_layers=None)]
+        with mesh.dp_group(dev) as world:
+            gn = steps.grad_norm(tree(g, dev, True), groups,
+                                 MeshTopo.from_group(world), dev)
+        out += [gn, OPT.clip_scale(gn, 1.0), OPT.clip_scale(gn, 0.37)]
+        results[dev.type] = [x.cpu() for x in out]
+    same = all(_same(a, b) for a, b in zip(results["cuda"],
+                                           results["cpu"]))
+    print(f"reference: lamb, adafactor, adafactor_flat at steps 0-2, the "
+          f"step's gnorm {float(results['cuda'][-3]):.6f} and clip scales "
+          f"on the card: {'bit for bit with the CPU' if same else 'DIFFER'}",
+          flush=True)
+    if not same:
+        raise AssertionError("reference: an optimizer or the clip is not "
+                             "the CPU's bits on the card")
+
+
+def check_fidelity(label, gpu: list, cpu: list) -> None:
+    """The probe steps' fidelity metrics, card against CPU (``FID_*``)."""
+    if len(gpu) != len(cpu) or not gpu or any(
+            sorted(a) != sorted(b) for a, b in zip(gpu, cpu)):
+        raise AssertionError(f"reference: {label}: fidelity keys differ")
+    worst = {}
+    for a, b in zip(gpu, cpu):
+        for k in a:
+            if not math.isfinite(a[k]):
+                raise AssertionError(f"reference: {label}: {k} = {a[k]}")
+            if k == "fidelity/cos":
+                ok = abs(a[k] - b[k]) <= FID_COS_ATOL
+            elif k.endswith("/fid_cos"):
+                ok = abs(a[k] - b[k]) <= UNIT_COS_ATOL
+            else:
+                ok = abs(a[k] - b[k]) <= FID_RTOL * abs(b[k]) + 1e-6
+            if not ok:
+                raise AssertionError(f"reference: {label}: {k} card {a[k]} "
+                                     f"cpu {b[k]}")
+            kind = k if k.startswith("fidelity/") else k.rsplit("/", 1)[1]
+            worst[kind] = max(worst.get(kind, 0.0), abs(a[k] - b[k]))
+    first = {k: v for k, v in gpu[0].items() if k.startswith("fidelity/")}
+    print(f"reference: {label}: fidelity metrics of {len(gpu)} probes "
+          f"within the limits; largest gaps (a unit's: the largest of its "
+          f"kind) {worst}; card step 0 "
+          f"{first}", flush=True)
+
+
 def reference_phase() -> None:
     """Same seed, same batches, same weights (the init draws on the CPU):
     the card's run (CUDA kernels, NCCL, cuBLAS) must track the CPU run
@@ -1826,6 +2123,15 @@ def reference_phase() -> None:
     from repro_torch.launch import train
 
     check_divisions()
+    check_optimizers_exact()
+    ef = {c: train.main(a + ["--device", "cuda"])["losses"]
+          for c, a in EF_ACCUM1.items()}
+    print(f"reference: reduced deepseek-v3-moe, one microbatch, step 0 on "
+          f"the card: block8 {ef['block8']}, block8+ef {ef['block8+ef']}",
+          flush=True)
+    if ef["block8"] != ef["block8+ef"]:
+        raise AssertionError("reference: block8+ef's first microbatch is "
+                             "not block8's")
     mono = train.main(REF_RUNS["llama2-400m loco"]
                       + ["--device", "cuda"])["losses"]
     buck = train.main(REF_RUNS["llama2-400m loco"] + UNIFORM_BUCKETS
@@ -1838,9 +2144,13 @@ def reference_phase() -> None:
                              "differ from the monolithic run's on the card")
     for label, argv in {**REF_RUNS, "llama2-400m loco, accum 3":
                         ACCUM3_ARGS}.items():
-        gpu = (mono if label == "llama2-400m loco" else
-               train.main(argv + ["--device", "cuda"])["losses"])
-        cpu = train.main(argv + ["--device", "cpu"])["losses"]
+        g_res = (None if label == "llama2-400m loco" else
+                 train.main(argv + ["--device", "cuda"]))
+        gpu = mono if g_res is None else g_res["losses"]
+        c_res = train.main(argv + ["--device", "cpu"])
+        cpu = c_res["losses"]
+        if "--fidelity-every" in argv:
+            check_fidelity(label, g_res["fidelity"], c_res["fidelity"])
         gaps = [abs(a - b) for a, b in zip(gpu, cpu)]
         print(f"reference: reduced {label}, card {gpu} vs cpu {cpu}; "
               f"gaps {gaps}; "

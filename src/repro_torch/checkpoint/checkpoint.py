@@ -20,7 +20,10 @@ layout.  On a ``dp x tp`` mesh the global layout is, per parameter
 * master chunk and each Adam moment: ``(L?, TP, padlen)``, the rank at
   data index ``r`` and model index ``m`` owning ``[..., m, r*C:(r+1)*C]``;
 * compressor state (each state unit under a sync plan): ``(L?, TP, D, n)``,
-  that rank owning ``[..., m, r, :]``.
+  that rank owning ``[..., m, r, :]``;
+* the MoE combine residuals of ``block8+ef`` (``states/_moe_a2a/ef``, a
+  rank's ``(L, 1, 1, n)``): ``(L, D, TP, n)``, that rank owning ``[:, r,
+  m, :]``, the reference's layout.
 
 With more than one rank, world rank 0 gathers every ``(data, model)``
 piece and writes; on restore it reads (and reshards across dp at a fixed
@@ -160,8 +163,14 @@ def _is_state(key: str) -> bool:
     return key.startswith("states/")
 
 
+def _is_ef(key: str) -> bool:
+    return key.startswith("states/_moe_a2a/")
+
+
 def _global_shape(key: str, local: torch.Tensor, dp: int, tp: int) -> tuple:
     *lead, n = local.shape
+    if _is_ef(key):
+        return (local.shape[0], dp, tp, n)
     if _is_state(key):
         return (*lead, tp, dp, n)
     return (*lead, tp, dp * n)
@@ -171,6 +180,8 @@ def _rank_piece(key: str, g: torch.Tensor, rank: int, n: int,
                 tp_rank: int = 0):
     """The piece (``n`` trailing elements) of a global leaf that the rank
     at data index ``rank`` and model index ``tp_rank`` owns."""
+    if _is_ef(key):
+        return g[:, rank:rank + 1, tp_rank:tp_rank + 1, :]
     if _is_state(key):
         return g[..., tp_rank, rank, :]
     return g[..., tp_rank, rank * n:(rank + 1) * n]
@@ -179,6 +190,10 @@ def _rank_piece(key: str, g: torch.Tensor, rank: int, n: int,
 def _assemble(key: str, pieces: list, dp: int, tp: int) -> torch.Tensor:
     """Every rank's piece, in world order (``data * tp + model``) -> the
     global leaf."""
+    if _is_ef(key):
+        L, n = pieces[0].shape[0], pieces[0].shape[-1]
+        return torch.stack([p.reshape(L, n) for p in pieces],
+                           dim=1).reshape(L, dp, tp, n)
     *lead, n = pieces[0].shape
     rows = torch.stack(pieces, dim=-2).reshape(*lead, dp, tp, n)
     rows = rows.transpose(-3, -2)

@@ -23,6 +23,14 @@ Buckets whose config sets ``hierarchical`` route through
 codec inside the pod (the ``data`` axis), then a stateless codec on the pod
 means across pods (the ``pod`` axis), and one more leg per outer tier of a
 ``tiers`` schedule (the ``wan`` axis).
+
+With ``probe`` (the gradient-fidelity probe, ``telemetry/fidelity``) every
+sync form also returns a ``(K, n/D)`` f32 reference stack of this rank's
+chunk: the exact mean gradient, the mean of the live compensated
+roundtrip and of the roundtrip from a zero state, all three in ONE extra
+reduce-scatter over the dp group (:func:`_probe_reduce`), and one mid-tier
+reference per non-final tier of a multi-tier schedule.  The shard and the
+new state are the non-probe call's bit for bit.
 """
 from __future__ import annotations
 
@@ -124,6 +132,29 @@ def divide(x: torch.Tensor, n: int) -> torch.Tensor:
     return x / torch.full((), float(n), dtype=x.dtype, device=x.device)
 
 
+_SUM_SLICE = 1 << 24
+
+
+def sum_f64(x: torch.Tensor, y: torch.Tensor | None = None) -> torch.Tensor:
+    """``sum(x * y)`` (``sum(x)`` without ``y``) as a 0-dim f64 tensor,
+    for the caller to round to f32 once.  The products of f32 values are
+    exact in f64 and the sum keeps 29 bits more than f32, so the rounded
+    result is the same on the CPU and on the card, whose f32 reductions
+    add in other orders.  Taken in slices of 2^24 elements, so the f64
+    copy stays small; ``y is x`` converts each slice once."""
+    xs = x.reshape(-1)
+    ys = None if y is None or y is x else y.reshape(-1)
+    total = torch.zeros((), dtype=torch.float64, device=x.device)
+    for i in range(0, xs.numel(), _SUM_SLICE):
+        a = xs[i:i + _SUM_SLICE].double()
+        if y is None:
+            total = total + torch.sum(a)
+        else:
+            b = a if ys is None else ys[i:i + _SUM_SLICE].double()
+            total = total + torch.dot(a, b)
+    return total
+
+
 def fp_mean(summed: torch.Tensor, D: int) -> torch.Tensor:
     """The f32 mean ``summed / D`` of a reduce-scatter sum over ``D``
     peers, one IEEE division (:func:`divide`)."""
@@ -208,6 +239,51 @@ def _cadence_select(g, state, cfg: SyncConfig, step: int, shard, new_state):
     return torch.zeros_like(shard), acc.to(new_state.dtype)
 
 
+def _probe_reduce(rows: torch.Tensor, group) -> torch.Tensor:
+    """Fidelity-probe reference reduce: ``(K, n)`` local rows -> ``(K,
+    n/D)`` exact means over the dp group.  The K rows interleave per
+    destination chunk (``(K, D, C) -> (D, K*C)``), so ONE reduce-scatter
+    delivers each rank the K rows of its own chunk; the mean is one IEEE
+    division by D (:func:`divide`)."""
+    K, n = rows.shape
+    D = axis_size(group)
+    x = rows.reshape(K, D, n // D).transpose(0, 1).reshape(-1)
+    red = psum_scatter_flat(x, group)
+    return divide(red.reshape(K, n // D), D)
+
+
+def _probe_rt(codec: codec_lib.Codec, seg: torch.Tensor,
+              wire: dict[str, torch.Tensor]
+              ) -> tuple[torch.Tensor, torch.Tensor]:
+    """This rank's (live roundtrip, roundtrip without compensation) of one
+    segment, both f32 ``(n,)``.  ``wire`` is the already encoded live wire
+    (before any hierarchical regroup), decoded with a peer axis of 1: no
+    second encode.  The counterfactual encodes ``seg`` from a zero state,
+    the paper's Fig. 1 arm without compensation."""
+    rt_live = codec.decode_mean({k: v[None] for k, v in wire.items()})
+    rt_nc, _ = codec.roundtrip(seg, codec.init_state(seg.shape[0],
+                                                     seg.device))
+    return rt_live, rt_nc
+
+
+def _fit_rows(refs: torch.Tensor, rows: int) -> torch.Tensor:
+    """Zero-pad a reference stack to ``rows`` rows (one leaf shape across
+    buckets with different stage counts)."""
+    if refs.shape[0] > rows:
+        raise ValueError(f"{refs.shape[0]} reference rows, room for {rows}")
+    if refs.shape[0] == rows:
+        return refs
+    pad = refs.new_zeros((rows - refs.shape[0], refs.shape[1]))
+    return torch.cat([refs, pad])
+
+
+def _probe_refs(codec, g, wire, group) -> torch.Tensor:
+    """The base reference stack ``(3, n/D)`` of one encoded segment."""
+    with PROF.phase("probe"):
+        rt_live, rt_nc = _probe_rt(codec, g, wire)
+        return _probe_reduce(torch.stack([g.float(), rt_live, rt_nc]), group)
+
+
 def dist_sync(
     g: torch.Tensor,
     state: torch.Tensor,
@@ -219,7 +295,8 @@ def dist_sync(
     out_dtype: torch.dtype = torch.float32,
     inplace: bool = False,
     axes: tuple[MeshAxis, ...] | None = None,
-) -> tuple[torch.Tensor, torch.Tensor]:
+    probe: bool = False,
+):
     """Synchronize one flat gradient segment across the group.
 
     g:     (n,) local gradient segment (bf16 or f32; the codecs compute in
@@ -238,9 +315,11 @@ def dist_sync(
     axes:  the dp mesh axes, outermost first (:class:`MeshAxis`; None: one
            ``data`` axis over ``group``), which a ``hierarchical`` config
            exchanges over one at a time (:func:`hierarchical_sync`).
-    returns (g_shard (n/D,) in ``out_dtype``, new_state): the *averaged*
-    gradient piece this rank owns, and the updated local compressor state
-    (``state`` itself when written in place).
+    probe: also return the fidelity reference stack ``(K, n/D)`` f32 of
+           this rank's chunk (module docstring); fp returns zero rows.
+    returns (g_shard (n/D,) in ``out_dtype``, new_state[, refs]): the
+    *averaged* gradient piece this rank owns, and the updated local
+    compressor state (``state`` itself when written in place).
     """
     n = g.shape[0]
     D = axis_size(group)
@@ -253,18 +332,24 @@ def dist_sync(
         # routed before the fp and ef21 cases (never silently flattened):
         # what the exchange cannot serve raises in hierarchical_sync, and
         # with the bucket named when the step is built
-        shard, new_state = hierarchical_sync(
+        out = hierarchical_sync(
             g, state, cfg, (MeshAxis("data", group),) if axes is None
-            else axes, gen, step, out_dtype=out_dtype, inplace=inplace)
+            else axes, gen, step, out_dtype=out_dtype, inplace=inplace,
+            probe=probe, group=group)
+        shard, new_state = out[0], out[1]
         if gated:
             shard, new_state = _cadence_select(g, state, cfg, step, shard,
                                                new_state)
-        return shard, new_state
+        return (shard, new_state, out[2]) if probe else (shard, new_state)
     if cfg.strategy == "fp":
         # 16-bit-style baseline: reduce-scatter mean (bf16 wire)
         with PROF.phase("exchange"):
             g_shard = psum_scatter_flat(g.to(torch.bfloat16), group)
-        return fp_mean(g_shard, D).to(out_dtype), state
+        shard = fp_mean(g_shard, D).to(out_dtype)
+        if probe:
+            # fp carries no fidelity unit: zero rows keep the leaf shape
+            return shard, state, g.new_zeros((3, n // D), dtype=torch.float32)
+        return shard, state
     if cfg.strategy == "ef21":
         raise NotImplementedError(
             "ef21 has no distributed form (receiver-side state); use "
@@ -273,6 +358,7 @@ def dist_sync(
     codec = codec_lib.get_codec(cfg)
     with PROF.phase("encode"):            # compensate + quantize (Alg. 1)
         wire, new_state = codec.encode(g, state, gen, inplace=inplace)
+    refs = _probe_refs(codec, g, wire, group) if probe else None
     with PROF.phase("exchange"):          # low-bit all-to-all (section 3.3)
         recv = exchange_wire(wire, codec.wire_shapes(n), D, group)
     with PROF.phase("decode"):            # dequant + f32 mean
@@ -280,7 +366,7 @@ def dist_sync(
     if gated:
         shard, new_state = _cadence_select(g, state, cfg, step, shard,
                                            new_state)
-    return shard, new_state
+    return (shard, new_state, refs) if probe else (shard, new_state)
 
 
 # ---------------------------------------------------------------------------
@@ -334,7 +420,8 @@ def dist_sync_buckets(
     out_dtype: torch.dtype = torch.float32,
     inplace: bool = False,
     axes: tuple[MeshAxis, ...] | None = None,
-) -> tuple[torch.Tensor, tuple[torch.Tensor, ...]]:
+    probe: bool = False,
+):
     """Synchronize a full local gradient bucket by bucket.
 
     g:      (padlen,) local full gradient of one parameter (bf16 or f32;
@@ -353,7 +440,10 @@ def dist_sync_buckets(
     pipelines the coalesced schedule over the stages of
     :func:`repro_torch.core.wirepack.build_overlap_schedule` (see
     :func:`_dist_sync_overlapped`) and requires ``coalesce``.  All give the
-    same bits.  ``inplace``, ``step`` and ``axes`` as in :func:`dist_sync`.
+    same bits.  ``inplace``, ``step``, ``axes`` and ``probe`` as in
+    :func:`dist_sync`; with ``probe`` the per-bucket reference stacks,
+    zero-padded to the deepest bucket's rows, are concatenated in chunk
+    order (the probe runs the flat schedule: ``overlap`` is refused).
     """
     if len(states) != len(plan.buckets):
         raise ValueError(f"{plan.qualname}: {len(states)} states for "
@@ -368,14 +458,20 @@ def dist_sync_buckets(
         return _dist_sync_coalesced(gm, states, plan, group, run_space=False,
                                     step=step, out_dtype=out_dtype,
                                     inplace=inplace, overlap=overlap,
-                                    axes=axes)
-    shards, new_states = [], []
+                                    axes=axes, probe=probe)
+    shards, new_states, refs = [], [], []
     for b, st in zip(plan.buckets, states):
-        sh, ns = dist_sync(gm[:, b.offset:b.chunk_end].reshape(-1), st,
-                           b.sync, group, step=step, out_dtype=out_dtype,
-                           inplace=inplace, axes=axes)
-        shards.append(sh)
-        new_states.append(ns)
+        out = dist_sync(gm[:, b.offset:b.chunk_end].reshape(-1), st,
+                        b.sync, group, step=step, out_dtype=out_dtype,
+                        inplace=inplace, axes=axes, probe=probe)
+        shards.append(out[0])
+        new_states.append(out[1])
+        if probe:
+            refs.append(out[2])
+    if probe:
+        rows = max(r.shape[0] for r in refs)
+        prefs = torch.cat([_fit_rows(r, rows) for r in refs], dim=1)
+        return torch.cat(shards), tuple(new_states), prefs
     return torch.cat(shards), tuple(new_states)
 
 
@@ -390,7 +486,8 @@ def dist_sync_runs(
     out_dtype: torch.dtype = torch.float32,
     inplace: bool = False,
     axes: tuple[MeshAxis, ...] | None = None,
-) -> tuple[torch.Tensor, tuple[torch.Tensor, ...]]:
+    probe: bool = False,
+):
     """:func:`dist_sync_buckets` (coalesced) with RUN-space states.
 
     ``run_states`` holds one peer-major buffer per encode run
@@ -401,11 +498,12 @@ def dist_sync_runs(
     path.  With ``inplace`` an on-cadence run's new state is written into
     its buffer by the encode kernel.  ``overlap`` pipelines the schedule;
     a stage piece's state is then its columns of the run's buffer.
+    ``probe`` as in :func:`dist_sync_buckets`.
     """
     return _dist_sync_coalesced(_grad_view(g, plan, group), run_states, plan,
                                 group, run_space=True, step=step,
                                 out_dtype=out_dtype, inplace=inplace,
-                                overlap=overlap, axes=axes)
+                                overlap=overlap, axes=axes, probe=probe)
 
 
 @dataclasses.dataclass
@@ -439,10 +537,12 @@ class _SyncPass:
     place.  A hierarchical unit's stage-1 wire is regrouped for the
     ``data`` axis, decoded into the pod mean, re-encoded by the stage-2
     codec and exchanged over the ``pod`` axis (``axes``, outermost
-    first: ``(pod, data)``)."""
+    first: ``(pod, data)``).  With ``probe`` each non-fp unit's live and
+    zero-state roundtrips are kept by slot (``probe_rt``), read from the
+    wire before any regroup."""
 
     def __init__(self, gm, states, group, run_space, step, out_dtype,
-                 inplace, axes=None):
+                 inplace, axes=None, probe=False):
         self.gm, self.states, self.group = gm, states, group
         self.run_space, self.step = run_space, step
         self.out_dtype, self.inplace = out_dtype, inplace
@@ -453,6 +553,7 @@ class _SyncPass:
         self.new_states = list(states)
         self.shards: dict[int, torch.Tensor] = {}
         self.off_cadence: list[int] = []
+        self.probe_rt: dict | None = {} if probe else None
 
     def _stage_group(self, stage: str):
         """The process group a wire stage crosses."""
@@ -471,6 +572,9 @@ class _SyncPass:
                 fp_segs[u.slot] = seg.to(torch.bfloat16)
                 continue
             wire = self._encode_unit(ri, u, seg)
+            if self.probe_rt is not None:
+                self.probe_rt[u.slot] = _probe_rt(
+                    codec_lib.get_codec(u.sync), seg, wire)
             if u.sync.hierarchical:
                 wire = _regroup_wire(codec_lib.get_codec(u.sync), wire,
                                      seg.shape[0], self.Pp, self.Dd)
@@ -656,7 +760,8 @@ def _dist_sync_coalesced(
     inplace: bool,
     overlap: bool = False,
     axes: tuple[MeshAxis, ...] | None = None,
-) -> tuple[torch.Tensor, tuple[torch.Tensor, ...]]:
+    probe: bool = False,
+):
     """The coalesced schedule over ``gm`` (the ``(D, C)`` gradient view):
     encode every run, one packed collective per comm group, decode every
     run (:class:`_SyncPass`).  With ``overlap`` a plan whose schedule
@@ -665,7 +770,15 @@ def _dist_sync_coalesced(
     cadence buckets (a stage piece cannot gate its whole run's
     accumulator): refused here and, with the bucket named, when the step
     is built (``launch.steps._validate_sync_configs``).  A plan with
-    hierarchical buckets needs ``axes`` = ``(pod, data)``."""
+    hierarchical buckets needs ``axes`` = ``(pod, data)``.  The probe runs
+    on this flat schedule only (the overlapped one gives the same bits):
+    its three rows cross in one packed reduce-scatter over the dp group,
+    fp runs contributing zero live and counterfactual columns."""
+    if probe and overlap:
+        raise ValueError(
+            "the fidelity probe runs on the flat coalesced schedule only "
+            "(bit-exact with overlap; the probe step variant forces "
+            "overlap off — see launch/steps.py)")
     D = gm.shape[0]
     runs = WP.encode_runs(plan)
     want = len(runs) if run_space else len(plan.buckets)
@@ -679,7 +792,7 @@ def _dist_sync_coalesced(
     else:
         axes = None
     sp = _SyncPass(gm, states, group, run_space, step, out_dtype, inplace,
-                   axes)
+                   axes, probe)
     if overlap:
         sched = WP.build_overlap_schedule(plan, D, pods=sp.Pp)
         if sched.pipelined:
@@ -695,11 +808,24 @@ def _dist_sync_coalesced(
     units = list(enumerate(runs))
     with PROF.phase("encode"):
         wires, fp_segs = sp.encode(units)
+    refs = None
+    if probe:
+        with PROF.phase("probe"):
+            def cols(i):
+                return torch.cat(
+                    [sp.probe_rt[r.slot][i].reshape(D, r.chunk_total)
+                     if r.slot in sp.probe_rt
+                     else gm.new_zeros((D, r.chunk_total),
+                                       dtype=torch.float32)
+                     for r in runs], dim=1)
+            rows = torch.stack([gm.float(), cols(0), cols(1)]).reshape(3, -1)
+            refs = _probe_reduce(rows, group)
     with PROF.phase("exchange"):
         recv = sp.complete(gplan, sp.issue(gplan, wires, fp_segs), wires)
     with PROF.phase("decode"):
         sp.decode(units, wires, recv, gplan)
-    return sp.result(units)
+    shard, new_states = sp.result(units)
+    return (shard, new_states, refs) if probe else (shard, new_states)
 
 
 def _dist_sync_overlapped(sp: _SyncPass, sched: WP.OverlapSchedule):
@@ -811,7 +937,9 @@ def hierarchical_sync(
     *,
     out_dtype: torch.dtype = torch.float32,
     inplace: bool = False,
-) -> tuple[torch.Tensor, torch.Tensor]:
+    probe: bool = False,
+    group=None,
+):
     """Codec-level N-tier exchange over the nested dp mesh ``axes``
     (outermost first).
 
@@ -846,7 +974,14 @@ def hierarchical_sync(
     The device with flat dp rank r ends with flat chunk r, as with the
     flat exchange, so the FSDP layout is unchanged.  Error feedback
     covers stage 1 only: the new state is the flat path's, bit for bit.
-    Returns (shard (n/D,) in ``out_dtype``, new_state).
+
+    With ``probe`` (``group``: the flat dp group over all the axes) also
+    returns the reference stack ``(3 + tiers - 1, n/D)``: the base rows of
+    the stage-1 encode in one reduce-scatter over ``group``, then after
+    each non-final tier's (cadence-selected) output the exact mean over
+    the axes not crossed yet, scattered down to this rank's final chunk,
+    so consecutive references telescope.
+    Returns (shard (n/D,) in ``out_dtype``, new_state[, refs]).
     """
     tiers = loco_lib.sync_schedule(cfg)
     _check_hier_axes(axes, len(tiers))
@@ -862,6 +997,11 @@ def hierarchical_sync(
         wire, new_state = codec.encode(g, state, gen, inplace=inplace)
         shapes1 = codec.wire_shapes(n)
         wire1 = _regroup_wire(codec, wire, n, rem, Dd)
+    refs = None
+    if probe:
+        if group is None:
+            raise ValueError("the hierarchical probe needs the flat dp group")
+        refs = [_probe_refs(codec, g, wire, group)]
     with PROF.phase("exchange"):
         recv1 = exchange_wire(wire1, shapes1, Dd, axes[-1].group)
     with PROF.phase("decode"):
@@ -880,17 +1020,28 @@ def hierarchical_sync(
             # coordinate of the remaining chunk order)
             cur = cur.reshape(rem, P, n_t // (rem * P))[:, ax.index] \
                 .reshape(-1)
-            continue
-        with PROF.phase("encode"):
-            wire_t, _ = codec_t.encode(cur, codec_t.init_state(n_t,
-                                                               cur.device))
-            shapes_t = codec_t.wire_shapes(n_t)
-            if rem > 1:
-                # the stage-1 interleave: this tier's peer coordinate is
-                # the fast index of the remaining chunk order
-                wire_t = _regroup_wire(codec_t, wire_t, n_t, rem, P)
-        with PROF.phase("exchange"):
-            recv_t = exchange_wire(wire_t, shapes_t, P, ax.group)
-        with PROF.phase("decode"):
-            cur = codec_t.decode_mean(recv_t)        # (n_t / P,) f32
+        else:
+            with PROF.phase("encode"):
+                wire_t, _ = codec_t.encode(cur, codec_t.init_state(
+                    n_t, cur.device))
+                shapes_t = codec_t.wire_shapes(n_t)
+                if rem > 1:
+                    # the stage-1 interleave: this tier's peer coordinate
+                    # is the fast index of the remaining chunk order
+                    wire_t = _regroup_wire(codec_t, wire_t, n_t, rem, P)
+            with PROF.phase("exchange"):
+                recv_t = exchange_wire(wire_t, shapes_t, P, ax.group)
+            with PROF.phase("decode"):
+                cur = codec_t.decode_mean(recv_t)    # (n_t / P,) f32
+        if probe and t < len(tiers) - 1:
+            # the exact mean over the axes still uncrossed, scattered down
+            # to my final chunk (rank-major chunk order matches the
+            # remaining legs' delivery)
+            with PROF.phase("probe"):
+                ref = cur
+                for outer in axes[:len(axes) - 2 - t]:
+                    ref = psum_scatter_flat(ref, outer.group)
+                refs.append(divide(ref, rem)[None])
+    if probe:
+        return cur.to(out_dtype), new_state, torch.cat(refs)
     return cur.to(out_dtype), new_state

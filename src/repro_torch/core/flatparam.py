@@ -321,7 +321,8 @@ def materialize(chunk: torch.Tensor, state, info: ParamInfo,
                 cfg: SyncConfig, topo: MeshTopo,
                 compute_dtype: torch.dtype = torch.bfloat16,
                 step: int | None = None, pplan: ParamPlan | None = None,
-                coalesce: bool = True, overlap: bool = False) -> torch.Tensor:
+                coalesce: bool = True, overlap: bool = False,
+                probe: torch.Tensor | None = None) -> torch.Tensor:
     """f32 chunk -> logical bf16 tensor (FSDP gather with the LoCo backward).
 
     With a ``pplan`` the backward runs the bucketed schedule: under
@@ -329,18 +330,27 @@ def materialize(chunk: torch.Tensor, state, info: ParamInfo,
     is packed per comm group, pipelined over the plan's overlap stages
     with ``overlap``; otherwise ``state`` is the per-bucket tuple and every
     bucket syncs on its own (``overlap`` has nothing to pipeline there).
+
+    ``probe`` (fidelity-probe steps): an f32 ``(K, chunklen)`` buffer the
+    backward adds the reference stack into (fp params take none).  It
+    requires ``overlap=False``: the probe runs the flat schedule, which
+    gives the pipelined one's bits.
     """
     w = chunk.to(compute_dtype)
     axes = topo.axes or None
+    if probe is not None and overlap:
+        raise ValueError("fidelity probe runs the flat (non-overlapped) "
+                         "schedule")
     if info.loco and pplan is not None and coalesce:
         flat = gather_with_sync_runs(w, state, pplan, topo.group, step=step,
-                                     overlap=overlap, axes=axes)
+                                     overlap=overlap, axes=axes, probe=probe)
     elif info.loco and pplan is not None:
         flat = gather_with_sync_buckets(w, state, pplan, topo.group,
-                                        coalesce=False, step=step, axes=axes)
+                                        coalesce=False, step=step, axes=axes,
+                                        probe=probe)
     elif info.loco:
         flat = gather_with_sync(w, state, cfg, topo.group, step=step,
-                                axes=axes)
+                                axes=axes, probe=probe)
     else:
         flat = gather_fp(w, topo.group)
     n = info.numel_local(topo.tp)
@@ -363,13 +373,18 @@ class TrainStore:
     param); ``coalesce``: its packed exchange (run-space states) or one
     sync per bucket (bucket-space states); ``overlap``: the packed
     exchange pipelined over each param's overlap stages (the same bits
-    and the same state layout).
+    and the same state layout).  ``probe``: the fidelity-probe buffers,
+    ``{group: {name: (L?, K, chunklen) f32}}`` for the loco params, each
+    handed (or its layer's slice) to the param's gather
+    (:func:`materialize` refuses it with ``overlap``, as the reference
+    does).
     """
 
     def __init__(self, groups, chunks, states, cfg: SyncConfig,
                  topo: MeshTopo, compute_dtype: torch.dtype = torch.bfloat16,
                  step: int | None = None, plan: SyncPlan | None = None,
-                 coalesce: bool = True, overlap: bool = False):
+                 coalesce: bool = True, overlap: bool = False,
+                 probe: dict | None = None):
         self.groups = {g.name: g for g in groups}
         self.chunks = chunks
         self.states = states
@@ -380,20 +395,29 @@ class TrainStore:
         self.plan = plan
         self.coalesce = coalesce
         self.overlap = overlap
+        self.probe = probe
 
-    def _materialize(self, gname, info, chunk, state):
+    def _probe(self, gname, info, l=None):
+        if self.probe is None or not info.loco:
+            return None
+        buf = self.probe[gname][info.name]
+        return buf if l is None else buf[l]
+
+    def _materialize(self, gname, info, chunk, state, probe=None):
         pplan = (self.plan.lookup(gname, info.name)
                  if self.plan is not None and info.loco else None)
         return materialize(chunk, state, info, self.cfg, self.topo,
                            self.compute_dtype, step=self.step, pplan=pplan,
-                           coalesce=self.coalesce, overlap=self.overlap)
+                           coalesce=self.coalesce, overlap=self.overlap,
+                           probe=probe)
 
     def group(self, gname: str) -> dict[str, torch.Tensor]:
         g = self.groups[gname]
         if g.stacked:
             raise ValueError(f"group {gname!r} is stacked: use layer()")
         return {i.name: self._materialize(gname, i, self.chunks[gname][i.name],
-                                          self.states[gname][i.name])
+                                          self.states[gname][i.name],
+                                          self._probe(gname, i))
                 for i in g.infos}
 
     def layer(self, gname: str, l: int) -> dict[str, torch.Tensor]:
@@ -404,5 +428,6 @@ class TrainStore:
             s = self.states[gname][i.name]
             s = tuple(u[l] for u in s) if isinstance(s, tuple) else s[l]
             out[i.name] = self._materialize(
-                gname, i, self.chunks[gname][i.name][l], s)
+                gname, i, self.chunks[gname][i.name][l], s,
+                self._probe(gname, i, l))
         return out

@@ -18,6 +18,15 @@ do so per bucket or encode run.  The bf16 gradient
 reaches the codec as it is and the synced shard comes back in the
 gradient's dtype, so the backward adds no pass of its own over either.
 
+The gradient-fidelity probe (``telemetry/fidelity``) passes each gather an
+f32 probe buffer ``(K, chunklen)``: the backward then runs the sync's probe
+form (the flat schedule) and **adds** its reference stack into the
+buffer's first rows, in place, as it updates the error state; over a
+step's microbatches the buffer accumulates the references as the leaf
+accumulates the gradient.  The reference returns the stack as the
+cotangent of an extra primal, because a JAX backward has no other way
+out.  Without a buffer the backward runs exactly the non-probe code.
+
 :func:`replicated_grad_psum` is the reference's identity whose backward
 sums the gradient of a TP-replicated weight over the ``model`` group.
 """
@@ -46,31 +55,45 @@ def _reject_stochastic_rounding(cfg: SyncConfig) -> None:
             "stochastic_rounding.")
 
 
+def _add_refs(probe: torch.Tensor, refs: torch.Tensor) -> None:
+    """Accumulate a sync's reference stack into the first rows of its
+    probe buffer (deeper buffers keep their extra rows zero)."""
+    if refs.shape[0] > probe.shape[0]:
+        raise ValueError(f"{refs.shape[0]} reference rows for a probe "
+                         f"buffer of {probe.shape[0]}")
+    probe[:refs.shape[0]].add_(refs)
+
+
 class _GatherWithSync(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, w_chunk, state, cfg, group, step, axes):
-        # state is read and written in backward only: kept on ctx as is
-        # (not saved for backward) because backward updates it in place
+    def forward(ctx, w_chunk, state, cfg, group, step, axes, probe):
+        # state (and the probe buffer) are read and written in backward
+        # only: kept on ctx as they are (not saved for backward) because
+        # backward updates them in place
         ctx.state, ctx.cfg, ctx.group, ctx.step = state, cfg, group, step
-        ctx.axes = axes
+        ctx.axes, ctx.probe = axes, probe
         return all_gather_flat(w_chunk, group)
 
     @staticmethod
     def backward(ctx, g_full):
         # the synced shard is rounded to the gradient's dtype (bf16) before
         # the optimizer sees it, as in the reference
-        g_shard, new_state = dist_sync(g_full, ctx.state, ctx.cfg, ctx.group,
-                                       step=ctx.step, out_dtype=g_full.dtype,
-                                       inplace=True, axes=ctx.axes)
+        out = dist_sync(g_full, ctx.state, ctx.cfg, ctx.group,
+                        step=ctx.step, out_dtype=g_full.dtype, inplace=True,
+                        axes=ctx.axes, probe=ctx.probe is not None)
+        g_shard, new_state = out[0], out[1]
         if new_state is not ctx.state:
             ctx.state.copy_(new_state)
-        return g_shard, None, None, None, None, None
+        if ctx.probe is not None:
+            _add_refs(ctx.probe, out[2])
+        return g_shard, None, None, None, None, None, None
 
 
 def gather_with_sync(w_chunk: torch.Tensor, state: torch.Tensor,
                      cfg: SyncConfig, group,
                      step: int | None = None,
-                     axes: tuple | None = None) -> torch.Tensor:
+                     axes: tuple | None = None,
+                     probe: torch.Tensor | None = None) -> torch.Tensor:
     """FSDP all-gather whose backward runs the configured sync strategy.
 
     w_chunk: (n/D,) local flat parameter chunk (bf16 on the wire)
@@ -79,31 +102,40 @@ def gather_with_sync(w_chunk: torch.Tensor, state: torch.Tensor,
     step:    step index for the cadence gate (None = step 0).
     axes:    the dp mesh axes a hierarchical config exchanges over
              (``comm.MeshAxis``, outermost first; None: one flat axis).
+    probe:   an f32 ``(K, chunklen)`` buffer the backward adds the
+             fidelity reference stack into (None: no probe).
     """
     _reject_stochastic_rounding(cfg)
     return _GatherWithSync.apply(w_chunk, state, cfg, group,
-                                 0 if step is None else step, axes)
+                                 0 if step is None else step, axes, probe)
 
 
 class _GatherWithSyncPlan(torch.autograd.Function):
     """Gather whose backward runs ``sync``, a bucketed sync of one
     ParamPlan (:func:`~repro_torch.core.comm.dist_sync_runs` or
     ``dist_sync_buckets`` with the plan and group bound), and stores each
-    unit's new state in its buffer where the encode kernel did not."""
+    unit's new state in its buffer where the encode kernel did not; with
+    a probe buffer it runs the sync's probe form and adds the references
+    into the buffer."""
 
     @staticmethod
-    def forward(ctx, w_chunk, states, sync, group, step):
+    def forward(ctx, w_chunk, states, sync, group, step, probe):
         ctx.states, ctx.sync, ctx.step = states, sync, step
+        ctx.probe = probe
         return all_gather_flat(w_chunk, group)
 
     @staticmethod
     def backward(ctx, g_full):
-        g_shard, new_states = ctx.sync(g_full, ctx.states, step=ctx.step,
-                                       out_dtype=g_full.dtype, inplace=True)
+        out = ctx.sync(g_full, ctx.states, step=ctx.step,
+                       out_dtype=g_full.dtype, inplace=True,
+                       probe=ctx.probe is not None)
+        g_shard, new_states = out[0], out[1]
         for st, ns in zip(ctx.states, new_states):
             if ns is not st:
                 st.copy_(ns)
-        return g_shard, None, None, None, None
+        if ctx.probe is not None:
+            _add_refs(ctx.probe, out[2])
+        return g_shard, None, None, None, None, None
 
 
 def _reject_plan_stochastic_rounding(plan: ParamPlan) -> None:
@@ -115,7 +147,9 @@ def gather_with_sync_buckets(w_chunk: torch.Tensor, states: tuple,
                              plan: ParamPlan, group, coalesce: bool = True,
                              step: int | None = None,
                              overlap: bool = False,
-                             axes: tuple | None = None) -> torch.Tensor:
+                             axes: tuple | None = None,
+                             probe: torch.Tensor | None = None
+                             ) -> torch.Tensor:
     """FSDP all-gather whose backward runs the bucketed sync schedule.
 
     w_chunk: (C,) local flat parameter chunk (C = plan.chunklen)
@@ -127,31 +161,34 @@ def gather_with_sync_buckets(w_chunk: torch.Tensor, states: tuple,
     overlap: pipeline the packed exchange over the plan's overlap stages
              (requires ``coalesce``; the same bits).
     axes:    as in :func:`gather_with_sync`, for hierarchical buckets.
+    probe:   as in :func:`gather_with_sync` (requires ``overlap=False``).
     """
     _reject_plan_stochastic_rounding(plan)
     sync = functools.partial(dist_sync_buckets, plan=plan, group=group,
                              coalesce=coalesce, overlap=overlap, axes=axes)
     return _GatherWithSyncPlan.apply(w_chunk, tuple(states), sync, group,
-                                     0 if step is None else step)
+                                     0 if step is None else step, probe)
 
 
 def gather_with_sync_runs(w_chunk: torch.Tensor, run_states: tuple,
                           plan: ParamPlan, group,
                           step: int | None = None,
                           overlap: bool = False,
-                          axes: tuple | None = None) -> torch.Tensor:
+                          axes: tuple | None = None,
+                          probe: torch.Tensor | None = None) -> torch.Tensor:
     """FSDP all-gather whose backward runs the coalesced bucketed schedule
     over run-space compressor states (one buffer per encode run, updated
     in place by the backward); the same result as
     :func:`gather_with_sync_buckets` in another state layout.  ``overlap``
     pipelines it within this one backward over the plan's overlap stages
-    (:func:`~repro_torch.core.comm.dist_sync_runs`); ``axes`` as in
-    :func:`gather_with_sync`."""
+    (:func:`~repro_torch.core.comm.dist_sync_runs`); ``axes`` and
+    ``probe`` as in :func:`gather_with_sync` (a probe runs the flat
+    schedule: ``overlap`` must be off)."""
     _reject_plan_stochastic_rounding(plan)
     sync = functools.partial(dist_sync_runs, plan=plan, group=group,
                              overlap=overlap, axes=axes)
     return _GatherWithSyncPlan.apply(w_chunk, tuple(run_states), sync, group,
-                                     0 if step is None else step)
+                                     0 if step is None else step, probe)
 
 
 class _GatherFp(torch.autograd.Function):

@@ -10,7 +10,9 @@ global arrays over its ``(data, model)`` mesh; the rank at data index
   (``C = padlen / dp``, ``padlen`` that of the TP-local slice), and
   likewise each Adam moment;
 * compressor state ``[..., m, r, :]`` of the ``(L?, TP, D, padlen)`` state
-  (under a sync plan, of each state unit's ``(L?, TP, D, n)`` array).
+  (under a sync plan, of each state unit's ``(L?, TP, D, n)`` array);
+* the MoE combine residuals of ``block8+ef`` (``states["_moe_a2a"]["ef"]``)
+  ``[:, r:r+1, m:m+1, :]`` of the ``(L, D, TP, n)`` array.
 
 float8_e4m3fn and bfloat16 arrays (numpy's ``ml_dtypes`` types) cross as
 raw bytes and are viewed as the torch dtype, so the values are exact.  Both
@@ -65,5 +67,9 @@ def from_reference(chunks, states, opt, *, groups, rank: int, dp: int,
 
     st = {g.name: {i.name: state(states[g.name][i.name]) for i in g.infos}
           for g in groups}
+    if "_moe_a2a" in states:
+        ef = np.asarray(states["_moe_a2a"]["ef"])
+        st["_moe_a2a"] = {"ef": to_torch(
+            ef[:, rank:rank + 1, tp_rank:tp_rank + 1, :], device)}
     return TrainState(chunk_tree(chunks), st,
                       tuple(chunk_tree(t) for t in opt))

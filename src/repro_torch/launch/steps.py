@@ -22,6 +22,20 @@ compression-health metrics (``telemetry/metrics``) from the pre-clip
 synced gradients, the pre-reset error states and the update, and sends
 their sums with the loss in its one all-reduce.
 
+Under ``RunConfig.fidelity_every = N`` every step with ``step % N == N -
+1`` is a probe step (``telemetry/fidelity``): it runs the flat sync
+schedule (the overlapped one's bits), hands each loco gather a zero f32
+probe buffer, which the backwards fill with reference stacks summed over
+the microbatches, and sends the fidelity sums behind the metric sums in
+the same all-reduce; the syncs' reference reduces are its only extra
+collectives.  Every other step runs the code of a run without probes.
+
+A MoE model with the ``block8+ef`` activation codec carries its combine
+residuals in ``states["_moe_a2a"]["ef"]``, ``(n_layers, 1, 1, state_len)``
+bf16: each microbatch's forward reads it and the step stores the new
+stack after that microbatch's backward (the recomputed forward of a
+remat layer reads the same stack).
+
 Each step makes the f32 master chunks autograd leaves (one per layer for
 stacked groups, so each layer's synced shard lands in its own ``.grad``),
 runs the microbatches, and writes the new chunks, optimizer moments and
@@ -36,18 +50,20 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.configs.base import ArchConfig, ShapeConfig
+from repro_torch.core import act_comm as ACT
 from repro_torch.core import buckets as BK
 from repro_torch.core import codec as codec_lib
 from repro_torch.core import flatparam as FP
 from repro_torch.core import loco as loco_lib
 from repro_torch.core import policy as POL
 from repro_torch.core import wirepack as WP
-from repro_torch.core.comm import divide
+from repro_torch.core.comm import divide, sum_f64
 from repro_torch.core.flatparam import MeshTopo
 from repro_torch.core.loco import SyncConfig, maybe_reset
 from repro_torch.models.transformer import DecoderLM, build_groups
 from repro_torch.optim import optimizers as OPT
 from repro_torch.optim.schedules import make_schedule
+from repro_torch.telemetry import fidelity as FID
 from repro_torch.telemetry import metrics as METRICS
 from repro_torch.telemetry import profiler as PROF
 
@@ -86,6 +102,10 @@ class RunConfig:
     # collective of their own: the packed vector rides the loss's one
     # all-reduce.
     telemetry: bool = False
+    # Gradient-fidelity probe cadence (telemetry/fidelity): steps with
+    # step % N == N - 1 also measure the synced gradient against the
+    # exact mean; 0 = never.  The other steps are those of a run without.
+    fidelity_every: int = 0
 
     def wants_buckets(self) -> bool:
         return self.bucket_bytes > 0 or self.policy is not None
@@ -102,18 +122,46 @@ def build_sync_plan(run: RunConfig, groups,
     return BK.make_sync_plan(groups, topo, bcfg, pol)
 
 
+def is_probe_step(run: RunConfig, step: int) -> bool:
+    """Is ``step`` a fidelity-probe step (the last of each period)?"""
+    n = run.fidelity_every
+    return n > 0 and step % n == n - 1
+
+
+def ef_state_len(cfg: ArchConfig, run: RunConfig, shape: ShapeConfig,
+                 topo: MeshTopo) -> int:
+    """Length of one layer's MoE combine EF residual (0 without one): the
+    exchange of one microbatch's tokens."""
+    if not ACT.wants_ef(cfg):
+        return 0
+    micro = min(run.microbatch, shape.global_batch // topo.dp)
+    return ACT.ef_state_len(cfg, micro * shape.seq_len, topo.tp)
+
+
 def state_fingerprint(run: RunConfig, groups, topo: MeshTopo,
-                      plan: "BK.SyncPlan | None") -> dict:
+                      plan: "BK.SyncPlan | None",
+                      arch: "ArchConfig | None" = None,
+                      shape: "ShapeConfig | None" = None) -> dict:
     """Layout fingerprint of this run's train state, built from the
     *target* plan before any restore, so the checkpoint layer can compare
     it against the stored one and reshard (or fail loudly).  The state
     units follow ``run.coalesce``; the overlap schedule changes nothing.
-    Equal, as JSON, to the reference's fingerprint of the same run (which
-    adds a ``moe_a2a`` key only for ``block8+ef``, refused in the port)."""
+    Given ``arch`` and ``shape``, a model with the ``block8+ef`` residual
+    adds its geometry under ``moe_a2a``, so a codec flip or a resize is a
+    named mismatch.  Equal, as JSON, to the reference's fingerprint of the
+    same run."""
     from repro_torch.state import build_fingerprint
 
-    return build_fingerprint(groups, topo, run.sync, plan,
-                             coalesce=run.coalesce)
+    fp = build_fingerprint(groups, topo, run.sync, plan,
+                           coalesce=run.coalesce)
+    if arch is not None and shape is not None and ACT.wants_ef(arch):
+        fp["moe_a2a"] = {
+            "codec": arch.moe_a2a_codec,
+            "layers": arch.n_layers,
+            "state_len": ef_state_len(arch, run, shape, topo),
+            "dtype": "bfloat16",
+        }
+    return fp
 
 
 def _validate_sync_configs(run: RunConfig, plan: "BK.SyncPlan | None",
@@ -150,6 +198,15 @@ def _validate_sync_configs(run: RunConfig, plan: "BK.SyncPlan | None",
             loco_lib.validate_cadence(c)
         except ValueError as e:
             raise ValueError(f"{where}: {e}") from None
+        if run.fidelity_every > 0 and c.strategy != "fp" and c.every > 1:
+            raise ValueError(
+                f"{where}: the fidelity probe cannot meter a tier-0 sync "
+                f"cadence (every={c.every}): off-cadence steps return the "
+                "accumulator instead of a synced gradient, so probe "
+                "references and the synced shard would describe different "
+                "steps. Drop --fidelity-every or the cadence (outer-tier "
+                "cadence is fine — references are taken after the tier "
+                "select).")
         if c.hierarchical:
             _validate_tiers(where, c, run, plan, topo)
     if plan is not None and run.coalesce:
@@ -263,12 +320,50 @@ def _make_opt(run: RunConfig) -> OPT.Optimizer:
     return OPT.OPTIMIZERS[name](**kw)
 
 
+def _probe_shapes(groups, sync: SyncConfig, plan: "BK.SyncPlan | None",
+                  topo: MeshTopo, coalesce: bool) -> dict:
+    """Probe-buffer shape per loco param: ``(L?, K, chunklen)`` f32, K the
+    rows its schedule emits (3 base rows; the monolithic multi-tier sync
+    one more per non-final tier; per-bucket plans the deepest bucket's;
+    the coalesced schedule 3, its in-plan tiers emitting none)."""
+    out = {}
+    for g in groups:
+        og = {}
+        for info in g.infos:
+            if not info.loco:
+                continue
+            if plan is None:
+                rows = FID.probe_rows(sync)
+            elif coalesce:
+                rows = 3
+            else:
+                pp = plan.lookup(g.name, info.name)
+                rows = max(FID.probe_rows(b.sync) for b in pp.buckets)
+            shp = (rows, info.chunklen(topo.tp, topo.dp))
+            og[info.name] = ((g.n_layers,) + shp) if g.stacked else shp
+        out[g.name] = og
+    return out
+
+
 def make_init(cfg: ArchConfig, run: RunConfig, topo: MeshTopo,
-              device: torch.device, seed: int = 0) -> TrainState:
+              device: torch.device, seed: int = 0,
+              shape: "ShapeConfig | None" = None) -> TrainState:
+    """This rank's initial train state.  A ``block8+ef`` MoE model adds
+    its zero combine residuals under ``states["_moe_a2a"]``, which are
+    activation-shaped: it needs the train ``shape``."""
     groups = build_groups(cfg, topo.tp)
     chunks, states = FP.init_train_state(
         groups, run.sync, topo, device, seed,
         plan=build_sync_plan(run, groups, topo), coalesce=run.coalesce)
+    if ACT.wants_ef(cfg):
+        if shape is None:
+            raise ValueError(
+                "moe_a2a_codec='block8+ef' carries an activation-shaped "
+                "error state; pass the train ShapeConfig to make_init "
+                "(make_init(cfg, run, topo, device, seed, shape)).")
+        states[ACT.EF_STATE_KEY] = {"ef": torch.zeros(
+            (cfg.n_layers, 1, 1, ef_state_len(cfg, run, shape, topo)),
+            dtype=torch.bfloat16, device=device)}
     return TrainState(chunks, states, _make_opt(run).init(chunks))
 
 
@@ -276,8 +371,8 @@ def reset_states(states: dict, step: int, groups, run: RunConfig,
                  plan: "BK.SyncPlan | None") -> dict:
     """Error reset (Eqn. 7) per state unit, each under its own resolved
     config (under the coalesced runtime a unit is one encode run, whose
-    members share one config); the dummy states of non-loco params are
-    left alone."""
+    members share one config); the dummy states of non-loco params and
+    the MoE combine residuals are left alone."""
     out = {}
     for g in groups:
         og = {}
@@ -293,6 +388,8 @@ def reset_states(states: dict, step: int, groups, run: RunConfig,
             else:
                 og[info.name] = s
         out[g.name] = og
+    if ACT.EF_STATE_KEY in states:
+        out[ACT.EF_STATE_KEY] = states[ACT.EF_STATE_KEY]
     return out
 
 
@@ -323,6 +420,26 @@ def _grads(leaves: dict, groups, accum: int) -> dict:
     return out
 
 
+def grad_norm(grads: dict, groups, topo: MeshTopo,
+              device: torch.device) -> torch.Tensor:
+    """The pre-clip global gradient norm over the dp x tp ranks.  Each
+    leaf's squares are summed in f64 (a replicated leaf's divided by tp
+    first, as the reference orders it: every model rank holds it), the
+    local total is rounded once to f32 and all-reduced, and the root is
+    correctly rounded: the CPU's bits on the card."""
+    local = torch.zeros((), dtype=torch.float64, device=device)
+    for g in groups:
+        for info in g.infos:
+            x = grads[g.name][info.name]
+            s2 = sum_f64(x, x)
+            if info.tp_dim is None and topo.tp > 1:
+                s2 = divide(s2, topo.tp)
+            local = local + s2
+    local_sq = local.float()
+    dist.all_reduce(local_sq, group=topo.world)
+    return OPT._sqrt(local_sq)
+
+
 def make_train_step(cfg: ArchConfig, run: RunConfig, topo: MeshTopo,
                     device: torch.device, shape: ShapeConfig):
     """Returns ``step_fn(state, step, batch) -> metrics``.
@@ -337,7 +454,8 @@ def make_train_step(cfg: ArchConfig, run: RunConfig, topo: MeshTopo,
     and are divided by dp * tp like it.  Under ``run.telemetry`` the
     metrics of ``telemetry/metrics.metric_keys`` join them (0-dim CPU
     tensors): their sums ride the same all-reduce, undivided, and are
-    finalized on the host.
+    finalized on the host.  A probe step (``is_probe_step``) adds the
+    ``telemetry/fidelity.fidelity_keys`` the same way.
     """
     model = DecoderLM(cfg, topo.tp, model_group=topo.model, sp=True)
     moe_metrics = bool(cfg.n_experts)
@@ -361,21 +479,48 @@ def make_train_step(cfg: ArchConfig, run: RunConfig, topo: MeshTopo,
             for g in groups}
     munits = (METRICS.metric_units(groups, sync, plan, topo, run.coalesce)
               if run.telemetry else ())
+    funits, probe_shapes = (), None
+    if run.fidelity_every > 0:
+        funits = FID.fidelity_units(groups, sync, plan, topo, run.coalesce)
+        if not funits:
+            raise ValueError(
+                "fidelity_every > 0 has nothing to probe: every sync unit "
+                "is the fp baseline (exact by construction). Drop "
+                "--fidelity-every or give at least one unit a wire codec.")
+        probe_shapes = _probe_shapes(groups, sync, plan, topo, run.coalesce)
+    with_ef = ACT.wants_ef(cfg)
 
     def step_fn(ts: TrainState, step: int, batch: dict) -> dict:
         rows = batch["tokens"][topo.rank * local_batch:
                                (topo.rank + 1) * local_batch]
         mbs = rows.to(device).reshape(accum, micro, -1)
         leaves = _leaves(ts.chunks, groups)
+        probe = is_probe_step(run, step)
+        pbufs = None
+        if probe:
+            # zero reference buffers; every loco gather's backward adds
+            # its stack in, summed over the microbatches
+            pbufs = {gn: {n: torch.zeros(shp, dtype=torch.float32,
+                                         device=device)
+                          for n, shp in og.items()}
+                     for gn, og in probe_shapes.items()}
+        ef = (ts.states[ACT.EF_STATE_KEY]["ef"].view(cfg.n_layers, -1)
+              if with_ef else None)
         losses, mvs = [], []
         for i in range(accum):
             store = FP.TrainStore(groups, leaves, ts.states, sync, topo,
                                   step=step, plan=plan,
                                   coalesce=run.coalesce,
-                                  overlap=run.overlap)
+                                  overlap=run.overlap and not probe,
+                                  probe=pbufs)
+            kw = {} if ef is None else {"moe_a2a_state": ef}
             loss, aux = model.loss_fn(store, {"tokens": mbs[i]},
-                                      remat=run.remat)
+                                      remat=run.remat, **kw)
             loss.backward()
+            if ef is not None:
+                # the microbatch's new residuals, stored once: the
+                # recomputed forwards of the backward read the old ones
+                ef.copy_(aux["moe_a2a_state"])
             losses.append(loss.detach())
             if moe_metrics:
                 mvs.append(torch.stack([aux["aux"], aux["z"]]).detach())
@@ -383,23 +528,25 @@ def make_train_step(cfg: ArchConfig, run: RunConfig, topo: MeshTopo,
         del leaves
 
         # ---- global grad-norm clip (TP replication-aware) -------------------
-        local_sq = torch.zeros((), dtype=torch.float32, device=device)
-        for g in groups:
-            for info in g.infos:
-                s2 = torch.sum(grads[g.name][info.name] ** 2)
-                if info.tp_dim is None and topo.tp > 1:
-                    s2 = divide(s2, topo.tp)  # every model rank holds it
-                local_sq = local_sq + s2
-        dist.all_reduce(local_sq, group=topo.world)
-        gnorm = torch.sqrt(local_sq)
+        gnorm = grad_norm(grads, groups, topo, device)
         if run.telemetry:
             # the pre-clip synced gradients and the pre-reset states
             with PROF.phase("metrics"):
                 mrows = METRICS.unit_rows(munits, grads, ts.states, topo.tp,
                                           device)
+        fvec = None
+        if probe:
+            # the references average over the microbatches like the
+            # gradient: the fidelity of the step's synced mean
+            with PROF.phase("probe"):
+                for og in pbufs.values():
+                    for b in og.values():
+                        b.copy_(divide(b, accum))
+                fvec = FID.local_vector(funits, grads, pbufs, topo.tp,
+                                        device)
+            del pbufs
         if run.clip_norm:
-            cs = torch.clamp(run.clip_norm / torch.clamp(gnorm, min=1e-12),
-                             max=1.0)
+            cs = OPT.clip_scale(gnorm, run.clip_norm)
             grads = OPT.tree_map(lambda g: g * cs, grads)
 
         lr = sched(step)
@@ -422,16 +569,24 @@ def make_train_step(cfg: ArchConfig, run: RunConfig, topo: MeshTopo,
         n_mean = sum(p.numel() for p in parts)
         if mvec is not None:
             parts.append(mvec)
+        if fvec is not None:
+            parts.append(fvec)
         packed = torch.cat(parts)
         dist.all_reduce(packed, group=topo.world)
         # the loss and router losses are means over the ranks; the metric
-        # sums stay sums
+        # and fidelity sums stay sums
         means = divide(packed[:n_mean], topo.dp * topo.tp)
         metrics = {"loss": means[0], "gnorm": gnorm, "lr": lr}
         if moe_metrics:
             metrics["moe_aux"], metrics["moe_z"] = means[1], means[2]
+        tail = (packed[n_mean:].cpu()
+                if mvec is not None or fvec is not None else None)
+        off = 0
         if mvec is not None:
-            metrics.update(METRICS.finalize(packed[n_mean:].cpu(), munits))
+            metrics.update(METRICS.finalize(tail[:mvec.numel()], munits))
+            off = mvec.numel()
+        if fvec is not None:
+            metrics.update(FID.finalize(tail[off:], funits))
         return metrics
 
     return step_fn

@@ -56,13 +56,22 @@ as the reference registers no kernel for them.  MoE models on the
 it) streams the reference's header, wire-report, step, warning and
 summary records, a step record every ``--metrics-every`` steps, written
 by world rank 0; ``--profile-steps N:M`` writes a ``torch.profiler``
-Chrome trace of steps N..M into ``--profile-dir``.
+Chrome trace of steps N..M into ``--profile-dir``.  ``--fidelity-every N``
+makes every step with ``step % N == N - 1`` a gradient-fidelity probe
+(``telemetry/fidelity``): its log line adds ``fid_cos=`` and
+``comp_gain=``, and with ``--metrics-jsonl`` world rank 0 writes a
+``fidelity`` record of it; the other steps are those of a run without
+probes.  ``--moe-a2a block8+ef`` adds error feedback to the MoE combine.
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch llama2-400m \\
       --reduced --steps 3 --seq-len 32 --global-batch 8 --device cpu \\
       --optimizer lamb --schedule wsd --metrics-jsonl /tmp/run.jsonl
   PYTHONPATH=src python -m repro_torch.telemetry.sink /tmp/run.jsonl \\
       --expect-healthy
+
+  PYTHONPATH=src python -m repro_torch.launch.train --arch llama2-400m \\
+      --reduced --steps 4 --seq-len 32 --global-batch 8 --microbatch 2 \\
+      --device cpu --fidelity-every 2 --metrics-jsonl /tmp/fid.jsonl
 """
 from __future__ import annotations
 
@@ -83,8 +92,9 @@ from repro_torch.core.quantizer import QuantConfig
 from repro_torch.data.synthetic import DataConfig, make_batch_fn
 from repro_torch.launch import mesh
 from repro_torch.launch.steps import (RunConfig, build_sync_plan,
-                                      groups_inflight, make_init,
-                                      make_train_step, state_fingerprint)
+                                      groups_inflight, is_probe_step,
+                                      make_init, make_train_step,
+                                      state_fingerprint)
 from repro_torch.models.transformer import build_groups
 from repro_torch.optim.optimizers import OPTIMIZERS
 from repro_torch.optim.schedules import SCHEDULES
@@ -128,11 +138,14 @@ def build_args(argv=None):
                     choices=["f8", "bf16", "none"],
                     help="storage of the LoCo compensation error (none = "
                          "f32)")
-    ap.add_argument("--moe-a2a", default=None, choices=["fp", "block8"],
+    ap.add_argument("--moe-a2a", default=None,
+                    choices=["fp", "block8", "block8+ef"],
                     help="codec for the ep_a2a MoE dispatch/combine "
                          "all-to-all (core/act_comm): fp = raw bf16, "
-                         "block8 = stateless int8 block-absmax fwd+bwd "
-                         "(default: the config's own)")
+                         "block8 = stateless int8 block-absmax fwd+bwd, "
+                         "block8+ef = block8 plus a persistent "
+                         "combine-side error-feedback residual (default: "
+                         "the config's own)")
     ap.add_argument("--bucket-mb", type=float, default=0.0,
                     help="bucketed sync: target MiB of fp32 gradient per "
                          "bucket (0 = monolithic path)")
@@ -165,6 +178,13 @@ def build_args(argv=None):
     ap.add_argument("--metrics-every", type=int, default=0,
                     help="step record cadence for --metrics-jsonl "
                          "(0 = follow --log-every)")
+    ap.add_argument("--fidelity-every", type=int, default=0,
+                    help="gradient-fidelity probe cadence: every N-th step "
+                         "also reduces the exact f32 mean gradient and "
+                         "reports per-unit cosine / relative-L2 / "
+                         "compensation-gain metrics with per-tier "
+                         "attribution (0 = never; the other steps are "
+                         "bit- and launch-identical to 0)")
     ap.add_argument("--profile-steps", default=None, metavar="N[:M]",
                     help="write a torch.profiler Chrome trace of the "
                          "inclusive step window N:M (loco/* ranges name "
@@ -217,7 +237,8 @@ def make_run(args) -> RunConfig:
                      bucket_bytes=int(args.bucket_mb * (1 << 20)),
                      policy=policy, coalesce=args.coalesce,
                      overlap=args.overlap,
-                     telemetry=args.telemetry or bool(args.metrics_jsonl))
+                     telemetry=args.telemetry or bool(args.metrics_jsonl),
+                     fidelity_every=args.fidelity_every)
 
 
 def make_cfg(args):
@@ -245,10 +266,11 @@ def _header(args, fingerprint: dict, topo: MeshTopo,
 
 def main(argv=None) -> dict:
     """Train; returns ``{"losses": [...], "moe_aux": [...], "moe_z": [...],
-    "tok_per_s": float | None, "peak_mem_bytes": int | None, "start": int,
-    "trace": dict | None}`` (losses of the steps this run took, from
-    ``start``, the restored step or 0; router losses per step for MoE
-    models, else empty; tok/s over the steps after the first; peak device
+    "fidelity": [...], "tok_per_s": float | None, "peak_mem_bytes": int |
+    None, "start": int, "trace": dict | None}`` (losses of the steps this
+    run took, from ``start``, the restored step or 0; router losses per
+    step for MoE models, else empty; the fidelity metrics of each logged
+    probe step; tok/s over the steps after the first; peak device
     memory on a card; with ``--profile-steps``, the window's
     ``profiler.window_summary`` and its trace's path)."""
     args = build_args(argv)
@@ -261,6 +283,7 @@ def main(argv=None) -> dict:
                                         seed=args.seed))
     cuda = device.type == "cuda"
     losses: list[float] = []
+    fidelity: list[dict] = []
     router: dict[str, list[float]] = {"moe_aux": [], "moe_z": []}
     metrics_every = args.metrics_every or args.log_every
     with mesh.dp_group(device):
@@ -279,10 +302,10 @@ def main(argv=None) -> dict:
         if moe_rep is not None:
             print(WIRE.format_moe_a2a(moe_rep), flush=True)
         inflight = groups_inflight(run, plan, topo)
-        state = make_init(cfg, run, topo, device, args.seed)
+        state = make_init(cfg, run, topo, device, args.seed, shape)
         # the *target* plan's fingerprint, built before any restore: a
         # layout change either reshards explicitly or fails loudly
-        ckpt_fp = state_fingerprint(run, groups, topo, plan)
+        ckpt_fp = state_fingerprint(run, groups, topo, plan, cfg, shape)
         start = 0
         if args.ckpt_dir:
             latest = CKPT.resume(args.ckpt_dir, state, topo,
@@ -331,10 +354,17 @@ def main(argv=None) -> dict:
                 log_step = step % args.log_every == 0 or last
                 sink_step = sink is not None and (
                     step % metrics_every == 0 or last)
-                if log_step or sink_step:
+                probe = is_probe_step(run, step)
+                if log_step or sink_step or probe:
                     gnorm, lr = float(m["gnorm"]), float(m["lr"])
                     extra = {k: float(v) for k, v in m.items()
                              if k not in ("loss", "gnorm", "lr")}
+                    fid = {k: extra.pop(k) for k in list(extra)
+                           if k.startswith("fidelity/") or "/fid_" in k}
+                    if fid:
+                        fidelity.append(fid)
+                    if sink is not None and probe and fid:
+                        sink.fidelity(step, metrics=fid)
                     peak_err = max(peak_err, extra.get("err_norm", 0.0))
                     if sink_step:
                         sink.step(step, loss=loss, gnorm=gnorm, lr=lr,
@@ -349,6 +379,10 @@ def main(argv=None) -> dict:
                                       for k, v in router.items() if v)
                         err = (f" err_norm={extra['err_norm']:.3e}"
                                if "err_norm" in extra else "")
+                        if fid:
+                            err += (f" fid_cos={fid['fidelity/cos']:.4f}"
+                                    " comp_gain="
+                                    f"{fid['fidelity/comp_gain']:.3f}")
                         print(f"step {step:5d} loss={loss:.4f} {moe}"
                               f"gnorm={gnorm:.3f} lr={lr:.2e} "
                               f"tok/s={tok_s:,.0f}{err}", flush=True)
@@ -380,7 +414,8 @@ def main(argv=None) -> dict:
                 sink.close()
     if sink is not None:
         print(f"telemetry: {sink.path}", flush=True)
-    out = {"losses": losses, **router, "tok_per_s": tok_s,
+    out = {"losses": losses, **router, "fidelity": fidelity,
+           "tok_per_s": tok_s,
            "peak_mem_bytes": peak, "start": start,
            "trace": (dict(trace.summary, path=trace.path)
                      if trace is not None and trace.summary else None)}

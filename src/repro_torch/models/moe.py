@@ -16,7 +16,8 @@ Two schedules, as in the reference:
   ``(tp, El, cap, d)`` slot buffer crosses the group by all-to-all, on
   dispatch and on combine, through :mod:`repro_torch.core.act_comm`
   (``fp``: raw bf16; ``block8``: int8 block-absmax, forward and
-  backward); an all-gather re-replicates the tokens.  At ``tp = 1`` the
+  backward; ``block8+ef``: block8 with an error-feedback residual on the
+  combine); an all-gather re-replicates the tokens.  At ``tp = 1`` the
   group has one rank and the exchange moves nothing, but the block8
   quantize and dequantize run as they do in the reference.
 
@@ -141,7 +142,8 @@ def _combine(ye, slot, valid, topv, k: int):
 
 
 def moe_block(x, p, cfg, group=None, *,
-              deterministic_capacity: int | None = None, sp: bool = False):
+              deterministic_capacity: int | None = None, sp: bool = False,
+              a2a_state=None):
     """x: (B, S, d), replicated over the model group -> (y, aux losses
     {"aux", "z"}); y is (B, S, d), or under ``sp`` this rank's
     (B, S/tp, d) sequence shard of it.
@@ -151,6 +153,11 @@ def moe_block(x, p, cfg, group=None, *,
     (d, fs/tp) and ws2 (fs/tp, d) when ``cfg.n_shared_experts``.
     ``group`` is the ``model`` process group (``ep_a2a`` always needs one;
     ``tp_dense`` at tp > 1).
+
+    ``a2a_state``: this layer's flat combine-side error-feedback residual
+    (``moe_a2a_codec="block8+ef"``).  When given, the new residual rides
+    back as ``aux["a2a_state"]`` (the state itself where no EF exchange
+    runs); without it ``block8+ef`` is the stateless block8 exchange.
     """
     B, S, d = x.shape
     E, k = cfg.n_experts, cfg.top_k
@@ -169,6 +176,8 @@ def moe_block(x, p, cfg, group=None, *,
         if cfg.n_shared_experts:
             y2d = y2d + _shared_ffn(x2d, p).to(x.dtype)
         y = y2d.reshape(B, S, d)
+        if a2a_state is not None:
+            aux = {**aux, "a2a_state": a2a_state}  # no exchange here
         if tpg is None:
             return y, aux
         return (C.sp_scatter_sum(y, tpg) if sp else C.psum_tp(y, tpg)), aux
@@ -201,7 +210,14 @@ def moe_block(x, p, cfg, group=None, *,
     xe = xe.transpose(0, 1).reshape(El, tp * cap, d)
     ye = _expert_ffn(xe, p["w1"], p["w3"], p["w2"])
     ye = ye.reshape(El, tp, cap, d).transpose(0, 1)
-    ye = exchange(ye, group).reshape(E * cap, d)   # combine
+    if cfg.moe_a2a_codec == "block8+ef" and a2a_state is not None:
+        ye, a2a_state = ACT.a2a_exchange_ef(ye, a2a_state, group)
+        aux = {**aux, "a2a_state": a2a_state}
+    else:
+        ye = exchange(ye, group)                   # combine
+        if a2a_state is not None:
+            aux = {**aux, "a2a_state": a2a_state}
+    ye = ye.reshape(E * cap, d)
     ys = _combine(ye, slot, valid, topv, k)
     if cfg.n_shared_experts:
         # the shared-expert psum reduces d_ff-slice partials of the SAME

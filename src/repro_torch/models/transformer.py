@@ -16,7 +16,8 @@ its experts over the same group (:mod:`repro_torch.models.moe`).
 
 Only what llama2-400m and deepseek-v3-moe use is ported (full causal GQA
 attention, RMSNorm, SwiGLU, untied embeddings; the MoE family with the
-``fp`` and ``block8`` activation codecs); other features and families wait
+``fp``, ``block8`` and ``block8+ef`` activation codecs); other features
+and families wait
 (ROADMAP.md) and are refused at construction.
 """
 from __future__ import annotations
@@ -71,7 +72,7 @@ def check_supported(cfg: ArchConfig) -> None:
     }
     if cfg.family == "moe":
         unported["moe_a2a_codec"] = \
-            cfg.moe_a2a_codec not in ACT.PORTED_CODECS
+            cfg.moe_a2a_codec not in ACT.MOE_A2A_CODECS
         unported["moe_impl"] = cfg.moe_impl not in ("ep_a2a", "tp_dense")
     bad = [k for k, v in unported.items() if v]
     if bad:
@@ -193,16 +194,19 @@ def dense_block(p, x, cfg: ArchConfig, lay: HeadLayout, positions,
 
 
 def moe_layer(p, x, cfg: ArchConfig, lay: HeadLayout, positions, group,
-              sp: bool = False):
-    """Attention then the MoE FFN; returns (x, router aux, router z).
-    ``group``: the model group (the expert exchange runs on it also at
-    ``tp = 1``)."""
+              sp: bool = False, a2a_state=None):
+    """Attention then the MoE FFN; returns (x, router aux, router z), and
+    the layer's new combine EF residual after them when ``a2a_state`` is
+    given.  ``group``: the model group (the expert exchange runs on it
+    also at ``tp = 1``)."""
     tpg = group if C.tp_size(group) > 1 else None
     x = x + attention_block(p, x, cfg, lay, positions, tpg, sp)
     h = C.norm(cfg.norm, x, p["norm2"])
     if sp:
         h = C.sp_gather(h, tpg)
-    y, aux = MOE.moe_block(h, p, cfg, group, sp=sp)
+    y, aux = MOE.moe_block(h, p, cfg, group, sp=sp, a2a_state=a2a_state)
+    if a2a_state is not None:
+        return x + y, aux["aux"], aux["z"], aux["a2a_state"]
     return x + y, aux["aux"], aux["z"]
 
 
@@ -234,11 +238,18 @@ class DecoderLM:
         the model issues none)."""
         return self.model_group if self.tp > 1 else None
 
-    def forward(self, store, tokens, *, remat: bool = True):
+    def forward(self, store, tokens, *, remat: bool = True,
+                moe_a2a_state=None):
         """tokens: (B, S) -> (local logits (B, S, V_local), aux {"aux",
         "z"}): the router losses summed over layers (zeros for the dense
         family).  Sequence parallelism runs when ``sp``, ``tp > 1`` and
-        ``tp`` divides S, as in the reference."""
+        ``tp`` divides S, as in the reference.
+
+        ``moe_a2a_state``: the ``(n_layers, state_len)`` MoE combine EF
+        stack (``block8+ef``), read and not written; the new stack rides
+        back as ``aux["moe_a2a_state"]``.  Under ``remat`` the recomputed
+        forward reads the same stack and its new one is dropped, so the
+        caller stores the new stack once per microbatch."""
         cfg = self.cfg
         S = tokens.shape[1]
         tpg = self.tp_group
@@ -250,18 +261,24 @@ class DecoderLM:
         aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
         z = torch.zeros((), dtype=torch.float32, device=tokens.device)
 
+        ef = moe_a2a_state if cfg.family == "moe" else None
+        new_ef = []
         for l in range(cfg.n_layers):
-            def body(xc, l=l):
+            def body(xc, ef_l=None, l=l):
                 p = store.layer("block", l)
                 if cfg.family == "moe":
                     return moe_layer(p, xc, cfg, lay, positions,
-                                     self.model_group, sp)
+                                     self.model_group, sp, ef_l)
                 return dense_block(p, xc, cfg, lay, positions, tpg, sp)
 
-            out = checkpoint(body, x, use_reentrant=False) if remat else body(x)
+            args = (x,) if ef is None else (x, ef[l])
+            out = (checkpoint(body, *args, use_reentrant=False) if remat
+                   else body(*args))
             if cfg.family == "moe":
-                x, a_l, z_l = out
+                x, a_l, z_l = out[:3]
                 aux, z = aux + a_l, z + z_l
+                if ef is not None:
+                    new_ef.append(out[3])
             else:
                 x = out
 
@@ -269,14 +286,19 @@ class DecoderLM:
             x = C.sp_gather(x, tpg)  # exit sequence parallelism
         fin = store.group("final")
         x = C.norm(cfg.norm, x, fin["norm_f"])
-        return C.vocab_parallel_logits(x, fin["head"]), {"aux": aux, "z": z}
+        out_aux = {"aux": aux, "z": z}
+        if ef is not None:
+            out_aux["moe_a2a_state"] = torch.stack(new_ef)
+        return C.vocab_parallel_logits(x, fin["head"]), out_aux
 
-    def loss_fn(self, store, batch, remat: bool = True):
+    def loss_fn(self, store, batch, remat: bool = True, moe_a2a_state=None):
         """-> (total loss, {"ce", "aux", "z"}); the total adds the router
-        losses, weighted, for the MoE family."""
+        losses, weighted, for the MoE family.  With ``moe_a2a_state`` the
+        dict also holds the new EF stack under ``"moe_a2a_state"``."""
         tokens = batch["tokens"]
         inputs, targets = tokens[:, :-1], tokens[:, 1:]
-        logits, aux = self.forward(store, inputs, remat=remat)
+        logits, aux = self.forward(store, inputs, remat=remat,
+                                   moe_a2a_state=moe_a2a_state)
         loss = C.vocab_parallel_xent(logits, targets, self.cfg.vocab,
                                      self.tp_group)
         total = loss

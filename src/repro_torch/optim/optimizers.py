@@ -13,10 +13,15 @@ so the arithmetic is the reference's f32 arithmetic.
 Each leaf is one rank's whole local chunk, the ``(L, chunk)`` stack of
 every layer for stacked groups, as in the reference: LAMB's trust ratio
 and Adafactor's RMS clip are taken over that leaf, so they depend on dp
-and on the layer stacking (a reference quirk the port keeps).  The new
-optimizers divide IEEE on every device: by a device tensor, never by a
-0-dim CPU tensor or a Python scalar, which torch on CUDA turns into a
-multiply by the inverse; a mean is a sum divided so (``comm.divide``).
+and on the layer stacking (a reference quirk the port keeps).
+
+Every update gives the CPU's bits on the card.  Divisions are IEEE on
+every device: by a device tensor, never by a 0-dim CPU tensor or a Python
+scalar, which torch on CUDA turns into a multiply by the inverse; a mean
+is a sum divided so (``comm.divide``).  Roots are correctly rounded
+(:func:`_sqrt`), a reciprocal root is one divided by that root, and every
+norm and mean sums in f64 and rounds once (``comm.sum_f64``), where the
+card's f32 reductions would add in another order.
 """
 from __future__ import annotations
 
@@ -24,7 +29,7 @@ from typing import Any, Callable, NamedTuple
 
 import torch
 
-from repro_torch.core.comm import divide
+from repro_torch.core.comm import divide, sum_f64
 
 
 class Optimizer(NamedTuple):
@@ -53,10 +58,23 @@ def _on(x: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
 
 def _mean(x: torch.Tensor, dim: int | None = None,
           keepdim: bool = False) -> torch.Tensor:
-    """``jnp.mean``: the f32 sum divided by the count, one IEEE division."""
+    """``jnp.mean``: the sum, taken in f64 and rounded once to f32,
+    divided by the count, one IEEE division."""
     if dim is None:
-        return divide(torch.sum(x), x.numel())
-    return divide(torch.sum(x, dim=dim, keepdim=keepdim), x.shape[dim])
+        return divide(sum_f64(x).float(), x.numel())
+    s = torch.sum(x, dim=dim, keepdim=keepdim, dtype=torch.float64)
+    return divide(s.float(), x.shape[dim])
+
+
+def _mean_sq(x: torch.Tensor) -> torch.Tensor:
+    """``mean(x * x)`` over every element, summed as :func:`_mean`."""
+    return divide(sum_f64(x, x).float(), x.numel())
+
+
+def _norm(x: torch.Tensor) -> torch.Tensor:
+    """The L2 norm: the squares summed in f64, rounded once, then the
+    correctly rounded root."""
+    return _sqrt(sum_f64(x, x).float())
 
 
 def _sqrt(x: torch.Tensor) -> torch.Tensor:
@@ -70,7 +88,10 @@ def _sqrt(x: torch.Tensor) -> torch.Tensor:
 
 
 def _rsqrt(x: torch.Tensor) -> torch.Tensor:
-    return torch.reciprocal(torch.sqrt(x))
+    """``1 / sqrt(x)``: one IEEE division of a device-filled one by the
+    correctly rounded root."""
+    one = torch.ones((), dtype=torch.float32, device=x.device)
+    return one / _sqrt(x)
 
 
 def _apply_decay(p, g, wd, m):
@@ -159,10 +180,10 @@ def lamb(b1=0.9, b2=0.999, eps=1e-6, weight_decay=0.01) -> Optimizer:
         bc1, bc2 = _bias_corrections(step, b1, b2)
 
         def upd(p, m_, v_, mk):
-            u = ((m_ / _on(bc1, m_)) / (torch.sqrt(v_ / _on(bc2, v_)) + eps)
+            u = ((m_ / _on(bc1, m_)) / (_sqrt(v_ / _on(bc2, v_)) + eps)
                  + weight_decay * mk * p)
-            wn = torch.linalg.vector_norm(p)
-            un = torch.linalg.vector_norm(u)
+            wn = _norm(p)
+            un = _norm(u)
             trust = torch.where((wn > 0) & (un > 0),
                                 wn / torch.clamp(un, min=1e-12),
                                 torch.ones_like(wn))
@@ -174,7 +195,7 @@ def lamb(b1=0.9, b2=0.999, eps=1e-6, weight_decay=0.01) -> Optimizer:
 
 
 def _rms_clip(u: torch.Tensor, clip_threshold: float) -> torch.Tensor:
-    rms = torch.sqrt(_mean(u * u) + 1e-30)
+    rms = _sqrt(_mean_sq(u) + 1e-30)
     return u / torch.clamp(divide(rms, clip_threshold), min=1.0)
 
 
@@ -268,12 +289,23 @@ OPTIMIZERS: dict[str, Callable[..., Optimizer]] = {
 
 
 def global_grad_norm(grads) -> torch.Tensor:
-    return torch.sqrt(sum(torch.sum(g.float() ** 2)
-                          for g in tree_leaves(grads)))
+    """The global L2 norm: every leaf's squares summed in f64, the total
+    rounded once, then the correctly rounded root."""
+    total = sum(sum_f64(g, g) for g in tree_leaves(grads))
+    return _sqrt(total.float())
+
+
+def clip_scale(norm: torch.Tensor, max_norm: float) -> torch.Tensor:
+    """``min(1, max_norm / max(norm, 1e-12))``, the quotient one IEEE
+    division of a device-filled ``max_norm`` (a float over a tensor is a
+    reciprocal times the float in torch)."""
+    num = torch.full((), float(max_norm), dtype=torch.float32,
+                     device=norm.device)
+    return torch.clamp(num / torch.clamp(norm, min=1e-12), max=1.0)
 
 
 def clip_by_global_norm(grads, max_norm: float,
                         norm: torch.Tensor | None = None):
     n = global_grad_norm(grads) if norm is None else norm
-    scale = torch.clamp(max_norm / torch.clamp(n, min=1e-12), max=1.0)
+    scale = clip_scale(n, max_norm)
     return tree_map(lambda g: g * scale, grads), n

@@ -21,8 +21,9 @@ Kinds
   per step, peak error norm, warning count.
 * ``wire_report`` -- ``WireReport.record``'s envelope (static accounting).
 * ``bench``   -- a benchmark's envelope.
-* ``fidelity`` (schema v2) -- per probe step; the port has no probe yet
-  (ROADMAP item 12) but validates the kind.
+* ``fidelity`` (schema v2) -- per probe step (``--fidelity-every``): the
+  step and the flat fidelity metrics (cos / rel_l2 / comp_gain per unit
+  and global, per-stage attribution) of ``telemetry/fidelity``.
 
 v1 records of the original kinds still validate.  The validator is
 hand-rolled (no jsonschema) and doubles as a CLI::

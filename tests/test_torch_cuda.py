@@ -462,3 +462,104 @@ def test_cuda_hierarchical_sync_is_the_cpus(cuda_device, name):
     (a, b), (c, d) = out["cuda"], out["cpu"]
     assert torch.equal(a, c)
     assert torch.equal(_bytes(b), _bytes(d))
+
+
+# ---------------------------------------------------------------------------
+# lamb, adafactor and the clip: the CPU's bits on the card
+# ---------------------------------------------------------------------------
+
+def _leaves(x):
+    if isinstance(x, dict):
+        return [t for v in x.values() for t in _leaves(v)]
+    if isinstance(x, (tuple, list)):
+        return [t for v in x for t in _leaves(v)]
+    return [x]
+
+
+@pytest.mark.parametrize("step", [0, 1, 2])
+@pytest.mark.parametrize("name", ["lamb", "adafactor", "adafactor_flat"])
+def test_cuda_optimizer_update_is_the_cpus(cuda_device, name, step):
+    """One update of a 2^20-element leaf (1024 x 1024 for the factored
+    adafactor) gives the CPU's parameters and state bit for bit: roots are
+    correctly rounded (``optimizers._sqrt``), a reciprocal root is one
+    divided by the root, and lamb's norms and adafactor's means and RMS
+    sum in f64 and round once."""
+    from repro_torch.optim import optimizers as OPT
+
+    gen = torch.Generator().manual_seed(23 + step)
+    shape = (1024, 1024)
+    p, g = (torch.randn(shape, generator=gen) for _ in range(2))
+    m = torch.randn(shape, generator=gen) * 1e-2
+    v = torch.randn(shape, generator=gen).abs() * 1e-2
+    flat = name != "adafactor"
+
+    def tree(x, dev):
+        return {"g": {"w": (x.reshape(-1) if flat else x).to(dev)}}
+
+    def update(dev):
+        state = {"lamb": lambda: (tree(m, dev), tree(v, dev)),
+                 "adafactor_flat": lambda: (tree(v, dev),),
+                 "adafactor": lambda: ((v[:, 0].to(dev), v[0].to(dev)),),
+                 }[name]()
+        new, st = OPT.OPTIMIZERS[name]().update(
+            tree(g, dev), state, tree(p, dev), torch.tensor(step),
+            torch.tensor(1e-3), {"g": {"w": 1.0}})
+        return [t.cpu() for t in _leaves(new) + _leaves(st)]
+
+    for a, b in zip(update(cuda_device), update(torch.device("cpu"))):
+        assert torch.equal(a, b)
+
+
+def test_cuda_grad_norm_and_clip_scale_are_the_cpus(cuda_device):
+    """The step's pre-clip norm (``steps.grad_norm``: every leaf's squares
+    summed in f64, rounded once, the correctly rounded root) and the clip
+    scale (one IEEE division of a device-filled clip norm) over a 2^20-
+    element leaf and a stacked one give the CPU's bits; torch's own f32
+    norm on the card may not."""
+    from repro_torch.core.flatparam import MeshTopo, ParamGroup, ParamInfo
+    from repro_torch.launch import mesh, steps
+    from repro_torch.optim import optimizers as OPT
+
+    groups = [ParamGroup("a", (ParamInfo("w", (1024, 1024)),)),
+              ParamGroup("b", (ParamInfo("w", (4, 512)),), n_layers=3)]
+    gen = torch.Generator().manual_seed(29)
+    grads = {"a": {"w": torch.randn(1 << 20, generator=gen)},
+             "b": {"w": torch.randn(3, 2048, generator=gen) * 1e-3}}
+    out = {}
+    for dev in (cuda_device, torch.device("cpu")):
+        tree = {g: {k: t.to(dev) for k, t in sub.items()}
+                for g, sub in grads.items()}
+        with mesh.dp_group(dev) as world:
+            gn = steps.grad_norm(tree, groups, MeshTopo.from_group(world),
+                                 dev)
+        out[dev.type] = [t.cpu() for t in (
+            gn, OPT.clip_scale(gn, 1.0), OPT.clip_scale(gn, 0.37),
+            OPT.global_grad_norm(tree))]
+    for a, b in zip(out["cuda"], out["cpu"]):
+        assert torch.equal(a, b)
+    assert torch.equal(out["cuda"][0], out["cuda"][3])
+
+
+def test_cuda_probe_reference_stack_is_the_cpus(cuda_device):
+    """A probe sync of a full-width llama2-400m tensor's length (the
+    embedding's 32,768,000 elements, bf16 gradient, f8 error) on the card:
+    the shard, the new state and the reference stack (true mean, live and
+    zero-state roundtrips) are the CPU's bit for bit."""
+    from repro_torch.core import comm
+    from repro_torch.core.loco import SyncConfig
+    from repro_torch.launch import mesh
+
+    n = 32_768_000
+    gen = torch.Generator().manual_seed(31)
+    g = (torch.randn(n, generator=gen) * 1e-3).to(torch.bfloat16)
+    st = (torch.randn(n, generator=gen) * 100).clamp(-448, 448).to(
+        torch.float8_e4m3fn)
+    out = {}
+    for dev in (cuda_device, torch.device("cpu")):
+        with mesh.dp_group(dev) as world:
+            got = comm.dist_sync(g.to(dev), st.to(dev), SyncConfig(), world,
+                                 probe=True)
+        out[dev.type] = [t.cpu() for t in got]
+    for a, b in zip(out["cuda"], out["cpu"]):
+        assert a.dtype == b.dtype and torch.equal(_bytes(a), _bytes(b))
+    assert out["cuda"][2].shape == (3, n)
