@@ -12,12 +12,14 @@ Phases, in order; any failure exits non-zero and prints no result:
 2. kernels: each kernel against its plain PyTorch version on the card, bit
    for bit: ``fused_compress``/``dequant_mean`` at every segment length
    the llama2-400m, deepseek-v3-moe and bucketed llama2-400m LoCo backwards
-   give them (derived from the parameter declarations, the sync plans and
-   the overlap schedules, ``sync_runs``) in every variant of their
+   and those of paths k and l give them (derived from the parameter
+   declarations, the sync plans and the overlap schedules, ``sync_runs``;
+   262,144 to 469,762,048 elements on k and l) in every variant of their
    interface (f32 or bf16 gradient, error out of place or in place, f32 or
    bf16 shard, D = 1, 2, 4, 8), ``fused_compress`` in place into the run
    error views of path d's stage pieces, ``act_encode``/``act_decode`` at the
-   deepseek-v3-moe exchange (81,920 rows of 512), ``onebit_pack`` at the
+   deepseek-v3-moe and qwen3-moe-30b-a3b exchanges (81,920 rows of 512
+   both, ``act_row_counts``), ``onebit_pack`` at the
    onebit path's shapes; all of the LoCo and activation kernels also at
    the TP-local shapes a rank of a tp = 2 model group gives them at full
    width (from ``build_groups(cfg, 2)`` and the sync plans: 524,288,
@@ -28,7 +30,7 @@ Phases, in order; any failure exits non-zero and prints no result:
    and host time per call beside its HBM bound, the plain version's device
    time and, for ``act_decode``, the one PyTorch call that computes the same
    function;
-3. train, five paths through ``repro_torch.launch.train`` on a
+3. train, the main paths through ``repro_torch.launch.train`` on a
    world-size-1 NCCL group, each with the launch counters zeroed just
    before it and read just after:
    a. full-width llama2-400m, ``--sync loco``, 6 steps;
@@ -84,13 +86,23 @@ Phases, in order; any failure exits non-zero and prints no result:
       residual), ``act_encode`` and ``act_decode`` launched as derived
       (the residual's local decode twice more per layer and microbatch),
       the peak memory printed;
-   losses finite (and falling on a, b and d), every kernel of the path
+   k. qwen3-moe-30b-a3b at full width (d_model 2048, 32 x 128 heads over 4
+      kv heads, qk-norm, 128 experts of d_ff 768 top-8, ``ep_a2a``, vocab
+      151,936), 2 of 48 layers, ``--sync loco --moe-a2a block8``,
+      microbatch 2, 3 steps, step 2 traced;
+   l. mixtral-8x7b at full width (d_model 4096, GQA 32/8, 8 experts of
+      d_ff 14,336 top-2, ``tp_dense``, sliding window 4,096, which seq 1024
+      does not cut), 1 of 32 layers, ``--sync loco``, microbatch 2, 3
+      steps, step 2 traced; k and l print their parameters, peak memory,
+      tok/s, step 2's device busy time and the idle share;
+   losses finite (and falling on a, b, d, k and l), every kernel of the path
    launched as often as the code says (counts derived from the parameter
    declarations, the sync plan's encode runs or stage pieces and the
    layer structure, below), split by bit width, and the bucketed sync's
    packed collectives as many as its schedule has groups; each path gives
    its recorded losses bit for bit (``PARENT_LOSSES``, recorded on the
-   card once Adam divided and took its root as the CPU does), and no
+   card once Adam divided and took its root as the CPU does, and once
+   the GQA kv expansion's backward was deterministic), and no
    model-group collective or ``replicated_grad_psum`` is called;
 3b. checkpoint: path d's command at full width, cut to CKPT_LAYERS layers:
    4 steps; the same 4 steps saving every 2 (``--ckpt-dir``,
@@ -126,8 +138,14 @@ Phases, in order; any failure exits non-zero and prints no result:
    llama2-400m ``--fidelity-every 1`` (whose fidelity metrics must also
    agree: the global cosine within 1e-4, the others within 5e-2
    relative) and
-   reduced deepseek-v3-moe ``--moe-a2a block8+ef``, printed as bit for
-   bit or within the limits; reduced deepseek-v3-moe at one microbatch
+   reduced deepseek-v3-moe ``--moe-a2a block8+ef``, and the pool's other
+   attention decoders reduced (mixtral-8x7b, qwen3-moe-30b-a3b with
+   block8, gemma2-27b, minicpm-2b, h2o-danube-1.8b, command-r-35b,
+   chameleon-34b; seq 128 for the windowed ones, so the window cuts),
+   printed as bit for bit or within the limits (and for gemma2, minicpm
+   and command-r whether step 0 is bit for bit); their scales and soft
+   caps give the CPU's bits on the card (``check_scales_exact``);
+   reduced deepseek-v3-moe at one microbatch
    per step gives block8's step-0 loss under block8+ef bit for bit;
    lamb, adafactor and adafactor_flat updates and the step's gradient
    norm and clip scale give the CPU's bits on the card;
@@ -158,10 +176,11 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 
 
-def _train_args(arch, sync, steps, *extra):
+def _train_args(arch, sync, steps, *extra, micro: int = 4):
     return ["--arch", arch, "--sync", sync, "--seq-len", "1024",
-            "--global-batch", "8", "--microbatch", "4", "--steps", str(steps),
-            "--warmup", "1", "--log-every", "1", *extra]
+            "--global-batch", "8", "--microbatch", str(micro),
+            "--steps", str(steps), "--warmup", "1", "--log-every", "1",
+            *extra]
 
 
 TRAIN_ARGS = _train_args("llama2-400m", "loco", 6)
@@ -210,6 +229,19 @@ G_RUNS = {"sgd": (["--optimizer", "sgd", "--lr", "0.1"], 0),
 G_ARGS = {name: _train_args("llama2-400m", "loco", 3, *flags, *(
     () if name == "wsd" else ("--profile-steps", "2:2")))
           for name, (flags, _) in G_RUNS.items()}
+# Paths k and l: the pool's two other MoEs at full width, cut in depth
+# (``cut_depth``: dataclasses.replace on the CLI's config), microbatch 2
+# (the 151,936-token vocabulary's f32 logits are 1.2 GB per 2,048 tokens);
+# step 2 traced.  qwen3-moe-30b-a3b: 2 of 48 layers, 1,868,573,184
+# parameters, qk-norm, 128 experts top-8 on the block8 wire; mixtral-8x7b:
+# 1 of 32 layers, 1,713,418,240 parameters, 8 experts top-2 (tp_dense),
+# sliding window 4,096 (which seq 1024 does not cut; the reference phase
+# runs it where it cuts).
+WIDE_PATHS = {
+    "k": (_train_args("qwen3-moe-30b-a3b", "loco", 3, "--moe-a2a", "block8",
+                      "--profile-steps", "2:2", micro=2), 2),
+    "l": (_train_args("mixtral-8x7b", "loco", 3, "--profile-steps", "2:2",
+                      micro=2), 1)}
 # Each MoE layer exchanges its slot buffer twice (dispatch, combine); each
 # exchange runs once in the forward, once in the checkpoint's recomputation
 # and once in the backward (the cotangent rides the same wire), and calls
@@ -305,11 +337,14 @@ def loco_sizes(argv, tp: int = 1) -> dict[int, int]:
 @functools.lru_cache(maxsize=None)
 def loco_path_sizes(tp: int = 1) -> list[int]:
     """Every segment length the LoCo paths (llama, deepseek, bucketed
-    llama overlapped and flat; the checkpoint phase runs path d) launch
-    fused_compress and dequant_mean at, on a rank of a ``tp``-way model
-    group."""
-    return sorted(set().union(*(loco_sizes(a, tp) for a in (
-        TRAIN_ARGS, MOE_ARGS, BUCKET_ARGS, FLAT_ARGS))))
+    llama overlapped and flat; the checkpoint phase runs path d; at tp =
+    1 also paths k and l) launch fused_compress and dequant_mean at, on a
+    rank of a ``tp``-way model group.  (A length does not depend on the
+    depth that paths k and l cut.)"""
+    paths = [TRAIN_ARGS, MOE_ARGS, BUCKET_ARGS, FLAT_ARGS]
+    if tp == 1:
+        paths += [argv for argv, _ in WIDE_PATHS.values()]
+    return sorted(set().union(*(loco_sizes(a, tp) for a in paths)))
 
 
 # A tp = 2 rank's shapes at full width: the card has one device, so the
@@ -718,16 +753,32 @@ def time_kernels(LQ, dev, rate: float) -> dict:
 # phase 2, continued: the activation wire and the onebit wire
 # ---------------------------------------------------------------------------
 
-def moe_exchange_rows(tp: int = 1) -> int:
-    """Rows of 512 that one deepseek-v3-moe exchange quantizes at seq 1024,
-    microbatch 4, on a rank of a ``tp``-way model group (its ``tp`` peer
-    rows of El experts x cap slots x d_model): 64 x 640 x 1024 / 512 =
-    81,920 at tp = 1; 2 x 32 x 320 x 1024 / 512 = 40,960 at tp = 2."""
-    from repro_torch.configs.base import get_arch
+def moe_exchange_rows(argv, tp: int = 1) -> int:
+    """Rows of 512 that one exchange of the MoE training run ``argv``
+    quantizes on a rank of a ``tp``-way model group (its ``tp`` peer rows
+    of El experts x cap slots x d_model, for microbatch x seq tokens):
+    deepseek-v3-moe (path b, microbatch 4) 64 x 640 x 1024 / 512 = 81,920
+    at tp = 1, 2 x 32 x 320 x 1024 / 512 = 40,960 at tp = 2;
+    qwen3-moe-30b-a3b (path k, microbatch 2) 128 x 160 x 2048 / 512 =
+    81,920 too."""
     from repro_torch.core import act_comm
+    from repro_torch.launch import train
 
-    g = act_comm.a2a_geometry(get_arch("deepseek-v3-moe"), 4 * 1024, tp)
+    args = train.build_args(argv)
+    g = act_comm.a2a_geometry(train.make_cfg(args),
+                              args.microbatch * args.seq_len, tp)
     return tp * g["n_pad"] // act_comm.ACT_BLOCK
+
+
+def act_row_counts() -> dict[tuple[int, int], list[str]]:
+    """(rows, tp) -> the block8 exchanges of that size: paths b and k at
+    tp = 1, path b on a tp = 2 rank."""
+    out: dict[tuple[int, int], list[str]] = {}
+    for label, argv, tp in (("deepseek-v3-moe", MOE_ARGS, 1),
+                            ("qwen3-moe-30b-a3b", WIDE_PATHS["k"][0], 1),
+                            ("deepseek-v3-moe", MOE_ARGS, TP_LOCAL)):
+        out.setdefault((moe_exchange_rows(argv, tp), tp), []).append(label)
+    return out
 
 
 def _act_input(rows: int, gen, dev):
@@ -755,13 +806,14 @@ def onebit_bytes(n: int) -> float:
     return n * 4 + n / 8 + n * 2 + 4
 
 
-def kernel_act(AQ, dev, rate: float, tp: int = 1) -> dict:
-    """act_encode / act_decode at the deepseek-v3-moe exchange of a rank of
-    a ``tp``-way model group: bit-exact against the plain versions (and
-    the decode against ``q / scale``), then timed per call."""
+def kernel_act(AQ, dev, rate: float, rows: int, tp: int,
+               label: str) -> dict:
+    """act_encode / act_decode at an exchange of ``rows`` rows of 512 (the
+    MoE models ``label`` on a rank of a ``tp``-way model group):
+    bit-exact against the plain versions (and the decode against ``q /
+    scale``), then timed per call."""
     import torch
 
-    rows = moe_exchange_rows(tp)
     gen = torch.Generator(device=dev).manual_seed(2)
     h = _act_input(rows, gen, dev)
     q, s = AQ.act_encode(h)
@@ -809,7 +861,8 @@ def kernel_act(AQ, dev, rate: float, tp: int = 1) -> dict:
     for name, t in res.items():
         lib_s = (f", q / scale {t['library_ms'] * 1e3:.1f} us"
                  if t["library_ms"] is not None else "")
-        print(f"kernels: {name} rows={rows} (tp {tp}) bit-exact; device "
+        print(f"kernels: {name} rows={rows} ({label}, tp {tp}) bit-exact; "
+              f"device "
               f"{t['ms'] * 1e3:.1f} us per call, bound "
               f"{t['bound_ms'] * 1e3:.1f} us ({t['bound_ms'] / t['ms']:.1%} "
               f"of HBM rate), host {t['host_us']:.1f} us per call, plain "
@@ -932,10 +985,14 @@ def main(argv=None) -> int:
     timing = time_kernels(LQ, dev, rate)
     for name in timing:
         timing[name].update(max_abs_err=worst[name], library_ms=None)
-    timing.update(kernel_act(AQ, dev, rate))
-    for name, t in kernel_act(AQ, dev, rate, TP_LOCAL).items():
-        timing[name]["max_abs_err"] = max(timing[name]["max_abs_err"],
-                                          t["max_abs_err"])
+    acts = {key: kernel_act(AQ, dev, rate, *key, " and ".join(labels))
+            for key, labels in act_row_counts().items()}
+    # the JSON row's times: path b's exchange
+    timing.update(acts[(moe_exchange_rows(MOE_ARGS), 1)])
+    for res in acts.values():
+        for name, t in res.items():
+            timing[name]["max_abs_err"] = max(timing[name]["max_abs_err"],
+                                              t["max_abs_err"])
     timing["onebit_pack"] = kernel_onebit(SP, dev, rate)
     torch.cuda.empty_cache()
     print(f"kernels: phase done at {time.perf_counter() - t_start:.1f} s",
@@ -1168,17 +1225,21 @@ def _add(total: dict, launches: dict) -> None:
 
 
 # What the card gave on every path once Adam divided and took its square
-# root as the CPU does (run AD of PERF.md, H100 80GB HBM3, 700 W), and
-# b and c once the clip's norm summed in f64 and took its root as the
-# CPU does (run AG; a, d and the checkpoint run did not move): the losses
-# each later run must give bit for bit.  (Launches and sync
-# collectives are held against the counts derived from the code in
-# train_path.)
+# root as the CPU does (run AD of PERF.md, H100 80GB HBM3, 700 W), b and c
+# once the clip's norm summed in f64 and took its root as the CPU does
+# (run AG; a, d and the checkpoint run did not move), and b, k and l once
+# the GQA kv expansion's backward summed each kv head's gradient in one
+# reduction instead of with atomics (run AM; before it, k and l gave other
+# losses from step 1 on in every run): the losses each later run must
+# give bit for bit.  (Launches and sync collectives are held against the
+# counts derived from the code in train_path.)
 PARENT_LOSSES = {
     "a": [10.68307113647461, 10.063494682312012, 9.444881439208984,
           9.20444107055664, 8.938138961791992, 8.848569869995117],
-    "b": [11.144638061523438, 10.528348922729492, 9.801494598388672,
-          9.565112113952637, 9.370633125305176, 9.285699844360352],
+    "b": [11.144638061523438, 10.527666091918945, 9.800702095031738,
+          9.564414978027344, 9.370407104492188, 9.285638809204102],
+    "k": [12.531103134155273, 10.805315971374512, 11.063454627990723],
+    "l": [10.822874069213867, 9.450738906860352, 8.818324089050293],
     "c": [10.68307113647461, 10.269109725952148, 9.740499496459961],
     "d": [10.68307113647461, 10.062131881713867, 9.441957473754883],
     "d'": [10.68307113647461, 10.062131881713867, 9.441957473754883]}
@@ -1256,6 +1317,7 @@ def train_phase(LQ) -> dict:
         _add(total, topk_paths(LQ, runs["a"][0]))
         _add(total, fidelity_paths(LQ, runs["a"][0]))
         _add(total, ef_path(LQ, runs["b"][0]))
+        _add(total, wide_paths(LQ))
     print(f"train: model-group collectives and replicated_grad_psum called "
           f"{tp_calls[0]} times at tp = 1", flush=True)
     if tp_calls[0]:
@@ -1529,6 +1591,64 @@ def ef_path(LQ, b: dict) -> dict:
     if gap > REF_STEP0_RTOL * abs(b["losses"][0]):
         raise AssertionError(f"ef: path j's step 0 left path b's: {gap}")
     return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 3, paths k and l: the pool's other MoEs at full width
+# ---------------------------------------------------------------------------
+
+def tokens_per_step(argv) -> int:
+    from repro_torch.launch import train
+
+    args = train.build_args(argv)
+    return args.global_batch * args.seq_len
+
+
+def wide_paths(LQ) -> dict:
+    """Paths k (qwen3-moe-30b-a3b, 2 layers) and l (mixtral-8x7b, 1
+    layer) at full width: losses finite and falling and the recorded ones
+    bit for bit (``check_parent``), every kernel launched as derived
+    (``train_path``, under the depth cut).  Prints the
+    parameters, the peak memory, tok/s, step 2's device busy time and
+    launches (traced), and the idle share of the unprofiled step 1 (1 -
+    busy / wall).  Returns their launches."""
+    import tempfile
+
+    from repro_torch.configs.base import get_arch
+    from repro_torch.launch import train
+    from repro_torch.models.transformer import build_groups
+
+    total: dict[str, int] = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_wide_") as tmp:
+        for name, (argv, layers) in WIDE_PATHS.items():
+            with cut_depth(layers):
+                cfg = train.make_cfg(train.build_args(argv))
+                launches, res = train_path(
+                    LQ, argv + ["--profile-dir", tmp], True)
+            check_parent(name, res)
+            _add(total, launches)
+            n = sum(math.prod(i.shape) * (g.n_layers or 1)
+                    for g in build_groups(cfg, 1) for i in g.infos)
+            t = res["trace"]
+            if not t or not t["device_busy_ms"]:
+                raise AssertionError(f"wide: path {name}: the trace of "
+                                     f"step 2 holds no device time ({t})")
+            wall = res["step_ms"][0]
+            print(f"wide: path {name}: {cfg.name}, {layers} of "
+                  f"{get_arch(cfg.name).n_layers} layers at full "
+                  f"width, {n:,} parameters; losses {res['losses']}; "
+                  f"{res['tok_per_s']:.1f} tok/s after the first step "
+                  f"(the traced step 2 included), "
+                  f"{tokens_per_step(argv) / wall * 1e3:.1f} tok/s on step "
+                  f"1 ({wall:.1f} ms, unprofiled); peak device memory "
+                  f"{res['peak_mem_bytes'] / 2**30:.2f} GiB "
+                  f"({res['peak_mem_bytes'] / n:.2f} B per parameter); "
+                  f"step 2 traced: device "
+                  f"busy {t['device_busy_ms']:.1f} ms in "
+                  f"{t['device_launches']} launches; idle share "
+                  f"{max(0.0, 1 - t['device_busy_ms'] / wall):.1%} (step 2's "
+                  f"busy over step 1's wall)", flush=True)
+    return total
 
 
 # ---------------------------------------------------------------------------
@@ -1956,7 +2076,22 @@ REF_RUNS = {"llama2-400m loco": _ref_args("llama2-400m", "loco"),
             "llama2-400m loco --fidelity-every 1": _ref_args(
                 "llama2-400m", "loco", "--fidelity-every", "1"),
             "deepseek-v3-moe loco block8+ef": _ref_args(
-                "deepseek-v3-moe", "loco", "--moe-a2a", "block8+ef")}
+                "deepseek-v3-moe", "loco", "--moe-a2a", "block8+ef"),
+            # the pool's other attention decoders; seq 128 where the
+            # reduced 64-token window must cut
+            **{f"{arch} loco": _ref_args(arch, "loco", *extra)
+               for arch, extra in (
+                   ("mixtral-8x7b", ("--seq-len", "128")),
+                   ("qwen3-moe-30b-a3b", ("--moe-a2a", "block8")),
+                   ("gemma2-27b", ("--seq-len", "128")),
+                   ("minicpm-2b", ()),
+                   ("h2o-danube-1.8b", ("--seq-len", "128")),
+                   ("command-r-35b", ()),
+                   ("chameleon-34b", ()))}}
+# The scaled, tied and soft-capped configs: their step-0 loss on the card
+# against the CPU's is printed (bit for bit or the gap); their scales and
+# soft caps are held to the CPU's bits (check_scales_exact).
+SCALED = ("gemma2-27b", "minicpm-2b", "command-r-35b")
 # The probe's fidelity metrics, card against CPU: the global cosine within
 # FID_COS_ATOL, a unit's cosine within UNIT_COS_ATOL, every other value
 # within FID_RTOL (the synced gradients differ by the bf16 backward's
@@ -2086,6 +2221,56 @@ def check_optimizers_exact() -> None:
                              "the CPU's bits on the card")
 
 
+def check_scales_exact() -> None:
+    """gemma2's, minicpm's and command-r's embedding, residual and logit
+    scales (``scale_by`` and the residual add on bf16) and soft caps
+    (``soft_cap`` at 50 and 30, forward and backward, f32) give the CPU's
+    bits on the card on the same inputs.  The unrounded scale and torch's
+    tanh on the card must differ, or this check could not see the
+    faults it guards against."""
+    import torch
+
+    from repro_torch.configs.base import get_arch
+    from repro_torch.models import common as C
+    from repro_torch.models import transformer as T
+
+    gen = torch.Generator().manual_seed(20)
+    x, d, g = (torch.randn(1 << 20, generator=gen) for _ in range(3))
+    out = {}
+    for dev in ("cuda", "cpu"):
+        res = []
+        xb, db = (x * 4).bfloat16().to(dev), d.bfloat16().to(dev)
+        for arch in SCALED:
+            cfg = get_arch(arch)
+            for s in (cfg.emb_scale, cfg.logit_scale):
+                if s:
+                    res.append(C.scale_by(xb, s))
+            if cfg.residual_scale:
+                res.append(T._res(cfg, xb, db))
+            for cap in (cfg.attn_softcap, cfg.final_softcap):
+                if cap:
+                    xf = (x * 20).to(dev).requires_grad_()
+                    y = C.soft_cap(xf, cap)
+                    y.backward(g.to(dev))
+                    res += [y.detach(), xf.grad]
+        out[dev] = [r.cpu() for r in res]
+    same = all(_same(a, b) for a, b in zip(out["cuda"], out["cpu"]))
+    xb = (x * 4).bfloat16()
+    s = get_arch("gemma2-27b").emb_scale
+    raw = (xb.cuda() * s).cpu()
+    tanh = (50.0 * torch.tanh(x.cuda() * 20 / 50.0)).cpu()
+    seen = (not torch.equal(raw, C.scale_by(xb, s))
+            and not torch.equal(tanh, C.soft_cap(x * 20, 50.0)))
+    print(f"reference: {len(out['cpu'])} scale and soft-cap outputs of "
+          f"{', '.join(SCALED)} on the card: "
+          f"{'bit for bit with the CPU' if same else 'DIFFER'}; the "
+          f"unrounded scale and torch's tanh "
+          f"{'differ' if seen else 'DO NOT differ'}", flush=True)
+    if not (same and seen):
+        raise AssertionError("reference: a scale or soft cap on the card is "
+                             "not the CPU's bits (or the check sees nothing)")
+
+
 def check_fidelity(label, gpu: list, cpu: list) -> None:
     """The probe steps' fidelity metrics, card against CPU (``FID_*``)."""
     if len(gpu) != len(cpu) or not gpu or any(
@@ -2124,6 +2309,7 @@ def reference_phase() -> None:
 
     check_divisions()
     check_optimizers_exact()
+    check_scales_exact()
     ef = {c: train.main(a + ["--device", "cuda"])["losses"]
           for c, a in EF_ACCUM1.items()}
     print(f"reference: reduced deepseek-v3-moe, one microbatch, step 0 on "
@@ -2152,10 +2338,12 @@ def reference_phase() -> None:
         if "--fidelity-every" in argv:
             check_fidelity(label, g_res["fidelity"], c_res["fidelity"])
         gaps = [abs(a - b) for a, b in zip(gpu, cpu)]
+        step0 = (f"; step 0 {'bit for bit' if gaps[0] == 0 else 'differs'}"
+                 if label.split()[0] in SCALED else "")
         print(f"reference: reduced {label}, card {gpu} vs cpu {cpu}; "
               f"gaps {gaps}; "
-              f"{'bit for bit' if gpu == cpu else 'within the loss limits'}",
-              flush=True)
+              f"{'bit for bit' if gpu == cpu else 'within the loss limits'}"
+              f"{step0}", flush=True)
         if not (gaps[0] <= REF_STEP0_RTOL * abs(cpu[0])
                 and max(gaps) <= REF_ATOL):
             raise AssertionError(f"reference: {label}: the card's losses "

@@ -266,8 +266,9 @@ def _header(args, fingerprint: dict, topo: MeshTopo,
 
 def main(argv=None) -> dict:
     """Train; returns ``{"losses": [...], "moe_aux": [...], "moe_z": [...],
-    "fidelity": [...], "tok_per_s": float | None, "peak_mem_bytes": int |
-    None, "start": int, "trace": dict | None}`` (losses of the steps this
+    "fidelity": [...], "tok_per_s": float | None, "step_ms": [...] (wall
+    time of each step after the first), "peak_mem_bytes": int | None,
+    "start": int, "trace": dict | None}`` (losses of the steps this
     run took, from ``start``, the restored step or 0; router losses per
     step for MoE models, else empty; the fidelity metrics of each logged
     probe step; tok/s over the steps after the first; peak device
@@ -415,7 +416,7 @@ def main(argv=None) -> dict:
     if sink is not None:
         print(f"telemetry: {sink.path}", flush=True)
     out = {"losses": losses, **router, "fidelity": fidelity,
-           "tok_per_s": tok_s,
+           "tok_per_s": tok_s, "step_ms": [x * 1e3 for x in step_s],
            "peak_mem_bytes": peak, "start": start,
            "trace": (dict(trace.summary, path=trace.path)
                      if trace is not None and trace.summary else None)}

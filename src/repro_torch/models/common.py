@@ -41,6 +41,7 @@ softmax exactly; the port always takes one block.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 
 import torch
@@ -185,6 +186,16 @@ def row_linear(x_local, w, group=None, sp: bool = False):
     return sp_scatter_sum(y, group) if sp else psum_tp(y, group)
 
 
+def activation(kind: str, a, b=None):
+    """The MLP's activation (``repro.models.moe._activation``):
+    ``silu(a) * b`` (swiglu), ``gelu(a) * b`` (geglu), ``gelu(a)`` (gelu);
+    GELU is JAX's default, the tanh approximation."""
+    if kind == "swiglu":
+        return torch.nn.functional.silu(a) * b
+    g = torch.nn.functional.gelu(a, approximate="tanh")
+    return g * b if kind == "geglu" else g
+
+
 # ---------------------------------------------------------------------------
 # rotary embeddings
 # ---------------------------------------------------------------------------
@@ -205,20 +216,108 @@ def rope(x, positions, theta: float = 1e4):
 
 
 # ---------------------------------------------------------------------------
+# scalar scales and soft caps, with the reference's rounding
+# ---------------------------------------------------------------------------
+
+@functools.lru_cache(maxsize=None)
+def _rounded(s: float, dtype: torch.dtype) -> float:
+    return float(torch.tensor(s, dtype=torch.float32).to(dtype))
+
+
+def scale_by(x, s: float):
+    """``x * s`` as the reference computes it: JAX rounds a Python scalar to
+    the array's dtype (weak typing) before it multiplies, so a bf16
+    activation is multiplied by ``s`` rounded to bf16 (``4608 ** 0.5`` is
+    68.0 there).  The rounded value is exact in the f32 that torch computes
+    a bf16 product in, on the CPU and on the card alike."""
+    return x * _rounded(s, x.dtype)
+
+
+# XLA's f32 tanh on the CPU (the reference's): a [13/6] rational
+# approximation, its two Horner loops in fused multiply-adds, the input
+# clamped where the approximation reaches +-1 and passed through below
+# 4e-4.
+_TANH_CLAMP = 7.99881172180175781
+_TANH_NUM = (-2.76076847742355e-16, 2.00018790482477e-13,
+             -8.60467152213735e-11, 5.12229709037114e-08,
+             1.48572235717979e-05, 6.37261928875436e-04,
+             4.89352455891786e-03)
+_TANH_DEN = (1.19825839466702e-06, 1.18534705686654e-04,
+             2.26843463243900e-03, 4.89352518554385e-03)
+
+
+def _fma(a, b, c):
+    """f32 ``a * b + c`` as XLA's CPU code contracts it into one fused
+    multiply-add: the product is exact in f64, and the f64 sum rounded to
+    f32 is the fused result but where the two roundings tie (the
+    reference's bits on 10^6 inputs, tests/test_torch_archs.py)."""
+    return (a.double() * b.double() + c).float()
+
+
+def _horner(x2, coeffs):
+    """The polynomial in fused multiply-adds (f32 coefficients)."""
+    acc = torch.full_like(x2, coeffs[0])
+    for c in coeffs[1:]:
+        acc = _fma(x2, acc, float(torch.tensor(c)))
+    return acc
+
+
+def _xla_tanh(x):
+    xc = x.clamp(-_TANH_CLAMP, _TANH_CLAMP)
+    x2 = xc * xc
+    num = xc * _horner(x2, _TANH_NUM)
+    return torch.where(x.abs() < 4e-4, x, num / _horner(x2, _TANH_DEN))
+
+
+class _Tanh(torch.autograd.Function):
+    """f32 tanh with the reference's bits (every op IEEE, so the card gives
+    the CPU's) and its backward as JAX transposes tanh's derivative and
+    XLA fuses it: ``t = g * (1 - y)``, then ``fma(t, y, t)``."""
+
+    @staticmethod
+    def forward(ctx, x):
+        y = _xla_tanh(x)
+        ctx.save_for_backward(y)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        y, = ctx.saved_tensors
+        t = g * (1 - y)
+        return _fma(t, y, t)
+
+
+def soft_cap(x, cap: float):
+    """``cap * tanh(x / cap)`` on f32 ``x``, as the reference computes it:
+    XLA divides by a constant as a multiply by its f32 reciprocal, and its
+    tanh is :func:`_xla_tanh`."""
+    return cap * _Tanh.apply(x * _rounded(1.0 / cap, torch.float32))
+
+
+# ---------------------------------------------------------------------------
 # causal attention
 # ---------------------------------------------------------------------------
 
-def causal_attention(q, k, v, scale: float | None = None):
+def causal_attention(q, k, v, scale: float | None = None,
+                     window: int | None = None,
+                     softcap: float | None = None):
     """q, k, v: (B, S, H, hd) (k/v already expanded to the q heads) ->
-    (B, S, H, hd) in q's dtype."""
+    (B, S, H, hd) in q's dtype.  ``window``: query i sees keys j with
+    ``i - window < j <= i`` (``window`` keys, its own included);
+    ``softcap``: the f32 scores are soft-capped (:func:`soft_cap`)
+    before the mask."""
     S, hd = q.shape[1], q.shape[-1]
     scale = scale if scale is not None else 1.0 / math.sqrt(hd)
     qf = (q.float() * scale).to(q.dtype).transpose(1, 2)     # (B, H, S, hd)
     kt = k.transpose(1, 2)
     vt = v.transpose(1, 2)
     s = torch.matmul(qf.float(), kt.float().transpose(-1, -2))
-    causal = torch.ones(S, S, dtype=torch.bool, device=q.device).tril()
-    s = s.masked_fill(~causal, NEG_INF)
+    if softcap is not None:
+        s = soft_cap(s, softcap)
+    keep = torch.ones(S, S, dtype=torch.bool, device=q.device).tril()
+    if window is not None and window < S:
+        keep = keep.triu(1 - window)
+    s = s.masked_fill(~keep, NEG_INF)
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m)
     l = p.sum(dim=-1, keepdim=True)
@@ -250,13 +349,17 @@ def vocab_parallel_logits(x, w_head):
     return x @ w_head
 
 
-def vocab_parallel_xent(local_logits, targets, vocab: int, group=None):
+def vocab_parallel_xent(local_logits, targets, vocab: int, group=None,
+                        softcap: float | None = None):
     """Mean cross entropy over TP-sharded logits, in f32, with the
-    reference's formulation: log-sum-exp around a max that carries no
+    reference's formulation: the logits soft-capped (``softcap``,
+    :func:`soft_cap`), then log-sum-exp around a max that carries no
     gradient (gathered from every rank), the padded vocab tail (columns
     ``>= vocab``, on the last rank) masked.  local_logits: (B, S, V_local);
     targets: (B, S) global ids < vocab."""
     lg = local_logits.float()
+    if softcap is not None:
+        lg = soft_cap(lg, softcap)
     vl = lg.shape[-1]
     col0 = tp_rank(group) * vl
     if col0 + vl > vocab:  # padded vocab tail
@@ -334,6 +437,24 @@ class HeadLayout:
         return torch.clamp(gq // group, 0, self.n_kv - 1)
 
 
-def expand_kv(k, kv_map):
-    """k: (B, S, KVl, hd) -> (B, S, Hl, hd) by gathering per-q-head kv."""
-    return torch.index_select(k, 2, kv_map)
+    def kv_runs(self, rank: int = 0) -> tuple[int, ...]:
+        """How many consecutive local q heads each local kv head serves on
+        model rank ``rank`` (``kv_map`` is non-decreasing): the counts of
+        ``kv_map``'s values, in Python ints."""
+        group = self.n_heads // self.n_kv
+        if self.kv_sharded:
+            return (group,) * self.kvl
+        heads = [min(q // group, self.n_kv - 1)
+                 for q in range(rank * self.hl, (rank + 1) * self.hl)]
+        return tuple(heads.count(j) for j in range(self.n_kv))
+
+
+def expand_kv(k, runs):
+    """k: (B, S, KVl, hd) -> (B, S, Hl, hd): local kv head j repeated for
+    its ``runs[j]`` consecutive q heads (``HeadLayout.kv_runs``), the
+    reference's gather.  Built from expand and cat, not a gather, so that
+    the backward is deterministic: a gather's backward on CUDA adds the q
+    heads' gradients with atomics, in an order that changes from run to
+    run; an expand's sums each kv head's gradient in one reduction."""
+    return torch.cat([k[:, :, j:j + 1].expand(-1, -1, n, -1)
+                      for j, n in enumerate(runs) if n], dim=2)

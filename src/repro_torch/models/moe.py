@@ -2,9 +2,9 @@
 
 Port of ``repro.models.moe``: top-k softmax routing with renormalized
 weights and group-limited (DeepSeek-V3) selection, capacity-slot dispatch
-by a stable sort (GShard token dropping), the batched expert SwiGLU FFN,
-always-on shared experts, the Switch aux load-balance loss and the router
-z-loss.
+by a stable sort (GShard token dropping), the batched expert FFN (the
+config's gated or plain MLP), always-on shared experts, the Switch aux
+load-balance loss and the router z-loss.
 
 Two schedules, as in the reference:
 
@@ -92,18 +92,20 @@ def _dispatch_indices(topi, n_experts: int, capacity: int):
     return slot, slot >= 0
 
 
-def _expert_ffn(xe, w1, w3, w2):
-    """SwiGLU per expert. xe: (El, C, d); w1/w3: (El, d, f); w2: (El, f, d)."""
+def _expert_ffn(xe, w1, w3, w2, mlp_kind: str):
+    """The MLP per expert. xe: (El, C, d); w1/w3: (El, d, f); w2: (El, f,
+    d); ``w3`` None for the ungated ``gelu``."""
     a = torch.bmm(xe, w1)
-    h = torch.nn.functional.silu(a) * torch.bmm(xe, w3)
-    return torch.bmm(h, w2)
+    b = None if w3 is None else torch.bmm(xe, w3)
+    return torch.bmm(C.activation(mlp_kind, a, b), w2)
 
 
-def _shared_ffn(x2d, p):
-    """Always-on shared-expert SwiGLU FFN (the width of n_shared_experts
+def _shared_ffn(x2d, p, mlp_kind: str):
+    """Always-on shared-expert FFN (the width of n_shared_experts
     experts)."""
     a = x2d @ p["ws1"]
-    return (torch.nn.functional.silu(a) * (x2d @ p["ws3"])) @ p["ws2"]
+    b = x2d @ p["ws3"] if "ws3" in p else None
+    return C.activation(mlp_kind, a, b) @ p["ws2"]
 
 
 def _capacity(n_tokens: int, cfg) -> int:
@@ -171,10 +173,11 @@ def moe_block(x, p, cfg, group=None, *,
                                 cfg.group_top_k)
         slot, valid = _dispatch_indices(topi, E, cap)
         xe = _dispatch(x2d, slot, valid, k, E * cap).reshape(E, cap, d)
-        ye = _expert_ffn(xe, p["w1"], p["w3"], p["w2"]).reshape(E * cap, d)
+        ye = _expert_ffn(xe, p["w1"], p.get("w3"), p["w2"],
+                         cfg.mlp).reshape(E * cap, d)
         y2d = _combine(ye, slot, valid, topv, k)  # partial over d_ff slices
         if cfg.n_shared_experts:
-            y2d = y2d + _shared_ffn(x2d, p).to(x.dtype)
+            y2d = y2d + _shared_ffn(x2d, p, cfg.mlp).to(x.dtype)
         y = y2d.reshape(B, S, d)
         if a2a_state is not None:
             aux = {**aux, "a2a_state": a2a_state}  # no exchange here
@@ -208,7 +211,7 @@ def moe_block(x, p, cfg, group=None, *,
     exchange = ACT.a2a_raw if cfg.moe_a2a_codec == "fp" else ACT.a2a_exchange
     xe = exchange(xe, group)                       # dispatch: (tp, El, cap, d)
     xe = xe.transpose(0, 1).reshape(El, tp * cap, d)
-    ye = _expert_ffn(xe, p["w1"], p["w3"], p["w2"])
+    ye = _expert_ffn(xe, p["w1"], p.get("w3"), p["w2"], cfg.mlp)
     ye = ye.reshape(El, tp, cap, d).transpose(0, 1)
     if cfg.moe_a2a_codec == "block8+ef" and a2a_state is not None:
         ye, a2a_state = ACT.a2a_exchange_ef(ye, a2a_state, group)
@@ -222,7 +225,7 @@ def moe_block(x, p, cfg, group=None, *,
     if cfg.n_shared_experts:
         # the shared-expert psum reduces d_ff-slice partials of the SAME
         # tokens: computed on the whole padded token set, then sliced
-        shared = _shared_ffn(x2d, p).to(x.dtype)
+        shared = _shared_ffn(x2d, p, cfg.mlp).to(x.dtype)
         if tpg is not None:
             shared = C.psum_tp(shared, tpg)[r * Tl:(r + 1) * Tl]
         ys = ys + shared

@@ -1,6 +1,6 @@
-"""Decoder-only LM, dense and MoE families (llama-style attention).
+"""Decoder-only LM: the dense, vlm and MoE families.
 
-Port of the dense and MoE training paths of ``repro.models.transformer``:
+Port of the attention-decoder training paths of ``repro.models.transformer``:
 parameter declarations (:func:`build_groups`), the attention / MLP / MoE
 blocks and :class:`DecoderLM`'s forward and loss.  Layers run in a Python loop; each
 layer materializes its weights from the FSDP chunks inside the layer, and
@@ -14,11 +14,15 @@ embedding, logits and loss, column/row-parallel attention and MLP, and in
 training sequence parallelism between the blocks; the MoE family shards
 its experts over the same group (:mod:`repro_torch.models.moe`).
 
-Only what llama2-400m and deepseek-v3-moe use is ported (full causal GQA
-attention, RMSNorm, SwiGLU, untied embeddings; the MoE family with the
-``fp``, ``block8`` and ``block8+ef`` activation codecs); other features
-and families wait
-(ROADMAP.md) and are refused at construction.
+Every feature of the pool's attention decoders is ported: full, sliding
+window (``swa``) and alternating local/global attention, qk-norm, the
+attention and final soft caps, RMSNorm or LayerNorm, sequential or
+parallel (command-r) blocks, SwiGLU / GeGLU / GELU MLPs, tied embeddings,
+the embedding, residual and logit scales, and the MoE family (``tp_dense``
+and ``ep_a2a`` with the ``fp``, ``block8`` and ``block8+ef`` activation
+codecs).  The vlm family (chameleon) runs as dense.  The ssm, hybrid and
+audio families and encoder-decoders wait (ROADMAP.md) and are refused at
+construction.
 """
 from __future__ import annotations
 
@@ -58,17 +62,11 @@ def head_layout(cfg: ArchConfig, tp: int) -> HeadLayout:
 def check_supported(cfg: ArchConfig) -> None:
     """Refuse what the port has not ported yet instead of ignoring it."""
     unported = {
-        "family": cfg.family not in ("dense", "moe"),
-        "attn_kind": cfg.attn_kind != "full",
-        "qk_norm": cfg.qk_norm,
-        "attn_softcap": cfg.attn_softcap is not None,
-        "final_softcap": cfg.final_softcap is not None,
-        "parallel_block": cfg.parallel_block,
-        "mlp": cfg.mlp != "swiglu",
-        "tied_embeddings": cfg.tied_embeddings,
-        "logit_scale": cfg.logit_scale is not None,
-        "emb_scale": cfg.emb_scale is not None,
-        "residual_scale": cfg.residual_scale is not None,
+        "family": cfg.family not in ("dense", "vlm", "moe"),
+        "enc_dec": cfg.enc_dec,
+        "attn_kind": cfg.attn_kind not in ("full", "swa", "local_global"),
+        "mlp": cfg.mlp not in ("swiglu", "geglu", "gelu"),
+        "norm": cfg.norm not in ("rmsnorm", "layernorm"),
     }
     if cfg.family == "moe":
         unported["moe_a2a_codec"] = \
@@ -87,23 +85,34 @@ def check_supported(cfg: ArchConfig) -> None:
 def _attn_infos(cfg: ArchConfig, lay: HeadLayout):
     d, hd = cfg.d_model, lay.head_dim
     kv_tp = 1 if lay.kv_sharded else None
-    return [
+    infos = [
         _pi("norm1", (d,), init="ones", decay=False),
         _pi("wq", (d, lay.h_pad * hd), tp_dim=1),
         _pi("wk", (d, lay.kv_pad * hd), tp_dim=kv_tp),
         _pi("wv", (d, lay.kv_pad * hd), tp_dim=kv_tp),
         _pi("wo", (lay.h_pad * hd, d), tp_dim=0),
     ]
+    if cfg.qk_norm:
+        infos += [_pi("qnorm", (hd,), init="ones", decay=False),
+                  _pi("knorm", (hd,), init="ones", decay=False)]
+    return infos
+
+
+def _gated(cfg: ArchConfig) -> bool:
+    """The MLP has a gate (``w3``, ``ws3``): swiglu and geglu."""
+    return cfg.mlp in ("swiglu", "geglu")
 
 
 def _mlp_infos(cfg: ArchConfig):
     d, f = cfg.d_model, cfg.d_ff
-    return [
+    infos = [
         _pi("norm2", (d,), init="ones", decay=False),
         _pi("w1", (d, f), tp_dim=1),
         _pi("w2", (f, d), tp_dim=0),
-        _pi("w3", (d, f), tp_dim=1),
     ]
+    if _gated(cfg):
+        infos.append(_pi("w3", (d, f), tp_dim=1))
+    return infos
 
 
 def _moe_infos(cfg: ArchConfig):
@@ -115,15 +124,19 @@ def _moe_infos(cfg: ArchConfig):
         _pi("router", (d, E)),
         _pi("w1", (E, d, f), tp_dim=w_tp[0], init_scale=1.0 / math.sqrt(d)),
         _pi("w2", (E, f, d), tp_dim=w_tp[1], init_scale=1.0 / math.sqrt(f)),
-        _pi("w3", (E, d, f), tp_dim=w_tp[0], init_scale=1.0 / math.sqrt(d)),
     ]
+    if _gated(cfg):
+        infos.append(_pi("w3", (E, d, f), tp_dim=w_tp[0],
+                         init_scale=1.0 / math.sqrt(d)))
     if cfg.n_shared_experts:
         fs = cfg.n_shared_experts * f
         infos += [
             _pi("ws1", (d, fs), tp_dim=1, init_scale=1.0 / math.sqrt(d)),
             _pi("ws2", (fs, d), tp_dim=0, init_scale=1.0 / math.sqrt(fs)),
-            _pi("ws3", (d, fs), tp_dim=1, init_scale=1.0 / math.sqrt(d)),
         ]
+        if _gated(cfg):
+            infos.append(_pi("ws3", (d, fs), tp_dim=1,
+                             init_scale=1.0 / math.sqrt(d)))
     return infos
 
 
@@ -133,12 +146,12 @@ def build_groups(cfg: ArchConfig, tp: int) -> list[ParamGroup]:
     d = cfg.d_model
     lay = head_layout(cfg, tp)
     ffn = _moe_infos(cfg) if cfg.family == "moe" else _mlp_infos(cfg)
+    head = [] if cfg.tied_embeddings else [_pi("head", (d, vp), tp_dim=1)]
     return [
         ParamGroup("embed", (
             _pi("tok", (vp, d), tp_dim=0, init="embed", init_scale=0.02),)),
-        ParamGroup("final", (
-            _pi("norm_f", (d,), init="ones", decay=False),
-            _pi("head", (d, vp), tp_dim=1))),
+        ParamGroup("final", tuple(
+            [_pi("norm_f", (d,), init="ones", decay=False)] + head)),
         ParamGroup("block", tuple(_attn_infos(cfg, lay) + ffn),
                    n_layers=cfg.n_layers),
     ]
@@ -154,26 +167,41 @@ def _qkv(p, x, lay: HeadLayout, cfg: ArchConfig, positions):
     q = C.col_linear(x, p["wq"]).reshape(B, S, lay.hl, hd)
     k = C.col_linear(x, p["wk"]).reshape(B, S, lay.kvl, hd)
     v = C.col_linear(x, p["wv"]).reshape(B, S, lay.kvl, hd)
+    if cfg.qk_norm:
+        q = C.rmsnorm(q, p["qnorm"])
+        k = C.rmsnorm(k, p["knorm"])
     q = C.rope(q, positions, cfg.rope_theta)
     k = C.rope(k, positions, cfg.rope_theta)
     return q, k, v
 
 
+def layer_window(cfg: ArchConfig, layer_idx: int) -> int | None:
+    """Layer ``layer_idx``'s attention window (None: full causal): ``swa``
+    windows every layer, ``local_global`` the even ones."""
+    if cfg.attn_kind == "swa":
+        return cfg.window
+    if cfg.attn_kind == "local_global" and layer_idx % 2 == 0:
+        return cfg.window
+    return None
+
+
 def attention_block(p, x, cfg: ArchConfig, lay: HeadLayout, positions,
-                    group=None, sp: bool = False):
+                    group=None, sp: bool = False, layer_idx: int = 0):
     """Returns the attention output (pre-residual).  ``group``: the model
     group (None at ``tp = 1``).  Under ``sp`` x is the (B, S/tp, d)
     sequence shard: the norm runs on the shard, the block gathers the full
-    sequence for attention and returns a reduce-scattered shard."""
+    sequence for attention and returns a reduce-scattered shard.
+    ``layer_idx``: the global layer index (its window)."""
     h = C.norm(cfg.norm, x, p["norm1"])
     if sp:
         h = C.sp_gather(h, group)
     B, S, _ = h.shape
     q, k, v = _qkv(p, h, lay, cfg, positions)
     if not lay.kv_identity:
-        kv_map = lay.kv_map(x.device, C.tp_rank(group))
-        k, v = C.expand_kv(k, kv_map), C.expand_kv(v, kv_map)
-    out = C.causal_attention(q, k, v)
+        runs = lay.kv_runs(C.tp_rank(group))
+        k, v = C.expand_kv(k, runs), C.expand_kv(v, runs)
+    out = C.causal_attention(q, k, v, window=layer_window(cfg, layer_idx),
+                             softcap=cfg.attn_softcap)
     out = out.reshape(B, S, lay.hl * lay.head_dim)
     return C.row_linear(out, p["wo"], group, sp)
 
@@ -183,31 +211,46 @@ def mlp_block(p, x, cfg: ArchConfig, group=None, sp: bool = False):
     if sp:
         h = C.sp_gather(h, group)
     a = C.col_linear(h, p["w1"])
-    b = C.col_linear(h, p["w3"])
-    return C.row_linear(torch.nn.functional.silu(a) * b, p["w2"], group, sp)
+    b = C.col_linear(h, p["w3"]) if _gated(cfg) else None
+    return C.row_linear(C.activation(cfg.mlp, a, b), p["w2"], group, sp)
+
+
+def _res(cfg: ArchConfig, x, delta):
+    """The residual add, ``delta`` scaled by ``residual_scale`` (rounded
+    to the activation's dtype, as the reference's weak-typed scalar)."""
+    if cfg.residual_scale is None:
+        return x + delta
+    return x + C.scale_by(delta, cfg.residual_scale)
 
 
 def dense_block(p, x, cfg: ArchConfig, lay: HeadLayout, positions,
-                group=None, sp: bool = False):
-    x = x + attention_block(p, x, cfg, lay, positions, group, sp)
-    return x + mlp_block(p, x, cfg, group, sp)
+                group=None, sp: bool = False, layer_idx: int = 0):
+    if cfg.parallel_block:
+        # attention and MLP both read x; one residual add takes their sum
+        a = attention_block(p, x, cfg, lay, positions, group, sp, layer_idx)
+        return _res(cfg, x, a + mlp_block(p, x, cfg, group, sp))
+    x = _res(cfg, x, attention_block(p, x, cfg, lay, positions, group, sp,
+                                     layer_idx))
+    return _res(cfg, x, mlp_block(p, x, cfg, group, sp))
 
 
 def moe_layer(p, x, cfg: ArchConfig, lay: HeadLayout, positions, group,
-              sp: bool = False, a2a_state=None):
+              sp: bool = False, a2a_state=None, layer_idx: int = 0):
     """Attention then the MoE FFN; returns (x, router aux, router z), and
     the layer's new combine EF residual after them when ``a2a_state`` is
     given.  ``group``: the model group (the expert exchange runs on it
     also at ``tp = 1``)."""
     tpg = group if C.tp_size(group) > 1 else None
-    x = x + attention_block(p, x, cfg, lay, positions, tpg, sp)
+    x = _res(cfg, x, attention_block(p, x, cfg, lay, positions, tpg, sp,
+                                     layer_idx))
     h = C.norm(cfg.norm, x, p["norm2"])
     if sp:
         h = C.sp_gather(h, tpg)
     y, aux = MOE.moe_block(h, p, cfg, group, sp=sp, a2a_state=a2a_state)
+    x = _res(cfg, x, y)
     if a2a_state is not None:
-        return x + y, aux["aux"], aux["z"], aux["a2a_state"]
-    return x + y, aux["aux"], aux["z"]
+        return x, aux["aux"], aux["z"], aux["a2a_state"]
+    return x, aux["aux"], aux["z"]
 
 
 # ---------------------------------------------------------------------------
@@ -255,8 +298,11 @@ class DecoderLM:
         tpg = self.tp_group
         sp = self.sp and self.tp > 1 and S % self.tp == 0
         positions = torch.arange(S, device=tokens.device)
+        # gathered (and synced in the backward) once: tied logits reuse it
         emb = store.group("embed")["tok"]
         x = C.vocab_parallel_embed(emb, tokens, tpg, sp)
+        if cfg.emb_scale:
+            x = C.scale_by(x, cfg.emb_scale)
         lay = head_layout(cfg, self.tp)
         aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
         z = torch.zeros((), dtype=torch.float32, device=tokens.device)
@@ -268,8 +314,8 @@ class DecoderLM:
                 p = store.layer("block", l)
                 if cfg.family == "moe":
                     return moe_layer(p, xc, cfg, lay, positions,
-                                     self.model_group, sp, ef_l)
-                return dense_block(p, xc, cfg, lay, positions, tpg, sp)
+                                     self.model_group, sp, ef_l, l)
+                return dense_block(p, xc, cfg, lay, positions, tpg, sp, l)
 
             args = (x,) if ef is None else (x, ef[l])
             out = (checkpoint(body, *args, use_reentrant=False) if remat
@@ -289,7 +335,11 @@ class DecoderLM:
         out_aux = {"aux": aux, "z": z}
         if ef is not None:
             out_aux["moe_a2a_state"] = torch.stack(new_ef)
-        return C.vocab_parallel_logits(x, fin["head"]), out_aux
+        w = emb.T if cfg.tied_embeddings else fin["head"]
+        logits = C.vocab_parallel_logits(x, w)
+        if cfg.logit_scale:
+            logits = C.scale_by(logits, cfg.logit_scale)
+        return logits, out_aux
 
     def loss_fn(self, store, batch, remat: bool = True, moe_a2a_state=None):
         """-> (total loss, {"ce", "aux", "z"}); the total adds the router
@@ -300,7 +350,8 @@ class DecoderLM:
         logits, aux = self.forward(store, inputs, remat=remat,
                                    moe_a2a_state=moe_a2a_state)
         loss = C.vocab_parallel_xent(logits, targets, self.cfg.vocab,
-                                     self.tp_group)
+                                     self.tp_group,
+                                     softcap=self.cfg.final_softcap)
         total = loss
         if self.cfg.n_experts:
             total = (total + self.cfg.aux_loss_coef * aux["aux"]
