@@ -2,7 +2,7 @@
 """GPU smoke test of the PyTorch/CUDA port (``src/repro_torch``).
 
     python3 chip_smoke.py            # needs one CUDA card; all phases
-    python3 chip_smoke.py --profile-only [--src OTHER/src]   # phase 4 only
+    python3 chip_smoke.py --profile-only [--src OTHER/src]   # traces only
 
 Phases, in order; any failure exits non-zero and prints no result:
 
@@ -12,9 +12,10 @@ Phases, in order; any failure exits non-zero and prints no result:
 2. kernels: each kernel against its plain PyTorch version on the card, bit
    for bit: ``fused_compress``/``dequant_mean`` at every segment length
    the llama2-400m, deepseek-v3-moe and bucketed llama2-400m LoCo backwards
-   and those of paths k and l give them (derived from the parameter
+   and those of paths k-o give them (derived from the parameter
    declarations, the sync plans and the overlap schedules, ``sync_runs``;
-   262,144 to 469,762,048 elements on k and l) in every variant of their
+   262,144 to 469,762,048 elements on k and l, 163,840 to 128,716,800 on
+   m-o) in every variant of their
    interface (f32 or bf16 gradient, error out of place or in place, f32 or
    bf16 shard, D = 1, 2, 4, 8), ``fused_compress`` in place into the run
    error views of path d's stage pieces, ``act_encode``/``act_decode`` at the
@@ -93,9 +94,20 @@ Phases, in order; any failure exits non-zero and prints no result:
    l. mixtral-8x7b at full width (d_model 4096, GQA 32/8, 8 experts of
       d_ff 14,336 top-2, ``tp_dense``, sliding window 4,096, which seq 1024
       does not cut), 1 of 32 layers, ``--sync loco``, microbatch 2, 3
-      steps, step 2 traced; k and l print their parameters, peak memory,
-      tok/s, step 2's device busy time and the idle share;
-   losses finite (and falling on a, b, d, k and l), every kernel of the path
+      steps, step 2 traced;
+   m. mamba2-2.7b at full width (d_model 2,560, d_inner 5,120, 80 heads
+      of 64, state 128, conv 4, vocab 50,280), M_LAYERS of 64 layers,
+      ``--sync loco``, microbatch 4, 3 steps, step 2 traced;
+   n. zamba2-2.7b at full width (state 64, a shared block of 32 heads and
+      d_ff 10,240 after every 6 mamba layers), 12 of 54 layers: two
+      super-blocks, so the shared block's gradient sums over two
+      applications before its one sync per microbatch; as m otherwise;
+   o. whisper-small whole (12 + 12 layers, d_model 768, vocab 51,865) on
+      1,500 frames (its 30 s window) and 512 decoder tokens, as m
+      otherwise; k-o print their parameters, peak memory (under
+      WIDE_PEAK_GIB), tok/s (o: decoder tokens, and frames/s), step 2's
+      device busy time and the idle share;
+   losses finite (and falling on a, b, d, k-o), every kernel of the path
    launched as often as the code says (counts derived from the parameter
    declarations, the sync plan's encode runs or stage pieces and the
    layer structure, below), split by bit width, and the bucketed sync's
@@ -120,13 +132,7 @@ Phases, in order; any failure exits non-zero and prints no result:
    new state and reference stack bit for bit with the same call on the
    CPU (plain versions, gloo), and each kernel launched as often as the
    schedule's legs (and the probe's roundtrips) derive;
-4. profile: one more full-width step of paths a, b, d and of path a
-   with ``--telemetry`` under torch.profiler: device busy time (kernels,
-   memcpys, memsets) by kernel class, the idle share and the ``loco/*``
-   ranges, per overlap stage on path d (``loco/encode/g1`` ...); the
-   telemetry's cost in busy ms and step time against path a's
-   (informational);
-5. reference: reduced llama2-400m (loco, onebit, and loco bucketed with
+4. reference: reduced llama2-400m (loco, onebit, and loco bucketed with
    ``--bucket-mb 0.1 --policy "embed=loco8,min=16384"``) and reduced
    deepseek-v3-moe (loco, block8) train 3 steps on the card and on the CPU
    (plain versions, gloo); the losses agree within 2e-3 relative at step 0
@@ -142,7 +148,11 @@ Phases, in order; any failure exits non-zero and prints no result:
    attention decoders reduced (mixtral-8x7b, qwen3-moe-30b-a3b with
    block8, gemma2-27b, minicpm-2b, h2o-danube-1.8b, command-r-35b,
    chameleon-34b; seq 128 for the windowed ones, so the window cuts),
-   printed as bit for bit or within the limits (and for gemma2, minicpm
+   and the state-space, hybrid and audio families reduced (mamba2-2.7b
+   and zamba2-2.7b at seq 32 and at seq 128, one SSD chunk of 128 steps,
+   whose gradient only the exp masked before it keeps finite;
+   whisper-small at 32 frames and 32 decoder tokens), printed as bit for
+   bit or within the limits (and for gemma2, minicpm
    and command-r whether step 0 is bit for bit); their scales and soft
    caps give the CPU's bits on the card (``check_scales_exact``);
    reduced deepseek-v3-moe at one microbatch
@@ -155,7 +165,16 @@ Phases, in order; any failure exits non-zero and prints no result:
    ``--bucket-mb 0.0625`` under a uniform policy gives the monolithic
    run's losses bit for bit.
 
-Each phase prints its wall time.
+Where the time goes is read from traces inside the train phase, not from
+models built to profile: paths a, b and the first d trace step 2 (as e,
+k-o do) and print its device busy time by kernel class, the longest
+kernels, the idle share against the unprofiled steps and the ``loco/*``
+ranges (per overlap stage on d); e's traced step against a's gives the
+telemetry's cost; the exact gradient norm's device time on path b's
+shapes follows the paths.  ``--profile-only`` builds the kernels and runs
+paths a and b for 3 steps, step 2 traced, from ``--src`` (to compare two
+commits in one call).  Each phase prints its wall time, and the last
+``done:`` line all of them.
 
 The last lines are the card, one ``{"kernels": [...]}`` JSON object and the
 ``{"ok": true, "device": ...}`` JSON object.
@@ -213,6 +232,9 @@ J_ARGS = _train_args("deepseek-v3-moe", "loco", 3, "--moe-a2a", "block8+ef")
 # Paths e-g: the telemetry on paths a and b, and the other optimizers and
 # schedules.  Each run adds its --metrics-jsonl / --profile-dir paths.
 TELEMETRY_FLAGS = ["--telemetry", "--metrics-every", "1"]
+# Paths a, b and the first d trace step 2 (the breakdown of where the time
+# goes, ``print_trace``), as e and k-o do.
+PROFILE_FLAGS = ["--profile-steps", "2:2"]
 E_ARGS = TRAIN_ARGS + TELEMETRY_FLAGS + ["--profile-steps", "2:2"]
 F_ARGS = _train_args("deepseek-v3-moe", "loco", 3, "--moe-a2a",
                      "block8") + TELEMETRY_FLAGS
@@ -237,11 +259,27 @@ G_ARGS = {name: _train_args("llama2-400m", "loco", 3, *flags, *(
 # 1 of 32 layers, 1,713,418,240 parameters, 8 experts top-2 (tp_dense),
 # sliding window 4,096 (which seq 1024 does not cut; the reference phase
 # runs it where it cuts).
+# Paths m-o: the state-space, hybrid and audio families at full
+# width, microbatch 4, 3 steps, step 2 traced.  mamba2-2.7b: M_LAYERS of 64
+# layers (40,211,184 parameters each, 6 LoCo tensors), the deepest cut
+# whose peak stays under 72 GiB; zamba2-2.7b: 12 of 54 layers, two
+# super-blocks of 6, so the shared attention block is applied, and its
+# gradient summed, twice before its one sync; whisper-small whole (12 + 12
+# layers) on 1,500 frames (its 30 s window) and dec_len 512 tokens.  m's
+# peak grows 1.58 GiB per layer from 8.95 GiB (run AP, 12 and 30 layers):
+# 39 layers peaked at 70.61 GiB (AS), 40 would pass 72.
+M_LAYERS = 39
 WIDE_PATHS = {
     "k": (_train_args("qwen3-moe-30b-a3b", "loco", 3, "--moe-a2a", "block8",
                       "--profile-steps", "2:2", micro=2), 2),
     "l": (_train_args("mixtral-8x7b", "loco", 3, "--profile-steps", "2:2",
-                      micro=2), 1)}
+                      micro=2), 1),
+    "m": (_train_args("mamba2-2.7b", "loco", 3, "--profile-steps", "2:2"),
+          M_LAYERS),
+    "n": (_train_args("zamba2-2.7b", "loco", 3, "--profile-steps", "2:2"),
+          12),
+    "o": (_train_args("whisper-small", "loco", 3, "--profile-steps", "2:2",
+                      "--seq-len", "1500"), None)}
 # Each MoE layer exchanges its slot buffer twice (dispatch, combine); each
 # exchange runs once in the forward, once in the checkpoint's recomputation
 # and once in the backward (the cotangent rides the same wire), and calls
@@ -260,11 +298,10 @@ def _plan(argv, tp: int = 1):
 
     from repro_torch.core import buckets
     from repro_torch.launch import steps, train
-    from repro_torch.models.transformer import build_groups
 
     args = train.build_args(argv)
     run = train.make_run(args)
-    groups = build_groups(train.make_cfg(args), tp)
+    groups = steps.model_groups(train.make_cfg(args), tp)
     topo = types.SimpleNamespace(tp=tp, dp=1)
     return run, (steps.build_sync_plan(run, groups, topo)
                  or buckets.monolithic_sync_plan(groups, topo, run.sync))
@@ -338,9 +375,9 @@ def loco_sizes(argv, tp: int = 1) -> dict[int, int]:
 def loco_path_sizes(tp: int = 1) -> list[int]:
     """Every segment length the LoCo paths (llama, deepseek, bucketed
     llama overlapped and flat; the checkpoint phase runs path d; at tp =
-    1 also paths k and l) launch fused_compress and dequant_mean at, on a
+    1 also paths k-o) launch fused_compress and dequant_mean at, on a
     rank of a ``tp``-way model group.  (A length does not depend on the
-    depth that paths k and l cut.)"""
+    depth that paths k-n cut.)"""
     paths = [TRAIN_ARGS, MOE_ARGS, BUCKET_ARGS, FLAT_ARGS]
     if tp == 1:
         paths += [argv for argv, _ in WIDE_PATHS.values()]
@@ -545,7 +582,11 @@ def check_kernels(LQ, dev) -> dict:
 
     gen = torch.Generator(device=dev).manual_seed(0)
     worst = {"fused_compress": 0.0, "dequant_mean": 0.0}
-    runs = [(n, COMPRESS_CELLS, (1, 2, 4, 8)) for n in kernel_sizes()]
+    # D peers of n / D elements each, where a dp = D run's chunks would
+    # be that long (a multiple of 512)
+    runs = [(n, COMPRESS_CELLS, tuple(D for D in (1, 2, 4, 8)
+                                      if n % (D * 512) == 0))
+            for n in kernel_sizes()]
     runs.append((DIVIDE_N, (DIVIDE_CELL,), (DIVIDE_D,)))
     for n, cells, peers in runs:
         g32 = _grad(n, gen, dev)
@@ -971,8 +1012,7 @@ def main(argv=None) -> int:
             if "registers" in line or "spill" in line:
                 print(f"build: {b.name}: {line.strip()}")
     if opts.profile_only:
-        for args in (TRAIN_ARGS, MOE_ARGS):
-            profile_phase(args)
+        profile_only(src)
         return 0
 
     from repro_torch.kernels import act_quant as AQ
@@ -995,37 +1035,32 @@ def main(argv=None) -> int:
                                               t["max_abs_err"])
     timing["onebit_pack"] = kernel_onebit(SP, dev, rate)
     torch.cuda.empty_cache()
-    print(f"kernels: phase done at {time.perf_counter() - t_start:.1f} s",
+    phase_s = {"build and kernels": time.perf_counter() - t_start}
+    print(f"kernels: phase done at {phase_s['build and kernels']:.1f} s",
           flush=True)
 
     t0 = time.perf_counter()
     launches = train_phase(LQ)
-    print(f"train: phase took {time.perf_counter() - t0:.1f} s", flush=True)
+    time_grad_norm(dev, rate)
+    phase_s["train"] = time.perf_counter() - t0
+    print(f"train: phase took {phase_s['train']:.1f} s", flush=True)
     t0 = time.perf_counter()
     _add(launches, checkpoint_phase(LQ, src))
-    print(f"checkpoint: phase took {time.perf_counter() - t0:.1f} s",
+    phase_s["checkpoint"] = time.perf_counter() - t0
+    print(f"checkpoint: phase took {phase_s['checkpoint']:.1f} s",
           flush=True)
     t0 = time.perf_counter()
     _add(launches, hierarchical_phase(LQ, dev))
-    print(f"hierarchical: phase took {time.perf_counter() - t0:.1f} s",
+    phase_s["hierarchical"] = time.perf_counter() - t0
+    print(f"hierarchical: phase took {phase_s['hierarchical']:.1f} s",
           flush=True)
     missing = [name for name, _, _ in KERNEL_ROWS if not launches.get(name)]
     if missing:
         raise AssertionError(f"train: kernels never launched: {missing}")
     t0 = time.perf_counter()
-    prof = {name: profile_phase(args) for name, args in (
-        ("a", TRAIN_ARGS), ("b", MOE_ARGS), ("d", BUCKET_ARGS),
-        ("a --telemetry", TRAIN_ARGS + ["--telemetry"]))}
-    a, tel = prof["a"], prof["a --telemetry"]
-    print(f"profile: telemetry on path a: device busy {tel['busy_ms']:.1f} "
-          f"against {a['busy_ms']:.1f} ms ({tel['busy_ms'] / a['busy_ms']:.3f}"
-          f"x); step {tel['wall_ms']:.1f} against {a['wall_ms']:.1f} ms "
-          f"(information: steps spread 2-2.6x between calls)", flush=True)
-    time_grad_norm(dev, rate)
-    print(f"profile: phase took {time.perf_counter() - t0:.1f} s", flush=True)
-    t0 = time.perf_counter()
     reference_phase()
-    print(f"reference: phase took {time.perf_counter() - t0:.1f} s",
+    phase_s["reference"] = time.perf_counter() - t0
+    print(f"reference: phase took {phase_s['reference']:.1f} s",
           flush=True)
 
     rows = []
@@ -1038,7 +1073,8 @@ def main(argv=None) -> int:
                      "host_us": t["host_us"], "plain_ms": t["plain_ms"],
                      "bound_ms": t["bound_ms"], "bound_by": "bytes",
                      "library_ms": t["library_ms"]})
-    print(f"done: all phases in {time.perf_counter() - t_start:.0f} s",
+    print(f"done: all phases in {time.perf_counter() - t_start:.0f} s ("
+          + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items()) + " s)",
           flush=True)
     print(f"card: {card}")
     print(json.dumps({"kernels": rows}))
@@ -1230,9 +1266,11 @@ def _add(total: dict, launches: dict) -> None:
 # (run AG; a, d and the checkpoint run did not move), and b, k and l once
 # the GQA kv expansion's backward summed each kv head's gradient in one
 # reduction instead of with atomics (run AM; before it, k and l gave other
-# losses from step 1 on in every run): the losses each later run must
-# give bit for bit.  (Launches and sync collectives are held against the
-# counts derived from the code in train_path.)
+# losses from step 1 on in every run), and m-o as they first ran (n in run
+# AP, m and o in AS, once o's position table folded its constants as XLA
+# does): the losses each later run must give bit for bit.  (Launches and
+# sync collectives are held against the counts derived from the code in
+# train_path.)
 PARENT_LOSSES = {
     "a": [10.68307113647461, 10.063494682312012, 9.444881439208984,
           9.20444107055664, 8.938138961791992, 8.848569869995117],
@@ -1240,6 +1278,9 @@ PARENT_LOSSES = {
           9.564414978027344, 9.370407104492188, 9.285638809204102],
     "k": [12.531103134155273, 10.805315971374512, 11.063454627990723],
     "l": [10.822874069213867, 9.450738906860352, 8.818324089050293],
+    "m": [11.368759155273438, 11.360269546508789, 11.350048065185547],
+    "n": [10.82774543762207, 10.811525344848633, 10.770065307617188],
+    "o": [11.149747848510742, 10.374307632446289, 9.838129043579102],
     "c": [10.68307113647461, 10.269109725952148, 9.740499496459961],
     "d": [10.68307113647461, 10.062131881713867, 9.441957473754883],
     "d'": [10.68307113647461, 10.062131881713867, 9.441957473754883]}
@@ -1252,6 +1293,9 @@ def check_parent(name: str, res: dict, label: str | None = None,
     """The run ``label`` (default: path ``name``) gave path ``name``'s
     parent losses (or ``want``) bit for bit, as far as it ran."""
     got = res["losses"]
+    if want is None and name not in PARENT_LOSSES:
+        raise AssertionError(f"train: path {name} has no PARENT_LOSSES "
+                             f"record; its losses were {got}")
     want = (PARENT_LOSSES[name] if want is None else want)[:len(got)]
     label = label or name
     ok = got == want
@@ -1297,13 +1341,17 @@ def train_phase(LQ) -> dict:
     path the parent's losses (``check_parent``), with no model-group
     collective called.  Returns
     every kernel's launches summed over the runs."""
+    import tempfile
+
     total: dict[str, int] = {}
     runs: dict[str, list] = {"a": [], "b": [], "d": [], "d'": []}
-    with count_model_group_calls() as tp_calls:
-        for name, argv, falls in (("a", TRAIN_ARGS, True),
-                                  ("b", MOE_ARGS, True),
+    with count_model_group_calls() as tp_calls, \
+            tempfile.TemporaryDirectory(prefix="chip_smoke_trace_") as tmp:
+        traced = PROFILE_FLAGS + ["--profile-dir", tmp]
+        for name, argv, falls in (("a", TRAIN_ARGS + traced, True),
+                                  ("b", MOE_ARGS + traced, True),
                                   ("c", ONEBIT_ARGS, False),
-                                  ("d", BUCKET_ARGS, True),
+                                  ("d", BUCKET_ARGS + traced, True),
                                   ("d'", FLAT_ARGS, True),
                                   ("d'", FLAT_ARGS, True),
                                   ("d", BUCKET_ARGS, True)):
@@ -1312,6 +1360,9 @@ def train_phase(LQ) -> dict:
             _add(total, launches)
             if name in runs:
                 runs[name].append(res)
+            if "--profile-steps" in argv:
+                print_trace(f"train[{name}]", res["trace"],
+                            unprofiled_wall_ms(res))
         _add(total, telemetry_paths(LQ, runs["a"][0], runs["b"][0]))
         _add(total, optimizer_paths(LQ, runs["a"][0]))
         _add(total, topk_paths(LQ, runs["a"][0]))
@@ -1411,6 +1462,12 @@ def telemetry_paths(LQ, a: dict, b: dict) -> dict:
               f", information: the trace of step 2 is inside e's clock, "
               f"and stopping it took {max(stop_s):.1f} s); {_trace_line(e)}",
               flush=True)
+        ta, te = a["trace"]["device_busy_ms"], e["trace"]["device_busy_ms"]
+        wa, we = unprofiled_wall_ms(a), unprofiled_wall_ms(e)
+        print(f"telemetry: its cost on path a: traced step 2 device busy "
+              f"{te:.1f} against {ta:.1f} ms ({te / ta:.3f}x); unprofiled "
+              f"step {we:.1f} against {wa:.1f} ms (information: steps "
+              f"spread 2-2.6x between calls)", flush=True)
         path = os.path.join(tmp, "f.jsonl")
         launches, f = train_path(LQ, F_ARGS + ["--metrics-jsonl", path],
                                  True)
@@ -1594,29 +1651,45 @@ def ef_path(LQ, b: dict) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase 3, paths k and l: the pool's other MoEs at full width
+# phase 3, paths k-o: the pool's other families at full width
 # ---------------------------------------------------------------------------
 
 def tokens_per_step(argv) -> int:
+    """Tokens one step of ``argv`` trains on: an encoder-decoder's decoder
+    tokens (its frames are ``frames_per_step``)."""
+    from repro_torch.launch import train
+
+    args = train.build_args(argv)
+    cfg = train.make_cfg(args)
+    return args.global_batch * (cfg.dec_len if cfg.enc_dec
+                                else args.seq_len)
+
+
+def frames_per_step(argv) -> int:
     from repro_torch.launch import train
 
     args = train.build_args(argv)
     return args.global_batch * args.seq_len
 
 
+# the peak device memory paths k-o must stay under (of the card's 80 GB)
+WIDE_PEAK_GIB = 72.0
+
+
 def wide_paths(LQ) -> dict:
-    """Paths k (qwen3-moe-30b-a3b, 2 layers) and l (mixtral-8x7b, 1
-    layer) at full width: losses finite and falling and the recorded ones
-    bit for bit (``check_parent``), every kernel launched as derived
-    (``train_path``, under the depth cut).  Prints the
-    parameters, the peak memory, tok/s, step 2's device busy time and
-    launches (traced), and the idle share of the unprofiled step 1 (1 -
-    busy / wall).  Returns their launches."""
+    """Paths k (qwen3-moe-30b-a3b, 2 layers), l (mixtral-8x7b, 1 layer),
+    m (mamba2-2.7b, M_LAYERS layers), n (zamba2-2.7b, 12 layers) and o
+    (whisper-small, whole) at full width: losses finite and falling and
+    the recorded ones bit for bit (``check_parent``), every kernel
+    launched as derived (``train_path``, under the depth cut), the peak
+    under WIDE_PEAK_GIB.  Prints the parameters, the peak memory, tok/s
+    (and frames/s for whisper), step 2's device busy time and launches
+    (traced), and the idle share of the unprofiled step 1 (1 - busy /
+    wall).  Returns their launches."""
     import tempfile
 
     from repro_torch.configs.base import get_arch
-    from repro_torch.launch import train
-    from repro_torch.models.transformer import build_groups
+    from repro_torch.launch import steps, train
 
     total: dict[str, int] = {}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_wide_") as tmp:
@@ -1628,26 +1701,35 @@ def wide_paths(LQ) -> dict:
             check_parent(name, res)
             _add(total, launches)
             n = sum(math.prod(i.shape) * (g.n_layers or 1)
-                    for g in build_groups(cfg, 1) for i in g.infos)
+                    for g in steps.model_groups(cfg, 1) for i in g.infos)
             t = res["trace"]
             if not t or not t["device_busy_ms"]:
                 raise AssertionError(f"wide: path {name}: the trace of "
                                      f"step 2 holds no device time ({t})")
             wall = res["step_ms"][0]
-            print(f"wide: path {name}: {cfg.name}, {layers} of "
-                  f"{get_arch(cfg.name).n_layers} layers at full "
+            depth = (f"{layers} of {get_arch(cfg.name).n_layers} layers"
+                     if layers else f"whole ({cfg.enc_layers} + "
+                     f"{cfg.n_layers} layers)" if cfg.enc_dec else "whole")
+            frames = (f", {frames_per_step(argv) / wall * 1e3:.1f} frames/s"
+                      if cfg.enc_dec else "")
+            peak = res["peak_mem_bytes"] / 2**30
+            print(f"wide: path {name}: {cfg.name}, {depth} at full "
                   f"width, {n:,} parameters; losses {res['losses']}; "
                   f"{res['tok_per_s']:.1f} tok/s after the first step "
                   f"(the traced step 2 included), "
-                  f"{tokens_per_step(argv) / wall * 1e3:.1f} tok/s on step "
-                  f"1 ({wall:.1f} ms, unprofiled); peak device memory "
-                  f"{res['peak_mem_bytes'] / 2**30:.2f} GiB "
+                  f"{tokens_per_step(argv) / wall * 1e3:.1f} tok/s{frames} "
+                  f"on step 1 ({wall:.1f} ms, unprofiled); peak device "
+                  f"memory {peak:.2f} GiB "
                   f"({res['peak_mem_bytes'] / n:.2f} B per parameter); "
                   f"step 2 traced: device "
                   f"busy {t['device_busy_ms']:.1f} ms in "
                   f"{t['device_launches']} launches; idle share "
                   f"{max(0.0, 1 - t['device_busy_ms'] / wall):.1%} (step 2's "
                   f"busy over step 1's wall)", flush=True)
+            print_trace(f"wide[{name}]", t, wall)
+            if peak > WIDE_PEAK_GIB:
+                raise AssertionError(f"wide: path {name} peaked at "
+                                     f"{peak:.2f} GiB, over {WIDE_PEAK_GIB}")
     return total
 
 
@@ -1797,12 +1879,17 @@ CKPT_ARGS = _train_args("llama2-400m", "loco", 4, "--bucket-mb", "4",
 
 
 @contextlib.contextmanager
-def cut_depth(layers: int):
-    """Train (and derive counts for) ``layers`` layers of the CLI's model."""
+def cut_depth(layers: int | None):
+    """Train (and derive counts for) ``layers`` layers of the CLI's model
+    (None: its whole depth).  A hybrid's cut must be whole super-blocks
+    (``build_groups`` refuses any other)."""
     import dataclasses
 
     from repro_torch.launch import train
 
+    if layers is None:
+        yield
+        return
     make_cfg = train.make_cfg
     train.make_cfg = lambda args: dataclasses.replace(make_cfg(args),
                                                       n_layers=layers)
@@ -1960,89 +2047,68 @@ def time_grad_norm(dev, rate: float) -> None:
     torch.cuda.empty_cache()
 
 
-def profile_phase(argv) -> None:
-    """Where one full-width step spends device time: median wall time of
-    two unprofiled steps, then one step under torch.profiler.  Device busy
-    time is the sum of its kernels, memcpys and memsets (``is_device_work``);
-    the GPU-side ``loco/*`` annotation ranges span that work, so they are
-    printed apart, with the sum that also counted them.  Informational: an
-    empty trace is reported, not failed.  Returns the step's ``wall_ms``
-    and ``busy_ms``."""
-    import torch
-    from torch.autograd import DeviceType
-
-    from repro_torch.configs.base import ShapeConfig
-    from repro_torch.core.flatparam import MeshTopo
-    from repro_torch.data.synthetic import DataConfig, make_batch_fn
-    from repro_torch.launch import mesh, steps, train
-
-    args = train.build_args(argv)
-    cfg, run = train.make_cfg(args), train.make_run(args)
-    dev = torch.device("cuda", 0)
-    shape = ShapeConfig("smoke", args.seq_len, args.global_batch, "train")
-    batch_fn = make_batch_fn(DataConfig(cfg.vocab, args.seq_len,
-                                        args.global_batch, args.seed))
-    tag = (f"profile[{cfg.name}{' bucketed' if run.wants_buckets() else ''}"
-           f"{' telemetry' if run.telemetry else ''}]")
-    with mesh.dp_group(dev) as group:
-        topo = MeshTopo.from_group(group, model=mesh.model_group())
-        ts = steps.make_init(cfg, run, topo, dev, args.seed, shape)
-        step_fn = steps.make_train_step(cfg, run, topo, dev, shape)
-        walls = []
-        for s in range(3):
-            t = time.perf_counter()
-            float(step_fn(ts, s, batch_fn(s))["loss"])
-            walls.append(time.perf_counter() - t)
-        wall_ms = statistics.median(walls[1:]) * 1e3
-        acts = [torch.profiler.ProfilerActivity.CPU,
-                torch.profiler.ProfilerActivity.CUDA]
-        with torch.profiler.profile(activities=acts) as prof:
-            float(step_fn(ts, 3, batch_fn(3))["loss"])
-        del ts
-    torch.cuda.empty_cache()
-    events = prof.key_averages()
-    work = [e for e in events if is_device_work(e)]
-    annotations = [e for e in events if e.device_type == DeviceType.CUDA
-                   and e.is_user_annotation]
-    busy_ms = sum(e.self_device_time_total for e in work) / 1e3
-    counted_ms = busy_ms + sum(e.self_device_time_total
-                               for e in annotations) / 1e3
-    print(f"{tag}: step {wall_ms:.1f} ms unprofiled (median of 2, "
-          f"{args.global_batch * args.seq_len / wall_ms * 1e3:.0f} tok/s); "
-          f"device busy {busy_ms:.1f} ms in the profiled step "
-          f"({sum(e.count for e in work)} kernels, memcpys and memsets); "
-          f"device idle share {max(0.0, 1 - busy_ms / wall_ms):.1%}; a sum "
-          f"that also counts the GPU-side annotation ranges gives "
-          f"{counted_ms:.1f} ms", flush=True)
-    out = {"wall_ms": wall_ms, "busy_ms": busy_ms}
-    if not work:
-        print(f"{tag}: the profiler saw no device time", flush=True)
-        return out
+def print_trace(tag: str, t: dict, wall_ms: float) -> None:
+    """Where one traced training step spends device time
+    (``profiler.window_summary`` of the run's ``--profile-steps`` window,
+    ``t``): busy time (kernels, memcpys and memsets) by kernel class, the
+    ten longest kernels, this repo's kernels, the idle share against the
+    unprofiled step wall time ``wall_ms``, and each ``loco/*`` range's
+    GPU-side span (not device work of its own) and host time.
+    Informational."""
+    busy = t["device_busy_ms"]
+    print(f"{tag}: traced step: device busy {busy:.1f} ms in "
+          f"{t['device_launches']} kernels, memcpys and memsets; "
+          f"unprofiled step {wall_ms:.1f} ms; device idle share "
+          f"{max(0.0, 1 - busy / wall_ms):.1%}", flush=True)
+    kernels = t.get("kernels") or {}
+    if not busy or not kernels:
+        print(f"{tag}: the trace holds no device time by kernel", flush=True)
+        return
     by_class: dict[str, list] = {}
-    for e in work:
-        c = by_class.setdefault(_kernel_class(e.key), [0.0, 0])
-        c[0] += e.self_device_time_total / 1e3
-        c[1] += e.count
+    for key, (ms, count) in kernels.items():
+        c = by_class.setdefault(_kernel_class(key), [0.0, 0])
+        c[0] += ms
+        c[1] += count
     for c, (ms, count) in sorted(by_class.items(), key=lambda kv: -kv[1][0]):
-        print(f"{tag}: {c}: {ms:.1f} ms x{count} ({ms / busy_ms:.1%} of "
-              f"busy)")
-    for e in sorted(work, key=lambda e: -e.self_device_time_total)[:10]:
-        print(f"{tag}: kernel {e.key[:90]} x{e.count}: "
-              f"{e.self_device_time_total / 1e3:.2f} ms")
-    for e in work:
-        if any(k in e.key.lower() for k in KERNEL_NAMES):
-            print(f"{tag}: kernel {e.key[:60]} x{e.count}: "
-                  f"{e.self_device_time_total / 1e3:.2f} ms")
-    for e in events:
-        if not e.key.startswith("loco/"):
-            continue
-        if e.device_type == DeviceType.CUDA:
-            print(f"{tag}: annotation {e.key} x{e.count}: GPU-side span "
-                  f"{e.device_time_total / 1e3:.1f} ms (not device work)")
-        else:
-            print(f"{tag}: range {e.key} x{e.count}: host "
-                  f"{e.cpu_time_total / 1e3:.1f} ms", flush=True)
-    return out
+        print(f"{tag}: {c}: {ms:.1f} ms x{count} ({ms / busy:.1%} of busy)")
+    ranked = sorted(kernels.items(), key=lambda kv: -kv[1][0])
+    for key, (ms, count) in ranked[:10]:
+        print(f"{tag}: kernel {key[:90]} x{count}: {ms:.2f} ms")
+    for key, (ms, count) in ranked:
+        if any(k in key.lower() for k in KERNEL_NAMES):
+            print(f"{tag}: kernel {key[:60]} x{count}: {ms:.2f} ms")
+    for key, ms in sorted(t["ranges"].items()):
+        print(f"{tag}: annotation {key}: GPU-side span {ms:.1f} ms (not "
+              "device work)")
+    for key, ms in sorted((t.get("host_ranges") or {}).items()):
+        print(f"{tag}: range {key}: host {ms:.1f} ms", flush=True)
+
+
+def unprofiled_wall_ms(res: dict, traced: int = 2) -> float:
+    """Median wall time of a run's steps after the first but the traced
+    one (``res["step_ms"][0]`` is step 1)."""
+    walls = [ms for i, ms in enumerate(res["step_ms"], 1) if i != traced]
+    return statistics.median(walls)
+
+
+def profile_only(src: Path) -> None:
+    """``--profile-only``: paths a and b, 3 steps each, step 2 traced,
+    from the package tree ``src`` (another checkout's, to compare two
+    commits in one call); prints ``print_trace``'s breakdown."""
+    import tempfile
+
+    from repro_torch.launch import train
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_prof_") as tmp:
+        for name, argv in (("a", TRAIN_ARGS), ("b", MOE_ARGS)):
+            argv = argv + ["--steps", "3"] + PROFILE_FLAGS + [
+                "--profile-dir", tmp]
+            res = train.main(argv)
+            print(f"profile[{name}] {src}: losses {res['losses']}",
+                  flush=True)
+            print_trace(f"profile[{name}]", res["trace"] or {
+                "device_busy_ms": 0.0, "device_launches": 0, "ranges": {}},
+                        unprofiled_wall_ms(res))
 
 
 # ---------------------------------------------------------------------------
@@ -2087,7 +2153,22 @@ REF_RUNS = {"llama2-400m loco": _ref_args("llama2-400m", "loco"),
                    ("minicpm-2b", ()),
                    ("h2o-danube-1.8b", ("--seq-len", "128")),
                    ("command-r-35b", ()),
-                   ("chameleon-34b", ()))}}
+                   ("chameleon-34b", ()))},
+            # the state-space, hybrid and audio families; mamba2
+            # and zamba2 also at seq 128, one SSD chunk of 128 steps, where
+            # only the exp masked before it keeps the gradient finite.
+            # zamba2 at lr 1e-3: at 2e-3 its step-2 loss is chaotic at the
+            # limit's scale (the CPU alone moves it by 0.0125 between 1 and
+            # 4 threads; the card was 0.0205 and 0.0212 from the CPU, run
+            # AQ), as the mixer's bf16 gradient is 65% from its f32 one in
+            # both packages (PERF.md); at 1e-3 the CPU's spread is
+            # 0.0044 (seq 32) and 0 (seq 128)
+            **{f"{arch} loco{tag}": _ref_args(arch, "loco", *extra, *(
+                ("--lr", "1e-3") if arch == "zamba2-2.7b" else ()))
+               for arch in ("mamba2-2.7b", "zamba2-2.7b")
+               for tag, extra in (("", ()),
+                                  (" seq 128", ("--seq-len", "128")))},
+            "whisper-small loco": _ref_args("whisper-small", "loco")}
 # The scaled, tied and soft-capped configs: their step-0 loss on the card
 # against the CPU's is printed (bit for bit or the gap); their scales and
 # soft caps are held to the CPU's bits (check_scales_exact).

@@ -1,8 +1,7 @@
-"""Import every architecture config the port runs (populates the registry).
+"""Import every architecture config (populates the registry).
 
 ``ASSIGNED`` is the reference's list (``repro.configs.all_archs``) in its
-order, without the three families the port does not run yet
-(:data:`repro_torch.configs.base.NOT_PORTED`).
+order.
 """
 from repro_torch.configs import (  # noqa: F401
     chameleon_34b,
@@ -11,9 +10,12 @@ from repro_torch.configs import (  # noqa: F401
     gemma2_27b,
     h2o_danube_1p8b,
     llama2_400m,
+    mamba2_2p7b,
     minicpm_2b,
     mixtral_8x7b,
     qwen3_moe_30b_a3b,
+    whisper_small,
+    zamba2_2p7b,
 )
 
 ASSIGNED = [
@@ -23,6 +25,9 @@ ASSIGNED = [
     "deepseek-v3-moe",
     "minicpm-2b",
     "gemma2-27b",
+    "zamba2-2.7b",
+    "whisper-small",
     "command-r-35b",
+    "mamba2-2.7b",
     "h2o-danube-1.8b",
 ]

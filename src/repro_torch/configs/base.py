@@ -64,6 +64,14 @@ class ArchConfig:
     def hd(self) -> int:
         return self.head_dim or (self.d_model // max(self.n_heads, 1))
 
+    @property
+    def d_inner(self) -> int:
+        return self.expand * self.d_model
+
+    @property
+    def ssm_heads(self) -> int:
+        return self.d_inner // self.ssm_headdim
+
 
 def reduced(cfg: ArchConfig, max_d: int = 256, n_layers: int = 2,
             max_experts: int = 4) -> ArchConfig:
@@ -121,18 +129,9 @@ def register(cfg: ArchConfig) -> ArchConfig:
     return cfg
 
 
-# The reference's configs whose families the port does not run yet
-# (ROADMAP.md): refused by name.
-NOT_PORTED = {"mamba2-2.7b": "ssm", "zamba2-2.7b": "hybrid",
-              "whisper-small": "audio"}
-
-
 def get_arch(name: str) -> ArchConfig:
     import repro_torch.configs.all_archs  # noqa: F401  (the registry)
 
-    if name in NOT_PORTED:
-        raise ValueError(f"arch {name!r}: the {NOT_PORTED[name]} family is "
-                         "not ported yet (ROADMAP.md)")
     try:
         return _REGISTRY[name]
     except KeyError:

@@ -30,8 +30,10 @@ A replicated leaf (``tp_dim`` None) is wrapped in
 """
 from __future__ import annotations
 
+import concurrent.futures
 import dataclasses
 import math
+import os
 import zlib
 from typing import Sequence
 
@@ -287,11 +289,11 @@ def init_train_state(groups: Sequence[ParamGroup], cfg: SyncConfig,
     one per encode run under ``coalesce``, one per bucket otherwise (see
     :func:`state_units`), each stacked over layers like the chunk.
     """
+    drawn = _draw_chunks(groups, topo, device, seed)
     chunks, states = {}, {}
     for g in groups:
         cg, sg = {}, {}
         for info in g.infos:
-            name = f"{g.name}/{info.name}"
             if plan is not None and info.loco:
                 s = init_sync_state_units(plan.lookup(g.name, info.name),
                                           device, coalesce)
@@ -299,18 +301,41 @@ def init_train_state(groups: Sequence[ParamGroup], cfg: SyncConfig,
                 s = init_sync_state(info, cfg, topo, device)
             if g.stacked:
                 cg[info.name] = torch.stack([
-                    init_chunk(info, _param_gen(seed, name, l), topo, device)
+                    drawn.pop((g.name, info.name, l))
                     for l in range(g.n_layers)])
                 sg[info.name] = (
                     tuple(torch.stack([u] * g.n_layers) for u in s)
                     if isinstance(s, tuple)
                     else torch.stack([s] * g.n_layers))
             else:
-                cg[info.name] = init_chunk(info, _param_gen(seed, name, 0),
-                                           topo, device)
+                cg[info.name] = drawn.pop((g.name, info.name, 0))
                 sg[info.name] = s
         chunks[g.name], states[g.name] = cg, sg
     return chunks, states
+
+
+INIT_THREADS = 8
+
+
+def _draw_chunks(groups: Sequence[ParamGroup], topo: MeshTopo,
+                 device: torch.device, seed: int) -> dict:
+    """``{(group, name, layer): chunk}`` of every tensor (and layer) of
+    ``groups``, drawn on a pool of host threads: each draw has its own
+    generator (``_param_gen``), so the bits do not depend on the order,
+    and a large model's CPU draws overlap."""
+    jobs = [(g.name, info, l) for g in groups for info in g.infos
+            for l in range(g.n_layers or 1)]
+
+    def draw(job):
+        gname, info, l = job
+        return init_chunk(info, _param_gen(seed, f"{gname}/{info.name}", l),
+                          topo, device)
+
+    workers = min(INIT_THREADS, os.cpu_count() or 1, len(jobs))
+    with concurrent.futures.ThreadPoolExecutor(max(workers, 1)) as ex:
+        out = list(ex.map(draw, jobs))
+    return {(gname, info.name, l): c for (gname, info, l), c in zip(jobs,
+                                                                   out)}
 
 
 # ---------------------------------------------------------------------------

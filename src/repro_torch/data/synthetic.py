@@ -6,7 +6,8 @@ short-range Markov flavor (a cluster id walks a cycle every 8 tokens; each
 cluster has its own jittered zipf distribution), so a language model has
 learnable structure and the loss falls.  Batches are a pure function of
 (seed, step).  The bits differ from the JAX stream (different generators);
-the distribution is the same.
+the distribution is the same.  :func:`make_whisper_batch_fn` adds the
+audio family's stub frame embeddings, standard normal in bf16.
 """
 from __future__ import annotations
 
@@ -46,5 +47,22 @@ def make_batch_fn(cfg: DataConfig):
         idx = torch.searchsorted(flat_cdf, clusters + u)
         toks = torch.clamp(idx - clusters * cfg.vocab, 0, cfg.vocab - 1)
         return {"tokens": toks}
+
+    return batch_fn
+
+
+def make_whisper_batch_fn(cfg: DataConfig, d_model: int, dec_len: int):
+    """Returns batch_fn(step) -> {"frames": (global_batch, seq_len,
+    d_model) bf16, "tokens": (global_batch, dec_len + 1) int64} on the
+    CPU: ``seq_len`` is the encoder's frame count, the tokens are the
+    token stream at the decoder's length."""
+    tok_fn = make_batch_fn(dataclasses.replace(cfg, seq_len=dec_len))
+
+    def batch_fn(step: int) -> dict[str, torch.Tensor]:
+        g = torch.Generator().manual_seed(
+            (cfg.seed * 1_000_003 + step + 1) * 7 + 3)
+        frames = torch.randn(cfg.global_batch, cfg.seq_len, d_model,
+                             generator=g).to(torch.bfloat16)
+        return {"frames": frames, "tokens": tok_fn(step)["tokens"]}
 
     return batch_fn

@@ -60,6 +60,7 @@ from repro_torch.core import wirepack as WP
 from repro_torch.core.comm import divide, sum_f64
 from repro_torch.core.flatparam import MeshTopo
 from repro_torch.core.loco import SyncConfig, maybe_reset
+from repro_torch.models import whisper as WH
 from repro_torch.models.transformer import DecoderLM, build_groups
 from repro_torch.optim import optimizers as OPT
 from repro_torch.optim.schedules import make_schedule
@@ -109,6 +110,21 @@ class RunConfig:
 
     def wants_buckets(self) -> bool:
         return self.bucket_bytes > 0 or self.policy is not None
+
+
+def build_model(cfg: ArchConfig, tp: int = 1, model_group=None,
+                sp: bool = False):
+    """The model of ``cfg``: the encoder-decoder (whisper) or the decoder
+    (every other family)."""
+    if cfg.enc_dec:
+        return WH.EncDecLM(cfg, tp, model_group=model_group)
+    return DecoderLM(cfg, tp, model_group=model_group, sp=sp)
+
+
+def model_groups(cfg: ArchConfig, tp: int):
+    """The parameter declarations of ``cfg``'s model on a rank of a
+    ``tp``-way model group."""
+    return (WH.build_groups if cfg.enc_dec else build_groups)(cfg, tp)
 
 
 def build_sync_plan(run: RunConfig, groups,
@@ -351,7 +367,7 @@ def make_init(cfg: ArchConfig, run: RunConfig, topo: MeshTopo,
     """This rank's initial train state.  A ``block8+ef`` MoE model adds
     its zero combine residuals under ``states["_moe_a2a"]``, which are
     activation-shaped: it needs the train ``shape``."""
-    groups = build_groups(cfg, topo.tp)
+    groups = model_groups(cfg, topo.tp)
     chunks, states = FP.init_train_state(
         groups, run.sync, topo, device, seed,
         plan=build_sync_plan(run, groups, topo), coalesce=run.coalesce)
@@ -444,8 +460,10 @@ def make_train_step(cfg: ArchConfig, run: RunConfig, topo: MeshTopo,
                     device: torch.device, shape: ShapeConfig):
     """Returns ``step_fn(state, step, batch) -> metrics``.
 
-    ``batch["tokens"]`` is the global ``(global_batch, seq_len + 1)`` batch;
-    each rank trains on its ``global_batch / dp`` rows in microbatches of
+    ``batch["tokens"]`` is the global ``(global_batch, seq_len + 1)`` batch
+    (an encoder-decoder's: ``(global_batch, dec_len + 1)`` tokens and
+    ``batch["frames"]``, ``(global_batch, seq_len, d_model)``); each rank
+    trains on its ``global_batch / dp`` rows in microbatches of
     ``run.microbatch`` (the ranks of one data index, the same rows).
     ``metrics`` holds 0-dim tensors ``loss`` (the total loss, router
     losses included, mean over the dp x tp ranks), ``gnorm`` (pre-clip
@@ -457,7 +475,7 @@ def make_train_step(cfg: ArchConfig, run: RunConfig, topo: MeshTopo,
     finalized on the host.  A probe step (``is_probe_step``) adds the
     ``telemetry/fidelity.fidelity_keys`` the same way.
     """
-    model = DecoderLM(cfg, topo.tp, model_group=topo.model, sp=True)
+    model = build_model(cfg, topo.tp, model_group=topo.model, sp=True)
     moe_metrics = bool(cfg.n_experts)
     groups = model.groups()
     opt = _make_opt(run)
@@ -491,9 +509,10 @@ def make_train_step(cfg: ArchConfig, run: RunConfig, topo: MeshTopo,
     with_ef = ACT.wants_ef(cfg)
 
     def step_fn(ts: TrainState, step: int, batch: dict) -> dict:
-        rows = batch["tokens"][topo.rank * local_batch:
-                               (topo.rank + 1) * local_batch]
-        mbs = rows.to(device).reshape(accum, micro, -1)
+        # this rank's rows of every batch tensor, cut into microbatches
+        mbs = {k: v[topo.rank * local_batch:(topo.rank + 1) * local_batch]
+               .to(device).reshape(accum, micro, *v.shape[1:])
+               for k, v in batch.items()}
         leaves = _leaves(ts.chunks, groups)
         probe = is_probe_step(run, step)
         pbufs = None
@@ -514,7 +533,8 @@ def make_train_step(cfg: ArchConfig, run: RunConfig, topo: MeshTopo,
                                   overlap=run.overlap and not probe,
                                   probe=pbufs)
             kw = {} if ef is None else {"moe_a2a_state": ef}
-            loss, aux = model.loss_fn(store, {"tokens": mbs[i]},
+            loss, aux = model.loss_fn(store, {k: v[i] for k, v in
+                                              mbs.items()},
                                       remat=run.remat, **kw)
             loss.backward()
             if ef is not None:

@@ -89,13 +89,13 @@ from repro_torch.core.flatparam import MeshTopo
 from repro_torch.core.loco import SyncConfig
 from repro_torch.core.policy import parse_policy
 from repro_torch.core.quantizer import QuantConfig
-from repro_torch.data.synthetic import DataConfig, make_batch_fn
+from repro_torch.data.synthetic import (DataConfig, make_batch_fn,
+                                        make_whisper_batch_fn)
 from repro_torch.launch import mesh
 from repro_torch.launch.steps import (RunConfig, build_sync_plan,
                                       groups_inflight, is_probe_step,
                                       make_init, make_train_step,
-                                      state_fingerprint)
-from repro_torch.models.transformer import build_groups
+                                      model_groups, state_fingerprint)
 from repro_torch.optim.optimizers import OPTIMIZERS
 from repro_torch.optim.schedules import SCHEDULES
 from repro_torch.telemetry import profiler as PROF
@@ -266,12 +266,13 @@ def _header(args, fingerprint: dict, topo: MeshTopo,
 
 def main(argv=None) -> dict:
     """Train; returns ``{"losses": [...], "moe_aux": [...], "moe_z": [...],
-    "fidelity": [...], "tok_per_s": float | None, "step_ms": [...] (wall
-    time of each step after the first), "peak_mem_bytes": int | None,
-    "start": int, "trace": dict | None}`` (losses of the steps this
-    run took, from ``start``, the restored step or 0; router losses per
-    step for MoE models, else empty; the fidelity metrics of each logged
-    probe step; tok/s over the steps after the first; peak device
+    "fidelity": [...], "tok_per_s": float | None, "frames_per_s": float
+    | None, "step_ms": [...] (wall time of each step after the first),
+    "peak_mem_bytes": int | None, "start": int, "trace": dict | None}``
+    (losses of the steps this run took, from ``start``, the restored step
+    or 0; router losses per step for MoE models, else empty; the fidelity
+    metrics of each logged probe step; tok/s over the steps after the
+    first, an encoder-decoder's decoder tokens, and its frames/s; peak device
     memory on a card; with ``--profile-steps``, the window's
     ``profiler.window_summary`` and its trace's path)."""
     args = build_args(argv)
@@ -279,9 +280,15 @@ def main(argv=None) -> dict:
     cfg = make_cfg(args)
     shape = ShapeConfig("cli", args.seq_len, args.global_batch, "train")
     run = make_run(args)
-    batch_fn = make_batch_fn(DataConfig(vocab=cfg.vocab, seq_len=args.seq_len,
-                                        global_batch=args.global_batch,
-                                        seed=args.seed))
+    dc = DataConfig(vocab=cfg.vocab, seq_len=args.seq_len,
+                    global_batch=args.global_batch, seed=args.seed)
+    batch_fn = (make_whisper_batch_fn(dc, cfg.d_model, cfg.dec_len)
+                if cfg.enc_dec else make_batch_fn(dc))
+    # tok/s counts the tokens the model predicts: an encoder-decoder's
+    # decoder tokens (its frames per second are printed beside them)
+    tokens = args.global_batch * (cfg.dec_len if cfg.enc_dec
+                                  else args.seq_len)
+    frames = args.global_batch * args.seq_len if cfg.enc_dec else 0
     cuda = device.type == "cuda"
     losses: list[float] = []
     fidelity: list[dict] = []
@@ -293,7 +300,7 @@ def main(argv=None) -> dict:
             data, model=model,
             axes=mesh.mesh_axes(data, args.tp, args.pods, args.wans))
         step_fn = make_train_step(cfg, run, topo, device, shape)
-        groups = build_groups(cfg, topo.tp)
+        groups = model_groups(cfg, topo.tp)
         plan = build_sync_plan(run, groups, topo)
         wire_rep = (WIRE.plan_report(plan, pods=topo.pods, wans=topo.wans)
                     if plan is not None else None)
@@ -374,8 +381,8 @@ def main(argv=None) -> dict:
                                   metrics=extra, groups_inflight=inflight)
                     if log_step:
                         n_run = step - start
-                        tok_s = (n_run * args.global_batch * args.seq_len
-                                 / max(time.perf_counter() - t_run, 1e-9))
+                        run_s = max(time.perf_counter() - t_run, 1e-9)
+                        tok_s = n_run * tokens / run_s
                         moe = "".join(f"{k}={v[-1]:.4f} "
                                       for k, v in router.items() if v)
                         err = (f" err_norm={extra['err_norm']:.3e}"
@@ -384,6 +391,8 @@ def main(argv=None) -> dict:
                             err += (f" fid_cos={fid['fidelity/cos']:.4f}"
                                     " comp_gain="
                                     f"{fid['fidelity/comp_gain']:.3f}")
+                        if frames:
+                            err += f" frames/s={n_run * frames / run_s:,.0f}"
                         print(f"step {step:5d} loss={loss:.4f} {moe}"
                               f"gnorm={gnorm:.3f} lr={lr:.2e} "
                               f"tok/s={tok_s:,.0f}{err}", flush=True)
@@ -395,8 +404,7 @@ def main(argv=None) -> dict:
             run_s = time.perf_counter() - t_run
             n_steps = max(args.steps - start, 0)
             n_run = max(n_steps - 1, 0)
-            tok_s = (n_run * args.global_batch * args.seq_len / run_s
-                     if n_run else None)
+            tok_s = n_run * tokens / run_s if n_run else None
             peak = torch.cuda.max_memory_allocated(device) if cuda else None
             if sink is not None and n_steps:
                 # compile_s (the reference's name): the first step, which
@@ -416,7 +424,10 @@ def main(argv=None) -> dict:
     if sink is not None:
         print(f"telemetry: {sink.path}", flush=True)
     out = {"losses": losses, **router, "fidelity": fidelity,
-           "tok_per_s": tok_s, "step_ms": [x * 1e3 for x in step_s],
+           "tok_per_s": tok_s,
+           "frames_per_s": (tok_s * frames / tokens
+                            if tok_s and frames else None),
+           "step_ms": [x * 1e3 for x in step_s],
            "peak_mem_bytes": peak, "start": start,
            "trace": (dict(trace.summary, path=trace.path)
                      if trace is not None and trace.summary else None)}
@@ -426,6 +437,8 @@ def main(argv=None) -> dict:
     print(f"done: {n_steps} steps in {time.perf_counter() - t0:.1f}s "
           f"(first step {first_s or 0.0:.1f}s + run {run_s:.1f}s"
           + (f", {tok_s:,.0f} tok/s after the first step" if tok_s else "")
+          + (f", {out['frames_per_s']:,.0f} frames/s"
+             if out["frames_per_s"] else "")
           + (f", peak device memory {peak / 2**30:.2f} GiB" if peak else "")
           + ")", flush=True)
     return out

@@ -1,9 +1,10 @@
 """Manual-tensor-parallel layer library of the decoder.
 
 Port of the training path of ``repro.models.common``: norms, the parallel
-linears, rotary embeddings, causal attention, the vocab-parallel
-embedding / logits / cross entropy, the head layout, and the ``model``
-group collectives of Megatron-style tensor and sequence parallelism.
+linears, rotary embeddings, attention (causal, windowed, or over every
+key), the vocab-parallel embedding / logits / cross entropy, the head
+layout, and the ``model`` group collectives of Megatron-style tensor and
+sequence parallelism.
 
 Conventions (the reference's): activations ``(B, S, d)`` are replicated
 over the ``model`` group, or under sequence parallelism (``sp``) each rank
@@ -295,29 +296,31 @@ def soft_cap(x, cap: float):
 
 
 # ---------------------------------------------------------------------------
-# causal attention
+# attention
 # ---------------------------------------------------------------------------
 
-def causal_attention(q, k, v, scale: float | None = None,
-                     window: int | None = None,
-                     softcap: float | None = None):
-    """q, k, v: (B, S, H, hd) (k/v already expanded to the q heads) ->
-    (B, S, H, hd) in q's dtype.  ``window``: query i sees keys j with
-    ``i - window < j <= i`` (``window`` keys, its own included);
-    ``softcap``: the f32 scores are soft-capped (:func:`soft_cap`)
-    before the mask."""
-    S, hd = q.shape[1], q.shape[-1]
+def attention(q, k, v, causal: bool = True, scale: float | None = None,
+              window: int | None = None, softcap: float | None = None):
+    """q: (B, Sq, H, hd); k, v: (B, Sk, H, hd) (already expanded to the q
+    heads) -> (B, Sq, H, hd) in q's dtype.  ``causal``: query i sees keys
+    j <= i (positions 0..S-1 on both sides, so Sk == Sq); otherwise every
+    key (encoder self-attention, cross-attention with Sk != Sq).
+    ``window`` (causal only): query i sees keys j with ``i - window < j <=
+    i`` (``window`` keys, its own included); ``softcap``: the f32 scores
+    are soft-capped (:func:`soft_cap`) before the mask."""
+    Sq, Sk, hd = q.shape[1], k.shape[1], q.shape[-1]
     scale = scale if scale is not None else 1.0 / math.sqrt(hd)
-    qf = (q.float() * scale).to(q.dtype).transpose(1, 2)     # (B, H, S, hd)
+    qf = (q.float() * scale).to(q.dtype).transpose(1, 2)     # (B, H, Sq, hd)
     kt = k.transpose(1, 2)
     vt = v.transpose(1, 2)
     s = torch.matmul(qf.float(), kt.float().transpose(-1, -2))
     if softcap is not None:
         s = soft_cap(s, softcap)
-    keep = torch.ones(S, S, dtype=torch.bool, device=q.device).tril()
-    if window is not None and window < S:
-        keep = keep.triu(1 - window)
-    s = s.masked_fill(~keep, NEG_INF)
+    if causal:
+        keep = torch.ones(Sq, Sk, dtype=torch.bool, device=q.device).tril()
+        if window is not None and window < Sk:
+            keep = keep.triu(1 - window)
+        s = s.masked_fill(~keep, NEG_INF)
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m)
     l = p.sum(dim=-1, keepdim=True)

@@ -1,12 +1,13 @@
-"""Decoder-only LM: the dense, vlm and MoE families.
+"""Decoder-only LM: the dense, vlm, MoE, ssm and hybrid families.
 
-Port of the attention-decoder training paths of ``repro.models.transformer``:
-parameter declarations (:func:`build_groups`), the attention / MLP / MoE
-blocks and :class:`DecoderLM`'s forward and loss.  Layers run in a Python loop; each
-layer materializes its weights from the FSDP chunks inside the layer, and
-with ``remat`` the layer runs under ``torch.utils.checkpoint``
+Port of the training paths of ``repro.models.transformer``: parameter
+declarations (:func:`build_groups`), the attention / MLP / MoE / mamba
+blocks and :class:`DecoderLM`'s forward and loss.  Layers run in a Python
+loop; each layer materializes its weights from the FSDP chunks inside the
+layer, and with ``remat`` the layer runs under ``torch.utils.checkpoint``
 (non-reentrant), the counterpart of the reference's ``jax.checkpoint`` over
-its layer scan: the recomputation regathers the layer's weights.
+its layer scan: the recomputation regathers the layer's weights, and each
+gather's backward (its sync) runs once, from the first forward's graph.
 
 At ``tp > 1`` the model runs Megatron-style tensor parallelism over the
 ``model`` process group (:mod:`repro_torch.models.common`): vocab-parallel
@@ -20,9 +21,15 @@ attention and final soft caps, RMSNorm or LayerNorm, sequential or
 parallel (command-r) blocks, SwiGLU / GeGLU / GELU MLPs, tied embeddings,
 the embedding, residual and logit scales, and the MoE family (``tp_dense``
 and ``ep_a2a`` with the ``fp``, ``block8`` and ``block8+ef`` activation
-codecs).  The vlm family (chameleon) runs as dense.  The ssm, hybrid and
-audio families and encoder-decoders wait (ROADMAP.md) and are refused at
-construction.
+codecs).  The vlm family (chameleon) runs as dense.  The ssm family
+(mamba2) stacks mamba2 mixers (:mod:`repro_torch.models.ssm`); the hybrid
+(zamba2) runs super-blocks of ``hybrid_attn_every`` mamba layers followed
+by one application of a *shared* attention + MLP block (the ``shared``
+group, names prefixed ``s_``), checkpointed per super-block as the
+reference does.  The shared block is gathered once per microbatch, before
+the super-blocks, so its gradient sums over every application (and the
+recomputation adds nothing) before its one sync.  The audio family
+(whisper) is :mod:`repro_torch.models.whisper`.
 """
 from __future__ import annotations
 
@@ -37,9 +44,11 @@ from repro_torch.core import act_comm as ACT
 from repro_torch.core.flatparam import ParamGroup, ParamInfo
 from repro_torch.models import common as C
 from repro_torch.models import moe as MOE
+from repro_torch.models import ssm as SSM
 from repro_torch.models.common import HeadLayout
 
 LOCO_MIN_NUMEL = 2**16  # smaller tensors sync in bf16
+SHARED = "s_"  # name prefix of the hybrid's shared attention block
 
 
 def _loco(shape) -> bool:
@@ -62,8 +71,8 @@ def head_layout(cfg: ArchConfig, tp: int) -> HeadLayout:
 def check_supported(cfg: ArchConfig) -> None:
     """Refuse what the port has not ported yet instead of ignoring it."""
     unported = {
-        "family": cfg.family not in ("dense", "vlm", "moe"),
-        "enc_dec": cfg.enc_dec,
+        "family": cfg.family not in ("dense", "vlm", "moe", "ssm", "hybrid",
+                                     "audio"),
         "attn_kind": cfg.attn_kind not in ("full", "swa", "local_global"),
         "mlp": cfg.mlp not in ("swiglu", "geglu", "gelu"),
         "norm": cfg.norm not in ("rmsnorm", "layernorm"),
@@ -82,19 +91,19 @@ def check_supported(cfg: ArchConfig) -> None:
 # parameter declarations
 # ---------------------------------------------------------------------------
 
-def _attn_infos(cfg: ArchConfig, lay: HeadLayout):
+def _attn_infos(cfg: ArchConfig, lay: HeadLayout, prefix: str = ""):
     d, hd = cfg.d_model, lay.head_dim
     kv_tp = 1 if lay.kv_sharded else None
     infos = [
-        _pi("norm1", (d,), init="ones", decay=False),
-        _pi("wq", (d, lay.h_pad * hd), tp_dim=1),
-        _pi("wk", (d, lay.kv_pad * hd), tp_dim=kv_tp),
-        _pi("wv", (d, lay.kv_pad * hd), tp_dim=kv_tp),
-        _pi("wo", (lay.h_pad * hd, d), tp_dim=0),
+        _pi(prefix + "norm1", (d,), init="ones", decay=False),
+        _pi(prefix + "wq", (d, lay.h_pad * hd), tp_dim=1),
+        _pi(prefix + "wk", (d, lay.kv_pad * hd), tp_dim=kv_tp),
+        _pi(prefix + "wv", (d, lay.kv_pad * hd), tp_dim=kv_tp),
+        _pi(prefix + "wo", (lay.h_pad * hd, d), tp_dim=0),
     ]
     if cfg.qk_norm:
-        infos += [_pi("qnorm", (hd,), init="ones", decay=False),
-                  _pi("knorm", (hd,), init="ones", decay=False)]
+        infos += [_pi(prefix + "qnorm", (hd,), init="ones", decay=False),
+                  _pi(prefix + "knorm", (hd,), init="ones", decay=False)]
     return infos
 
 
@@ -103,15 +112,15 @@ def _gated(cfg: ArchConfig) -> bool:
     return cfg.mlp in ("swiglu", "geglu")
 
 
-def _mlp_infos(cfg: ArchConfig):
+def _mlp_infos(cfg: ArchConfig, prefix: str = ""):
     d, f = cfg.d_model, cfg.d_ff
     infos = [
-        _pi("norm2", (d,), init="ones", decay=False),
-        _pi("w1", (d, f), tp_dim=1),
-        _pi("w2", (f, d), tp_dim=0),
+        _pi(prefix + "norm2", (d,), init="ones", decay=False),
+        _pi(prefix + "w1", (d, f), tp_dim=1),
+        _pi(prefix + "w2", (f, d), tp_dim=0),
     ]
     if _gated(cfg):
-        infos.append(_pi("w3", (d, f), tp_dim=1))
+        infos.append(_pi(prefix + "w3", (d, f), tp_dim=1))
     return infos
 
 
@@ -140,21 +149,55 @@ def _moe_infos(cfg: ArchConfig):
     return infos
 
 
+def _mamba_infos(cfg: ArchConfig):
+    d, dil, N, H, K = (cfg.d_model, cfg.d_inner, cfg.ssm_state,
+                       cfg.ssm_heads, cfg.d_conv)
+    return [
+        _pi("normm", (d,), init="ones", decay=False),
+        _pi("w_z", (d, dil), tp_dim=1),
+        _pi("w_x", (d, dil), tp_dim=1),
+        _pi("w_B", (d, N)),
+        _pi("w_C", (d, N)),
+        _pi("w_dt", (d, H), tp_dim=1),
+        _pi("dt_bias", (H,), tp_dim=0, init="zeros", decay=False),
+        _pi("A_log", (H,), tp_dim=0, init="zeros", decay=False),
+        _pi("D", (H,), tp_dim=0, init="ones", decay=False),
+        _pi("conv_x", (K, dil), tp_dim=1, init_scale=1.0 / math.sqrt(K)),
+        _pi("conv_B", (K, N), init_scale=1.0 / math.sqrt(K)),
+        _pi("conv_C", (K, N), init_scale=1.0 / math.sqrt(K)),
+        _pi("normg", (dil,), tp_dim=0, init="ones", decay=False),
+        _pi("w_out", (dil, d), tp_dim=0),
+    ]
+
+
 def build_groups(cfg: ArchConfig, tp: int) -> list[ParamGroup]:
     check_supported(cfg)
     vp = vocab_padded(cfg, tp)
     d = cfg.d_model
-    lay = head_layout(cfg, tp)
-    ffn = _moe_infos(cfg) if cfg.family == "moe" else _mlp_infos(cfg)
     head = [] if cfg.tied_embeddings else [_pi("head", (d, vp), tp_dim=1)]
-    return [
+    groups = [
         ParamGroup("embed", (
             _pi("tok", (vp, d), tp_dim=0, init="embed", init_scale=0.02),)),
         ParamGroup("final", tuple(
             [_pi("norm_f", (d,), init="ones", decay=False)] + head)),
-        ParamGroup("block", tuple(_attn_infos(cfg, lay) + ffn),
-                   n_layers=cfg.n_layers),
     ]
+    if cfg.family in ("dense", "vlm", "moe"):
+        ffn = _moe_infos(cfg) if cfg.family == "moe" else _mlp_infos(cfg)
+        infos = _attn_infos(cfg, head_layout(cfg, tp)) + ffn
+    elif cfg.family in ("ssm", "hybrid"):
+        infos = _mamba_infos(cfg)
+    else:
+        raise ValueError(cfg.family)
+    groups.append(ParamGroup("block", tuple(infos), n_layers=cfg.n_layers))
+    if cfg.family == "hybrid":
+        if not cfg.hybrid_attn_every or cfg.n_layers % cfg.hybrid_attn_every:
+            raise ValueError(f"{cfg.name}: {cfg.n_layers} layers do not "
+                             "make super-blocks of hybrid_attn_every="
+                             f"{cfg.hybrid_attn_every}")
+        shared = (_attn_infos(cfg, head_layout(cfg, tp), prefix=SHARED)
+                  + _mlp_infos(cfg, prefix=SHARED))
+        groups.append(ParamGroup("shared", tuple(shared)))
+    return groups
 
 
 # ---------------------------------------------------------------------------
@@ -200,8 +243,8 @@ def attention_block(p, x, cfg: ArchConfig, lay: HeadLayout, positions,
     if not lay.kv_identity:
         runs = lay.kv_runs(C.tp_rank(group))
         k, v = C.expand_kv(k, runs), C.expand_kv(v, runs)
-    out = C.causal_attention(q, k, v, window=layer_window(cfg, layer_idx),
-                             softcap=cfg.attn_softcap)
+    out = C.attention(q, k, v, window=layer_window(cfg, layer_idx),
+                      softcap=cfg.attn_softcap)
     out = out.reshape(B, S, lay.hl * lay.head_dim)
     return C.row_linear(out, p["wo"], group, sp)
 
@@ -251,6 +294,19 @@ def moe_layer(p, x, cfg: ArchConfig, lay: HeadLayout, positions, group,
     if a2a_state is not None:
         return x, aux["aux"], aux["z"], aux["a2a_state"]
     return x, aux["aux"], aux["z"]
+
+
+def mamba_layer(p, x, cfg: ArchConfig, group=None, sp: bool = False):
+    """Pre-norm mamba2 mixer with its residual (training: no caches)."""
+    h = C.norm("rmsnorm", x, p["normm"])
+    if sp:
+        h = C.sp_gather(h, group)
+    y, _ = SSM.mamba2_mixer(h, p, cfg, group=group, sp=sp)
+    return _res(cfg, x, y)
+
+
+def _unprefixed(p: dict, prefix: str) -> dict:
+    return {k[len(prefix):]: v for k, v in p.items() if k.startswith(prefix)}
 
 
 # ---------------------------------------------------------------------------
@@ -303,19 +359,23 @@ class DecoderLM:
         x = C.vocab_parallel_embed(emb, tokens, tpg, sp)
         if cfg.emb_scale:
             x = C.scale_by(x, cfg.emb_scale)
-        lay = head_layout(cfg, self.tp)
         aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
         z = torch.zeros((), dtype=torch.float32, device=tokens.device)
 
         ef = moe_a2a_state if cfg.family == "moe" else None
         new_ef = []
-        for l in range(cfg.n_layers):
+        # the hybrid runs its layers in super-blocks (_hybrid_forward)
+        layers = 0 if cfg.family == "hybrid" else cfg.n_layers
+        for l in range(layers):
             def body(xc, ef_l=None, l=l):
                 p = store.layer("block", l)
                 if cfg.family == "moe":
-                    return moe_layer(p, xc, cfg, lay, positions,
+                    return moe_layer(p, xc, cfg, self._lay, positions,
                                      self.model_group, sp, ef_l, l)
-                return dense_block(p, xc, cfg, lay, positions, tpg, sp, l)
+                if cfg.family == "ssm":
+                    return mamba_layer(p, xc, cfg, tpg, sp)
+                return dense_block(p, xc, cfg, self._lay, positions, tpg, sp,
+                                   l)
 
             args = (x,) if ef is None else (x, ef[l])
             out = (checkpoint(body, *args, use_reentrant=False) if remat
@@ -327,6 +387,8 @@ class DecoderLM:
                     new_ef.append(out[3])
             else:
                 x = out
+        if cfg.family == "hybrid":
+            x = self._hybrid_forward(store, x, positions, remat, sp)
 
         if sp:
             x = C.sp_gather(x, tpg)  # exit sequence parallelism
@@ -340,6 +402,36 @@ class DecoderLM:
         if cfg.logit_scale:
             logits = C.scale_by(logits, cfg.logit_scale)
         return logits, out_aux
+
+    @property
+    def _lay(self) -> HeadLayout | None:
+        """The attention's head layout (None for the ssm family)."""
+        if self.cfg.family == "ssm":
+            return None
+        return head_layout(self.cfg, self.tp)
+
+    def _hybrid_forward(self, store, x, positions, remat: bool, sp: bool):
+        """Super-blocks of ``hybrid_attn_every`` mamba layers, each followed
+        by one application of the shared attention + MLP block (its
+        attention window by super-block index, as the reference passes
+        it); each super-block is checkpointed whole.  The shared block is
+        gathered here, once: every application, and the recomputation,
+        reads the same tensors."""
+        cfg, tpg = self.cfg, self.tp_group
+        k = cfg.hybrid_attn_every
+        shared = _unprefixed(store.group("shared"), SHARED)
+        for sidx in range(cfg.n_layers // k):
+            def super_body(xc, sidx=sidx):
+                for j in range(k):
+                    xc = mamba_layer(store.layer("block", sidx * k + j), xc,
+                                     cfg, tpg, sp)
+                xc = _res(cfg, xc, attention_block(
+                    shared, xc, cfg, self._lay, positions, tpg, sp, sidx))
+                return _res(cfg, xc, mlp_block(shared, xc, cfg, tpg, sp))
+
+            x = (checkpoint(super_body, x, use_reentrant=False) if remat
+                 else super_body(x))
+        return x
 
     def loss_fn(self, store, batch, remat: bool = True, moe_a2a_state=None):
         """-> (total loss, {"ce", "aux", "z"}); the total adds the router

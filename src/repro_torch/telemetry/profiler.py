@@ -51,24 +51,35 @@ def parse_window(spec: str) -> tuple[int, int]:
 def window_summary(prof) -> dict:
     """Device work of a finished profile: ``device_busy_ms`` (kernels,
     memcpys and memsets; the GPU-side ``loco/*`` annotation ranges span
-    such work and are none of their own), ``device_launches``, and per
+    such work and are none of their own), ``device_launches``, per
     ``loco/*`` range its GPU-side span in ms (``ranges``, empty without a
-    card)."""
+    card) and its host time in ms (``host_ranges``), and per kernel,
+    memcpy or memset name its device ms and count (``kernels``).  Read
+    from the profiler's raw events: ``key_averages()`` builds a Python
+    event tree first, which takes seconds per 10^5 events."""
     from torch.autograd import DeviceType
 
     busy = launches = 0
     ranges: dict[str, float] = {}
-    for e in prof.key_averages():
-        if e.device_type != DeviceType.CUDA:
+    host: dict[str, float] = {}
+    kernels: dict[str, list] = {}
+    for e in prof.profiler.kineto_results.events():
+        name, ms = e.name(), e.duration_ns() / 1e6
+        if e.device_type() != DeviceType.CUDA:
+            if name.startswith("loco/"):
+                host[name] = host.get(name, 0.0) + ms
             continue
-        if e.is_user_annotation:
-            if e.key.startswith("loco/"):
-                ranges[e.key] = e.device_time_total / 1e3
+        if e.is_user_annotation():
+            if name.startswith("loco/"):
+                ranges[name] = ranges.get(name, 0.0) + ms
             continue
-        busy += e.self_device_time_total
-        launches += e.count
-    return {"device_busy_ms": busy / 1e3, "device_launches": launches,
-            "ranges": ranges}
+        busy += ms
+        launches += 1
+        k = kernels.setdefault(name, [0.0, 0])
+        k[0] += ms
+        k[1] += 1
+    return {"device_busy_ms": busy, "device_launches": launches,
+            "ranges": ranges, "host_ranges": host, "kernels": kernels}
 
 
 class TraceSession:

@@ -35,7 +35,7 @@ from repro.models import common as JC
 from repro.models import moe as JMOE
 from repro.models import transformer as JTF
 from repro_torch.configs.all_archs import ASSIGNED
-from repro_torch.configs.base import NOT_PORTED, get_arch, reduced
+from repro_torch.configs.base import get_arch, reduced
 from repro_torch.models import common as TC
 from repro_torch.models import transformer as TTF
 
@@ -89,15 +89,14 @@ def _t(p):
 # ---------------------------------------------------------------------------
 
 def test_registry_mirrors_reference():
-    """ASSIGNED is the reference's order less the unported families, which
-    get_arch refuses by name."""
-    assert ASSIGNED == [a for a in JASSIGNED if a not in NOT_PORTED]
+    """ASSIGNED is the reference's list in its order; get_arch returns
+    every config of it, of the reference's family, and the model accepts
+    each one (check_supported)."""
+    assert ASSIGNED == JASSIGNED
     assert set(NEW_ARCHS) <= set(ASSIGNED)
-    for name, family in NOT_PORTED.items():
-        assert jget_arch(name).family == family
-        with pytest.raises(ValueError, match=f"{family} family is not "
-                                             "ported"):
-            get_arch(name)
+    for name in ASSIGNED:
+        assert get_arch(name).family == jget_arch(name).family
+        TTF.check_supported(get_arch(name))
 
 
 @pytest.mark.parametrize("tp", [1, 2])
@@ -152,10 +151,10 @@ def test_attention_window_and_softcap(seq, window, cap):
         q, k, v, pos, pos, causal=True,
         window=None if window is None else jnp.int32(window),
         softcap=cap))(q, k, v))
-    got = TC.causal_attention(*map(torch.from_numpy, (q, k, v)),
-                              window=window, softcap=cap).numpy()
+    got = TC.attention(*map(torch.from_numpy, (q, k, v)),
+                       window=window, softcap=cap).numpy()
     np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
-    full = TC.causal_attention(*map(torch.from_numpy, (q, k, v))).numpy()
+    full = TC.attention(*map(torch.from_numpy, (q, k, v))).numpy()
     cuts = window is not None and window < seq
     # a window that cuts (or a cap) changes the result; at seq 32 a
     # 64-token window does not cut

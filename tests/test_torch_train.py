@@ -89,7 +89,7 @@ def test_attention_matches_reference():
     pos = jnp.arange(SEQ, dtype=jnp.int32)
     want = np.asarray(JC.blockwise_attention(
         jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), pos, pos, causal=True))
-    got = TC.causal_attention(*map(torch.from_numpy, (q, k, v))).numpy()
+    got = TC.attention(*map(torch.from_numpy, (q, k, v))).numpy()
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)
 
 
