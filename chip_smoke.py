@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py            # needs one CUDA card; all phases
     python3 chip_smoke.py --profile-only [--src OTHER/src]   # traces only
+    python3 chip_smoke.py --serve-only   # serving and its reference runs
 
 Phases, in order; any failure exits non-zero and prints no result:
 
@@ -20,7 +21,8 @@ Phases, in order; any failure exits non-zero and prints no result:
    bf16 shard, D = 1, 2, 4, 8), ``fused_compress`` in place into the run
    error views of path d's stage pieces, ``act_encode``/``act_decode`` at the
    deepseek-v3-moe and qwen3-moe-30b-a3b exchanges (81,920 rows of 512
-   both, ``act_row_counts``), ``onebit_pack`` at the
+   both, ``act_row_counts``) and at path u's prefill and decode-step
+   exchanges (163,840 and 256 rows), ``onebit_pack`` at the
    onebit path's shapes; all of the LoCo and activation kernels also at
    the TP-local shapes a rank of a tp = 2 model group gives them at full
    width (from ``build_groups(cfg, 2)`` and the sync plans: 524,288,
@@ -132,6 +134,39 @@ Phases, in order; any failure exits non-zero and prints no result:
    new state and reference stack bit for bit with the same call on the
    CPU (plain versions, gloo), and each kernel launched as often as the
    schedule's legs (and the probe's roundtrips) derive;
+3d. serve: ``python -m repro_torch.launch.serve`` at full width and
+   depth, random weights from seed 0, greedy, the KV caches sized to the
+   whole generation, decode step 3 traced, the launch counters zeroed
+   just before each path and read just after:
+   p. llama2-400m, batch 8 x prompt 1,024, 128 decode steps (dense KV);
+   q. mamba2-2.7b, all 64 layers, 8 x 1,024, 128 (conv and SSM states);
+   r. h2o-danube-1.8b, 2 x 4,096, 64: its 4,096-token sliding window,
+      whose ring wraps from the first decoded token (checked);
+   s. whisper-small, 12 + 12 layers, 8 x 1,500 frames, 128 (the encoder
+      once, then self-attention KV and cross-attention);
+   t. zamba2-2.7b, all 54 layers, 8 x 1,024, 128 (9 shared-block KV
+      caches beside 54 conv/SSM states);
+   u. deepseek-v3-moe, all 12 layers, its ``block8`` wire, 8 x 1,024,
+      128: ``act_encode`` and ``act_decode`` on every dispatch and combine,
+      launched 2 x 12 times per prefill and per decode step as derived
+      (``serve_expected_launches``);
+   q', t'. q and t cut to 4 and 6 layers (one super-block) at full width,
+      where the rounding has fewer mixers to grow through;
+   on p-t the uncached forward over the prompt and the generated tokens
+   (teacher-forced) gives every decoded position's logits within
+   SERVE_FWD_LIMIT on p and r, and on s, q, t, q' and t', the largest
+   within SERVE_FLOOR_FACTOR and the median step within
+   SERVE_MEDIAN_FACTOR times the forward's own rounding floor at those
+   shapes (the forward over a shorter sequence against the forward over
+   the longer one; argmax agreement printed, not asserted: random
+   weights give near ties); on q, t, q' and t' a first decode step whose
+   conv contexts are one token stale leaves the forward by more than the
+   median's limit (the check sees a wrong cache); every path's tokens
+   in range and equal to
+   its recorded ones (``PARENT_TOKENS``, a digest); no model-group
+   collective called; each prints its parameters, peak memory, prefill
+   time and tok/s, decode tok/s and median ms per step, and the traced
+   step's device busy time, launches and idle share;
 4. reference: reduced llama2-400m (loco, onebit, and loco bucketed with
    ``--bucket-mb 0.1 --policy "embed=loco8,min=16384"``) and reduced
    deepseek-v3-moe (loco, block8) train 3 steps on the card and on the CPU
@@ -160,7 +195,15 @@ Phases, in order; any failure exits non-zero and prints no result:
    lamb, adafactor and adafactor_flat updates and the step's gradient
    norm and clip scale give the CPU's bits on the card;
    the step's divisions (``comm.divide`` at 3 and 6, the accum-3 gradient
-   mean) give the CPU's bits on the card.  On
+   mean) give the CPU's bits on the card; gemma2's decode-step soft cap on
+   bf16 logits gives the CPU's bits; reduced llama2-400m, gemma2-27b,
+   h2o-danube-1.8b (prompt 64 into its 64-token window: the ring wraps),
+   deepseek-v3-moe, mamba2-2.7b, zamba2-2.7b and whisper-small serve a
+   prompt and 8 decode steps on the CPU and, teacher-forced on the CPU's
+   tokens, on the card: every step's logits within SERVE_REF_ATOL, and
+   the card's greedy token the CPU's wherever the CPU's top-2 margin
+   exceeds it.  The CPU's side of these runs goes to worker processes
+   (``cpu_pool``) while the main process drives the card's.  On
    the card, reduced llama2-400m with
    ``--bucket-mb 0.0625`` under a uniform policy gives the monolithic
    run's losses bit for bit.
@@ -813,12 +856,16 @@ def moe_exchange_rows(argv, tp: int = 1) -> int:
 
 def act_row_counts() -> dict[tuple[int, int], list[str]]:
     """(rows, tp) -> the block8 exchanges of that size: paths b and k at
-    tp = 1, path b on a tp = 2 rank."""
+    tp = 1, path b on a tp = 2 rank, path u's prefill and decode step."""
     out: dict[tuple[int, int], list[str]] = {}
     for label, argv, tp in (("deepseek-v3-moe", MOE_ARGS, 1),
                             ("qwen3-moe-30b-a3b", WIDE_PATHS["k"][0], 1),
                             ("deepseek-v3-moe", MOE_ARGS, TP_LOCAL)):
         out.setdefault((moe_exchange_rows(argv, tp), tp), []).append(label)
+    for label, prefill in (("path u prefill", True),
+                           ("path u decode step", False)):
+        rows = serve_exchange_rows(SERVE_PATHS["u"], prefill)
+        out.setdefault((rows, 1), []).append(label)
     return out
 
 
@@ -980,6 +1027,9 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile-only", action="store_true",
                     help="build, then run only phase 4 (print no result)")
+    ap.add_argument("--serve-only", action="store_true",
+                    help="build, then run only the serve phase and the "
+                         "reference phase's serving runs (print no result)")
     ap.add_argument("--src", default=str(ROOT / "src"),
                     help="the package tree to import (with --profile-only: "
                          "another checkout's src/, to compare two commits)")
@@ -1013,6 +1063,19 @@ def main(argv=None) -> int:
                 print(f"build: {b.name}: {line.strip()}")
     if opts.profile_only:
         profile_only(src)
+        return 0
+    if opts.serve_only:
+        from repro_torch.kernels import loco_quant as LQ
+
+        t0 = time.perf_counter()
+        serve_phase(LQ)
+        print(f"serve: phase took {time.perf_counter() - t0:.1f} s",
+              flush=True)
+        t0 = time.perf_counter()
+        with cpu_pool(src) as pool:
+            serve_reference_runs(submit_serve_cpu(pool))
+        print(f"reference: serve runs took {time.perf_counter() - t0:.1f} s",
+              flush=True)
         return 0
 
     from repro_torch.kernels import act_quant as AQ
@@ -1054,11 +1117,15 @@ def main(argv=None) -> int:
     phase_s["hierarchical"] = time.perf_counter() - t0
     print(f"hierarchical: phase took {phase_s['hierarchical']:.1f} s",
           flush=True)
+    t0 = time.perf_counter()
+    _add(launches, serve_phase(LQ))
+    phase_s["serve"] = time.perf_counter() - t0
+    print(f"serve: phase took {phase_s['serve']:.1f} s", flush=True)
     missing = [name for name, _, _ in KERNEL_ROWS if not launches.get(name)]
     if missing:
         raise AssertionError(f"train: kernels never launched: {missing}")
     t0 = time.perf_counter()
-    reference_phase()
+    reference_phase(src)
     phase_s["reference"] = time.perf_counter() - t0
     print(f"reference: phase took {phase_s['reference']:.1f} s",
           flush=True)
@@ -1879,24 +1946,25 @@ CKPT_ARGS = _train_args("llama2-400m", "loco", 4, "--bucket-mb", "4",
 
 
 @contextlib.contextmanager
-def cut_depth(layers: int | None):
+def cut_depth(layers: int | None, cli=None):
     """Train (and derive counts for) ``layers`` layers of the CLI's model
-    (None: its whole depth).  A hybrid's cut must be whole super-blocks
-    (``build_groups`` refuses any other)."""
+    (None: its whole depth); ``cli`` the CLI module (default
+    ``launch.train``; ``launch.serve`` serves so).  A hybrid's cut must be
+    whole super-blocks (``build_groups`` refuses any other)."""
     import dataclasses
 
-    from repro_torch.launch import train
-
+    if cli is None:
+        from repro_torch.launch import train as cli
     if layers is None:
         yield
         return
-    make_cfg = train.make_cfg
-    train.make_cfg = lambda args: dataclasses.replace(make_cfg(args),
-                                                      n_layers=layers)
+    make_cfg = cli.make_cfg
+    cli.make_cfg = lambda args: dataclasses.replace(make_cfg(args),
+                                                    n_layers=layers)
     try:
         yield
     finally:
-        train.make_cfg = make_cfg
+        cli.make_cfg = make_cfg
 
 
 @contextlib.contextmanager
@@ -2109,6 +2177,490 @@ def profile_only(src: Path) -> None:
             print_trace(f"profile[{name}]", res["trace"] or {
                 "device_busy_ms": 0.0, "device_launches": 0, "ranges": {}},
                         unprofiled_wall_ms(res))
+
+
+# ---------------------------------------------------------------------------
+# phase 3d: serving, through the serve CLI
+# ---------------------------------------------------------------------------
+
+def _serve_args(arch, batch: int, prompt: int, steps: int, *extra):
+    return ["--arch", arch, "--batch", str(batch), "--prompt-len",
+            str(prompt), "--decode-steps", str(steps), "--seed", "0",
+            *extra]
+
+
+# Paths p-u: the serve CLI at full width and depth, random weights from
+# seed 0, greedy; whisper's prompt is 1,500 frames (its 30 s window).
+SERVE_PATHS = {
+    "p": _serve_args("llama2-400m", 8, 1024, 128),
+    "q": _serve_args("mamba2-2.7b", 8, 1024, 128),
+    "r": _serve_args("h2o-danube-1.8b", 2, 4096, 64),
+    "s": _serve_args("whisper-small", 8, 1500, 128),
+    "t": _serve_args("zamba2-2.7b", 8, 1024, 128),
+    "u": _serve_args("deepseek-v3-moe", 8, 1024, 128),
+}
+# the decode step each path traces
+SERVE_TRACED_STEP = 3
+# How far a path's decode logits may leave the uncached forward over the
+# prompt and the generated tokens on the card (u has no such check: the
+# MoE capacity depends on the tokens per call, so a decode step drops
+# other tokens than the forward).  The paths are deterministic, so each
+# run gives the same gaps.  The forward's own rounding floor at these
+# shapes (``teacher_forced_gaps``: the forward over a shorter sequence
+# against the forward over the longer one, where they share positions;
+# no serving code) is 0 on p and r: there each row's logits do not
+# depend on the sequence length, and the decode's gap (0.0898 and
+# 0.0869 at most in runs AV-BA, H100 80GB HBM3, 700 W) comes from its
+# 8-row matmuls alone; their limits are 1.5 times it.  On s, q, t, q'
+# and t' the floor is not 0 (run BA: largest 0.0234, 2.891, 3.309,
+# 0.195, 0.742; median position 0.0215, 1.748, 2.344, 0.047, 0.141): the
+# random-weight mamba2 and zamba2 amplify every rounding through their
+# mixers, the more the deeper, and the decode's gaps have the same
+# distribution (largest 0.0273, 2.594, 3.742, 0.297, 0.564; median step
+# 0.0234, 1.664, 2.396, 0.047, 0.141).  There the largest gap may reach
+# SERVE_FLOOR_FACTOR times the floor's largest (measured at most 1.52x,
+# q'), and the median decode step SERVE_MEDIAN_FACTOR times the floor's
+# median (at most 1.09x, s).  A wrong cache shows in the median, even
+# at full depth: a first decode step whose conv contexts are one token
+# stale leaves the forward by 6.34, 6.23, 5.33 and 5.83 on q, t, q' and
+# t' (BA), 1.8-76x their median limits, which that control must exceed.
+SERVE_FWD_LIMIT = {"p": 0.135, "r": 0.13}
+SERVE_FLOOR_FACTOR, SERVE_MEDIAN_FACTOR = 2.0, 1.5
+# sha256 (first 16 hex digits) of each path's generated tokens, (batch,
+# 1 + steps) int64, as two processes gave them in run AV (p, r, s, u) and
+# in run AW (q, t; H100 80GB HBM3, 700 W): what every later run must give
+# bit for bit.
+PARENT_TOKENS = {"p": "6a1c22218e320782", "q": "8888dcc10b3880ba",
+                 "r": "95fee021f2b1835c", "s": "e7ae814e759fd7d2",
+                 "t": "473ffe914a3a1388", "u": "8f7e7e0c8b0eb7ff"}
+# q and t cut to their first layers at full width (zamba2: one
+# super-block), where the rounding has few layers to grow through, so
+# the floor and the limit are tight (their tokens are not recorded).
+SERVE_CUT_PATHS = {"q'": ("q", 4), "t'": ("t", 6)}
+
+
+def serve_param_count(cfg) -> int:
+    from repro_torch.launch import steps
+
+    return sum(math.prod(i.shape) * (g.n_layers or 1)
+               for g in steps.model_groups(cfg, 1) for i in g.infos)
+
+
+def serve_expected_launches(argv) -> tuple[dict, dict]:
+    """This repo's kernels per prefill and per decode step of the serve
+    run ``argv``, from the code: a MoE model on a block8 wire quantizes
+    and dequantizes each layer's dispatch and combine once per forward
+    call (``moe_block``: one ``a2a_exchange`` each; ``block8+ef`` serves
+    stateless); nothing else launches a kernel of this repo."""
+    from repro_torch.launch import serve
+
+    cfg = serve.make_cfg(serve.build_args(argv))
+    if cfg.family == "moe" and cfg.moe_a2a_codec in ("block8", "block8+ef"):
+        n = 2 * cfg.n_layers
+        per = {"act_encode": n, "act_decode": n}
+        return per, per
+    return {}, {}
+
+
+def serve_exchange_rows(argv, prefill: bool) -> int:
+    """Rows of 512 that one MoE exchange of the serve run ``argv``
+    quantizes: its prefill's batch x prompt tokens or a decode step's
+    batch tokens (tp = 1)."""
+    from repro_torch.core import act_comm
+    from repro_torch.launch import serve
+
+    args = serve.build_args(argv)
+    n = args.batch * (args.prompt_len if prefill else 1)
+    g = act_comm.a2a_geometry(serve.make_cfg(args), n, 1)
+    return g["n_pad"] // act_comm.ACT_BLOCK
+
+
+def tokens_digest(tokens) -> str:
+    import hashlib
+
+    import numpy as np
+
+    return hashlib.sha256(np.asarray(tokens, np.int64).tobytes()
+                          ).hexdigest()[:16]
+
+
+def teacher_forced_gaps(cfg, res, argv, control: bool = False) -> dict:
+    """The uncached forward over the prompt and the generated tokens (an
+    encoder-decoder: the encoder, then the decoder over its start token
+    and the generated ones) against the serve run's logits.  Returns
+    ``gaps`` (per step, the prefill's last position first, the largest
+    gap; the decode steps' forward soft-capped as the decode caps it),
+    ``agree`` (the share of decoded tokens that are the forward's argmax)
+    and ``floor``: the forward's own rounding at these shapes, with no
+    serving code, the largest gap per position between the forward over
+    a shorter sequence (the prompt; an encoder-decoder, the first half of
+    its decoder tokens) and this forward at the last positions they share,
+    as many as the decode compares.  With ``control``, ``stale``: the gap
+    of a first decode step whose every conv context is one token stale
+    (its newest input dropped, its oldest repeated) after a fresh
+    prefill: what a wrong cache gives against the same limit."""
+    import torch
+
+    from repro_torch.core import flatparam as FP
+    from repro_torch.launch import serve, steps
+    from repro_torch.models import common as C
+    from repro_torch.models import transformer as T
+
+    def gap(a, b):  # the largest gap per position of (B, S, V) logits
+        return (a.float() - b.float()).abs().amax(dim=(0, 2)).tolist()
+
+    args = serve.build_args(argv)
+    model = steps.build_model(cfg, 1)
+    store = FP.ServeStore(model.groups(), res["params"])
+    dev = res["logits"][0].device
+    gen = torch.tensor(res["tokens"], device=dev)
+    n = args.decode_steps
+    out = {}
+    with torch.inference_mode():
+        if cfg.enc_dec:
+            memory = model.encode(store, res["batch"]["frames"].to(dev),
+                                  remat=False)
+            toks = torch.cat([torch.zeros_like(gen[:, :1]), gen[:, :n]], 1)
+            full = model.decode_seq(store, memory, toks, remat=False)
+            k = (n + 1) // 2
+            out["floor"] = gap(model.decode_seq(store, memory, toks[:, :k],
+                                                remat=False), full[:, :k])
+            del memory
+        else:
+            prompt = res["batch"]["tokens"].to(dev)
+            P = prompt.shape[1]
+            toks = torch.cat([prompt, gen[:, :n]], 1)
+            full = model.forward(store, toks, remat=False)[0]
+            k = min(n + 1, P)
+            out["floor"] = gap(model.forward(store, prompt, remat=False)[0]
+                               [:, P - k:], full[:, P - k:P])
+            if control:
+                state = T.init_decode_state(cfg, 1, prompt.shape[0],
+                                            res["window"], dev)
+                model.prefill(store, prompt, state)
+                for mc in state.mamba:
+                    mc.conv = tuple(torch.cat([c[:, :1], c[:, :-1]], 1)
+                                    for c in mc.conv)
+                got = model.decode_step(store, state, gen[:, :1])[0]
+                out["stale"] = max(gap(got, full[:, P:P + 1]))
+                del state, got
+            full = full[:, -(n + 1):]
+        gaps, agree = [], 0
+        for i, got in enumerate(res["logits"]):
+            want = full[:, i]
+            if i and cfg.final_softcap:
+                want = C.soft_cap(want, cfg.final_softcap)
+            gaps.append(float((got - want.float()).abs().max()))
+            if i < n:
+                agree += int((want.float().argmax(-1) == gen[:, i]).sum())
+        del full
+    out.update(gaps=gaps, agree=agree / (gen.shape[0] * n))
+    return out
+
+
+def serve_path(LQ, name: str, argv, tmp: str, cut: int | None = None
+               ) -> dict:
+    """One path through ``repro_torch.launch.serve.main`` with the launch
+    counters zeroed just before and read just after: tokens in range and
+    their digest against ``PARENT_TOKENS``, kernel launches per prefill
+    and per decode step as derived, decode against the uncached forward
+    (p-t), and the path's metrics printed.  With ``cut`` the model keeps
+    its first ``cut`` layers and the tokens are not checked.  Returns its
+    launches."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.base import get_arch
+    from repro_torch.launch import serve
+    from repro_torch.models.transformer import vocab_padded
+
+    args = serve.build_args(argv)
+    with cut_depth(cut, serve):
+        cfg = serve.make_cfg(args)
+        per_pre, per_step = serve_expected_launches(argv)
+        print(f"serve: path {name}: python -m repro_torch.launch.serve "
+              f"{' '.join(argv)}" + (f" at {cut} layers" if cut else ""),
+              flush=True)
+        LQ.reset_launches()
+        t0 = time.perf_counter()
+        res = serve.main(argv + ["--profile-steps", str(SERVE_TRACED_STEP),
+                                 "--profile-dir", tmp], keep=True)
+    launches = dict(LQ.LAUNCHES)
+    secs = time.perf_counter() - t0
+    want = {k: per_pre[k] + per_step[k] * args.decode_steps for k in per_pre}
+    got_split = res["launches"]
+    if (launches != want or got_split["prefill"] != per_pre
+            or got_split["decode"] != {k: v * args.decode_steps
+                                       for k, v in per_step.items()}):
+        raise AssertionError(f"serve: path {name}: launches {launches} "
+                             f"(prefill {got_split['prefill']}, decode "
+                             f"{got_split['decode']}), want {want} "
+                             f"({per_pre} per prefill, {per_step} per "
+                             "decode step; serve_expected_launches)")
+    toks = np.asarray(res["tokens"])
+    if (toks.shape != (args.batch, args.decode_steps + 1)
+            or toks.min() < 0 or toks.max() >= vocab_padded(cfg, 1)):
+        raise AssertionError(f"serve: path {name}: tokens {toks.shape} "
+                             f"out of [0, {vocab_padded(cfg, 1)})")
+    if not all(bool(torch.isfinite(lg).all()) for lg in res["logits"]):
+        raise AssertionError(f"serve: path {name}: logits not finite")
+    state = res["state"]
+    if name == "r":
+        # the ring wrapped: position 0 left every layer's window
+        kv = state.kv[0]
+        if not (kv.window == cfg.window
+                and int(kv.pos.min()) == args.prompt_len
+                + args.decode_steps - cfg.window):
+            raise AssertionError(f"serve: path r's ring did not wrap "
+                                 f"(window {kv.window}, least position "
+                                 f"{int(kv.pos.min())})")
+        print(f"serve: path r: the {kv.window}-slot ring wrapped; the "
+              f"oldest cached position is {int(kv.pos.min())}", flush=True)
+    digest = tokens_digest(toks)
+    check, limits, gaps, stale = "", None, [], None
+    if name != "u":
+        tf = teacher_forced_gaps(cfg, res, argv,
+                                 control=cfg.family in ("ssm", "hybrid"))
+        gaps, stale = tf["gaps"], tf.get("stale")
+        floor, floor_med = max(tf["floor"]), statistics.median(tf["floor"])
+        med = statistics.median(gaps[1:])
+        # (largest gap, its limit), (median decode step, its limit)
+        limits = ([(max(gaps), SERVE_FWD_LIMIT[name])]
+                  if name in SERVE_FWD_LIMIT else
+                  [(max(gaps), SERVE_FLOOR_FACTOR * floor),
+                   (med, SERVE_MEDIAN_FACTOR * floor_med)])
+        scale = max(float(lg.abs().max()) for lg in res["logits"])
+        check = (f"; against the uncached forward: largest gap "
+                 f"{max(gaps):.4f} (prefill {gaps[0]:.4f}, median decode "
+                 f"step {med:.4f}; limits "
+                 f"{' and '.join(f'{lim:.4f}' for _, lim in limits)}; "
+                 f"logits up to {scale:.2f}); the forward's own rounding "
+                 f"floor {floor:.4f} (median position {floor_med:.4f})"
+                 + (f"; a first decode step with one-token-stale conv "
+                    f"contexts {stale:.4f}" if stale is not None else "")
+                 + f"; argmax agreement {tf['agree']:.1%}")
+    t = res["trace"]
+    if not t or not t["device_busy_ms"]:
+        raise AssertionError(f"serve: path {name}: the trace of decode "
+                             f"step {SERVE_TRACED_STEP} holds no device "
+                             f"time ({t})")
+    walls = [ms for i, ms in enumerate(res["step_ms"])
+             if i != SERVE_TRACED_STEP]
+    wall = statistics.median(walls)
+    depth = (f"{cut} of {get_arch(args.arch).n_layers} layers" if cut
+             else "whole")
+    print(f"serve: path {name}: {cfg.name} {depth}, "
+          f"{serve_param_count(cfg):,} parameters; batch {args.batch} x "
+          f"prompt {args.prompt_len}, {args.decode_steps} steps, KV window "
+          f"{res['window']}; prefill {res['prefill_s'] * 1e3:.1f} ms "
+          f"({res['prefill_tok_per_s']:,.0f} "
+          f"{'frames' if cfg.enc_dec else 'tok'}/s); decode "
+          f"{res['decode_tok_per_s']:,.1f} tok/s, median {wall:.2f} ms per "
+          f"step; peak device memory "
+          f"{(res['peak_mem_bytes'] or 0) / 2**30:.2f} "
+          f"GiB; decode step {SERVE_TRACED_STEP} traced: device busy "
+          f"{t['device_busy_ms']:.2f} ms in {t['device_launches']} "
+          f"launches, idle share "
+          f"{max(0.0, 1 - t['device_busy_ms'] / wall):.1%}; launches "
+          f"{launches or 'none of this repo'} (as derived){check}; tokens "
+          f"{digest}; {secs:.1f} s", flush=True)
+    print(f"serve: path {name}: sample row {toks[0].tolist()[:24]}",
+          flush=True)
+    print_trace(f"serve[{name}]", t, wall)
+    print(f"serve: path {name}: per-step gaps "
+          f"{[round(g, 4) for g in gaps]}", flush=True)
+    for got, lim in limits or ():
+        if not got <= lim:
+            raise AssertionError(f"serve: path {name}: decode left the "
+                                 f"uncached forward ({got:.4f}, limit "
+                                 f"{lim:.4f})")
+    if stale is not None and not stale > limits[-1][1]:
+        raise AssertionError(f"serve: path {name}: a stale conv context "
+                             f"({stale:.4f}) stays within the limit "
+                             f"{limits[-1][1]:.4f}: the check cannot see "
+                             "it")
+    want_digest = PARENT_TOKENS.get(name)
+    del res, state
+    torch.cuda.empty_cache()
+    if not cut and want_digest != digest:
+        raise AssertionError(
+            f"serve: path {name}: tokens {digest}, parent "
+            f"{want_digest or 'not recorded'}: the tokens moved")
+    return launches
+
+
+def serve_phase(LQ) -> dict:
+    """Paths p-u (``SERVE_PATHS``), no model-group collective called at
+    tp = 1; every path runs before a failure is raised, so each prints
+    its tokens' digest.  Returns the kernels' launches summed."""
+    import tempfile
+
+    total: dict[str, int] = {}
+    failed = []
+    with count_model_group_calls() as tp_calls, \
+            tempfile.TemporaryDirectory(prefix="chip_smoke_serve_") as tmp:
+        runs = [(name, argv, None) for name, argv in SERVE_PATHS.items()]
+        runs += [(name, SERVE_PATHS[of], cut)
+                 for name, (of, cut) in SERVE_CUT_PATHS.items()]
+        for name, argv, cut in runs:
+            try:
+                _add(total, serve_path(LQ, name, argv, tmp, cut))
+            except AssertionError as e:
+                print(f"serve: FAILED: {e}", flush=True)
+                failed.append(str(e))
+    print(f"serve: model-group collectives called {tp_calls[0]} times at "
+          "tp = 1", flush=True)
+    if tp_calls[0]:
+        failed.append("a tp = 1 serve path called a model-group collective")
+    if failed:
+        raise AssertionError("serve: " + "; ".join(failed))
+    return total
+
+
+# The reduced serving runs card against CPU: prefill and SERVE_REF_STEPS
+# decode steps, the card teacher-forced on the CPU's tokens.
+SERVE_REF_STEPS = 8
+SERVE_REF_RUNS = {arch: ["--arch", arch, "--reduced", "--batch", "4",
+                         "--prompt-len", str(prompt), "--decode-steps",
+                         str(SERVE_REF_STEPS)]
+                  for arch, prompt in (("llama2-400m", 32),
+                                       ("gemma2-27b", 32),
+                                       # its reduced window is 64: wraps
+                                       ("h2o-danube-1.8b", 64),
+                                       ("deepseek-v3-moe", 32),
+                                       ("mamba2-2.7b", 32),
+                                       ("zamba2-2.7b", 32),
+                                       ("whisper-small", 32))}
+# The largest logit gap card vs CPU on those runs: 0.094 (zamba2), 0.047
+# (deepseek-v3-moe), 0.031 (llama2-400m), 0.023 (h2o-danube), 0.016
+# (mamba2), 0.010 (whisper), 0.008 (gemma2) in run AY (H100 80GB HBM3,
+# 700 W); the port against the reference on the CPU, 0.148 at most
+# (tests/test_torch_decode.py).  About 1.5 times the card's largest:
+SERVE_REF_ATOL = 0.15
+
+
+def serve_on_card(argv, tokens, dev=None) -> list:
+    """The serve run ``argv`` on the card (or ``dev``), its decode
+    teacher-forced on ``tokens`` (the CPU run's, (B, 1 + steps)): the
+    prefill's last logits, then each step's, f32 on the host."""
+    import torch
+
+    from repro_torch.core import flatparam as FP
+    from repro_torch.core.flatparam import MeshTopo
+    from repro_torch.launch import mesh, serve, steps
+
+    args = serve.build_args(argv)
+    cfg = serve.make_cfg(args)
+    dev = dev or torch.device("cuda", 0)
+    with mesh.dp_group(dev):
+        topo = MeshTopo.from_group(*mesh.mesh_groups(1))
+        params = FP.init_serve_params(steps.model_groups(cfg, 1), 1, 0, dev,
+                                      args.seed)
+        prefill = steps.make_prefill_step(
+            cfg, topo, dev, batch=args.batch,
+            window=steps.serve_window(cfg, args.prompt_len,
+                                      args.decode_steps))
+        decode = steps.make_decode_step(cfg, topo, dev)
+        logits, state = prefill(params, serve.make_batch(cfg, args))
+        out = [logits.float().cpu()]
+        toks = torch.tensor(tokens, device=dev)
+        for i in range(args.decode_steps):
+            _, logits, state = decode(params, state, toks[:, i:i + 1])
+            out.append(logits.float().cpu())
+    return out
+
+
+def serve_reference_runs(cpu: dict, dev=None) -> None:
+    """Each ``SERVE_REF_RUNS`` run on the CPU (``cpu[arch]``, a future of
+    :func:`_cpu_serve`: its own greedy tokens) and on the card
+    teacher-forced on them: every step's logits within SERVE_REF_ATOL, and
+    the card's argmax the CPU's token wherever the CPU's top-2 margin
+    exceeds SERVE_REF_ATOL."""
+    import torch
+
+    worst = 0.0
+    for arch, argv in SERVE_REF_RUNS.items():
+        c_res = cpu[arch].result()
+        card = serve_on_card(argv, c_res["tokens"], dev)
+        toks = torch.tensor(c_res["tokens"])
+        gaps, checked, agree = [], 0, 0
+        for i, (g, c) in enumerate(zip(card, c_res["logits"])):
+            c = torch.from_numpy(c)
+            gaps.append(float((g - c).abs().max()))
+            top2 = c.topk(2, dim=-1).values
+            sure = (top2[:, 0] - top2[:, 1]) > SERVE_REF_ATOL
+            checked += int(sure.sum())
+            agree += int((g.argmax(-1) == toks[:, i])[sure].sum())
+        worst = max(worst, max(gaps))
+        print(f"reference: serve reduced {arch}: prefill and "
+              f"{SERVE_REF_STEPS} decode steps, card vs cpu logit gaps "
+              f"{[round(x, 4) for x in gaps]}; greedy tokens agree on "
+              f"{agree} of the {checked} the CPU's top-2 margin decides",
+              flush=True)
+        if max(gaps) > SERVE_REF_ATOL or agree != checked:
+            raise AssertionError(f"reference: serve {arch}: the card left "
+                                 f"the CPU (limit {SERVE_REF_ATOL})")
+    print(f"reference: serve runs, largest card vs cpu logit gap "
+          f"{worst:.4f}", flush=True)
+
+
+# The reference phase's CPU runs go to REF_CPU_WORKERS spawned processes
+# of REF_CPU_THREADS threads each, submitted when the phase starts, so
+# that they run while the main process drives the card's side.
+REF_CPU_WORKERS, REF_CPU_THREADS = 3, 2
+
+
+def _cpu_worker_init(src: str) -> None:
+    import torch
+
+    sys.path.insert(0, src)
+    torch.set_num_threads(REF_CPU_THREADS)
+
+
+def _cpu_train(argv) -> dict:
+    """The training run ``argv`` on the CPU, in a worker (its output
+    dropped): its losses and fidelity records."""
+    import io
+
+    from repro_torch.launch import train
+
+    with contextlib.redirect_stdout(io.StringIO()):
+        res = train.main(argv + ["--device", "cpu"])
+    return {"losses": res["losses"], "fidelity": res["fidelity"]}
+
+
+def _cpu_serve(argv) -> dict:
+    """The serve run ``argv`` on the CPU, in a worker (its output
+    dropped): its tokens and its per-step logits as numpy arrays."""
+    import io
+
+    from repro_torch.launch import serve
+
+    with contextlib.redirect_stdout(io.StringIO()):
+        res = serve.main(argv + ["--device", "cpu"], keep=True)
+    return {"tokens": res["tokens"],
+            "logits": [lg.numpy() for lg in res["logits"]]}
+
+
+@contextlib.contextmanager
+def cpu_pool(src: Path):
+    """The reference phase's CPU workers; pending runs are cancelled and
+    every worker stopped on the way out."""
+    import concurrent.futures
+    import multiprocessing
+
+    pool = concurrent.futures.ProcessPoolExecutor(
+        REF_CPU_WORKERS, mp_context=multiprocessing.get_context("spawn"),
+        initializer=_cpu_worker_init, initargs=(str(src),))
+    try:
+        yield pool
+    finally:
+        pool.shutdown(wait=True, cancel_futures=True)
+
+
+def submit_serve_cpu(pool) -> dict:
+    return {arch: pool.submit(_cpu_serve, argv)
+            for arch, argv in SERVE_REF_RUNS.items()}
 
 
 # ---------------------------------------------------------------------------
@@ -2334,6 +2886,10 @@ def check_scales_exact() -> None:
                     y = C.soft_cap(xf, cap)
                     y.backward(g.to(dev))
                     res += [y.detach(), xf.grad]
+            if cfg.final_softcap:
+                # the decode step's cap on its bf16 logits
+                res.append(C.soft_cap((x * 20).bfloat16().to(dev),
+                                      cfg.final_softcap))
         out[dev] = [r.cpu() for r in res]
     same = all(_same(a, b) for a, b in zip(out["cuda"], out["cpu"]))
     xb = (x * 4).bfloat16()
@@ -2380,17 +2936,27 @@ def check_fidelity(label, gpu: list, cpu: list) -> None:
           f"{first}", flush=True)
 
 
-def reference_phase() -> None:
+def reference_phase(src: Path) -> None:
     """Same seed, same batches, same weights (the init draws on the CPU):
     the card's run (CUDA kernels, NCCL, cuBLAS) must track the CPU run
-    (plain versions, gloo) within the port's model-level tolerance; and on
-    the card, the bucketed sync under a uniform policy must give the
-    monolithic run's losses bit for bit."""
+    (plain versions, gloo; in :func:`cpu_pool`'s workers) within the
+    port's model-level tolerance; and on the card, the bucketed sync under
+    a uniform policy must give the monolithic run's losses bit for bit."""
+    runs = {**REF_RUNS, "llama2-400m loco, accum 3": ACCUM3_ARGS}
+    with cpu_pool(src) as pool:
+        serve_cpu = submit_serve_cpu(pool)
+        train_cpu = {label: pool.submit(_cpu_train, argv)
+                     for label, argv in runs.items()}
+        reference_card_side(serve_cpu, train_cpu)
+
+
+def reference_card_side(serve_cpu: dict, train_cpu: dict) -> None:
     from repro_torch.launch import train
 
     check_divisions()
     check_optimizers_exact()
     check_scales_exact()
+    serve_reference_runs(serve_cpu)
     ef = {c: train.main(a + ["--device", "cuda"])["losses"]
           for c, a in EF_ACCUM1.items()}
     print(f"reference: reduced deepseek-v3-moe, one microbatch, step 0 on "
@@ -2409,12 +2975,12 @@ def reference_phase() -> None:
     if buck != mono:
         raise AssertionError("reference: the uniform bucketed run's losses "
                              "differ from the monolithic run's on the card")
-    for label, argv in {**REF_RUNS, "llama2-400m loco, accum 3":
-                        ACCUM3_ARGS}.items():
+    for label, fut in train_cpu.items():
+        argv = REF_RUNS.get(label, ACCUM3_ARGS)
         g_res = (None if label == "llama2-400m loco" else
                  train.main(argv + ["--device", "cuda"]))
         gpu = mono if g_res is None else g_res["losses"]
-        c_res = train.main(argv + ["--device", "cpu"])
+        c_res = fut.result()
         cpu = c_res["losses"]
         if "--fidelity-every" in argv:
             check_fidelity(label, g_res["fidelity"], c_res["fidelity"])

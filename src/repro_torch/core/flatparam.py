@@ -456,3 +456,61 @@ class TrainStore:
                 gname, i, self.chunks[gname][i.name][l], s,
                 self._probe(gname, i, l))
         return out
+
+
+# ---------------------------------------------------------------------------
+# serving: logical TP-local bf16 tensors (no FSDP, no sync)
+# ---------------------------------------------------------------------------
+
+def serve_param_shapes(groups: Sequence[ParamGroup],
+                       tp: int) -> dict[str, dict[str, tuple]]:
+    """``{group: {name: shape}}`` of a rank's serving tensors: the
+    TP-local shape, with a leading layer axis for stacked groups."""
+    return {g.name: {i.name: ((g.n_layers,) if g.stacked else ())
+                     + i.local_shape(tp) for i in g.infos} for g in groups}
+
+
+def init_serve_params(groups: Sequence[ParamGroup], tp: int, tp_rank: int,
+                      device: torch.device, seed: int) -> dict:
+    """A rank's serving tensors (:func:`serve_param_shapes`), drawn as
+    :func:`init_train_state` draws the master chunks (the same generator
+    per tensor and layer, on a pool of host threads) and cast to bf16: a
+    seed gives the train run's weights."""
+    shapes = serve_param_shapes(groups, tp)
+    out = {g.name: {i.name: torch.empty(shapes[g.name][i.name],
+                                        dtype=torch.bfloat16, device=device)
+                    for i in g.infos}
+           for g in groups}
+    jobs = [(g, info, l) for g in groups for info in g.infos
+            for l in range(g.n_layers or 1)]
+
+    def draw(job):
+        g, info, l = job
+        t = _init_full(info, _param_gen(seed, f"{g.name}/{info.name}", l),
+                       tp, tp_rank)
+        return t.reshape(info.local_shape(tp)).to(torch.bfloat16)
+
+    workers = min(INIT_THREADS, os.cpu_count() or 1, len(jobs))
+    with concurrent.futures.ThreadPoolExecutor(max(workers, 1)) as ex:
+        for (g, info, l), t in zip(jobs, ex.map(draw, jobs)):
+            dst = out[g.name][info.name]
+            (dst[l] if g.stacked else dst).copy_(t)
+    return out
+
+
+class ServeStore:
+    """The :class:`TrainStore` interface (``group``, ``layer``) over a
+    rank's bf16 serving tensors ``{group: {name: tensor}}`` (stacked groups
+    with a leading layer axis)."""
+
+    def __init__(self, groups, tensors):
+        self.groups = {g.name: g for g in groups}
+        self.tensors = tensors
+
+    def group(self, gname: str) -> dict[str, torch.Tensor]:
+        if self.groups[gname].stacked:
+            raise ValueError(f"group {gname!r} is stacked: use layer()")
+        return dict(self.tensors[gname])
+
+    def layer(self, gname: str, l: int) -> dict[str, torch.Tensor]:
+        return {name: t[l] for name, t in self.tensors[gname].items()}

@@ -18,6 +18,11 @@ float8_e4m3fn and bfloat16 arrays (numpy's ``ml_dtypes`` types) cross as
 raw bytes and are viewed as the torch dtype, so the values are exact.  Both
 packages then start from the same numbers, which is how the tests compare
 them (jax and torch random streams differ).  No JAX import is needed here.
+
+``serve_from_reference`` does the same for the serving weights of
+``repro.core.flatparam.init_serve_params_local``: ``(L, TP, *local)`` and
+``(TP, *local)`` bf16 arrays, of which model rank ``tp_rank`` keeps its
+slice.
 """
 from __future__ import annotations
 
@@ -73,3 +78,22 @@ def from_reference(chunks, states, opt, *, groups, rank: int, dp: int,
             ef[:, rank:rank + 1, tp_rank:tp_rank + 1, :], device)}
     return TrainState(chunk_tree(chunks), st,
                       tuple(chunk_tree(t) for t in opt))
+
+
+def serve_from_reference(params, *, groups, tp_rank: int = 0,
+                         device: torch.device | str = "cpu") -> dict:
+    """Model rank ``tp_rank``'s serving tensors (``flatparam.ServeStore``'s
+    ``{group: {name: tensor}}``) from the reference's global serving
+    arrays ``params``; ``groups`` are the TP-local declarations."""
+    out = {}
+    for g in groups:
+        og = {}
+        for i in g.infos:
+            a = np.asarray(params[g.name][i.name])
+            tp = a.shape[1] if g.stacked else a.shape[0]
+            a = a[:, tp_rank] if g.stacked else a[tp_rank]
+            lead = (g.n_layers,) if g.stacked else ()
+            og[i.name] = to_torch(a, device).reshape(lead
+                                                     + i.local_shape(tp))
+        out[g.name] = og
+    return out

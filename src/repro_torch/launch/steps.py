@@ -1,4 +1,4 @@
-"""Train-state init and the train step.
+"""Train-state init and the train step; the serving steps.
 
 Port of ``repro.launch.steps.make_train_step`` with the monolithic sync or
 the bucketed one (``RunConfig.bucket_bytes``/``policy``/``coalesce``, and
@@ -41,6 +41,17 @@ stacked groups, so each layer's synced shard lands in its own ``.grad``),
 runs the microbatches, and writes the new chunks, optimizer moments and
 (reset) error states back into the :class:`TrainState`.  The compressor
 states are updated in place by each backward.
+
+Serving (the reference's ``make_prefill_step`` and ``make_decode_step``):
+``make_prefill_step`` runs a prompt batch into fresh caches and returns
+the last position's local logits; ``make_decode_step`` steps one token
+through the caches and samples greedily over the vocab shards.  The batch
+is cut over the data ranks when it has at least dp rows and replicated
+otherwise; no collective crosses dp.  The cache's window is the caller's
+argument: the reference sizes it to the prompt, so that from the first
+decoded token on a full-attention model attends to a sliding window of
+the prompt's length (ROADMAP.md C); :func:`serve_window` sizes it to the
+whole generation.
 """
 from __future__ import annotations
 
@@ -60,8 +71,10 @@ from repro_torch.core import wirepack as WP
 from repro_torch.core.comm import divide, sum_f64
 from repro_torch.core.flatparam import MeshTopo
 from repro_torch.core.loco import SyncConfig, maybe_reset
+from repro_torch.models import common as MC
 from repro_torch.models import whisper as WH
-from repro_torch.models.transformer import DecoderLM, build_groups
+from repro_torch.models.transformer import (DecoderLM, build_groups,
+                                            init_decode_state)
 from repro_torch.optim import optimizers as OPT
 from repro_torch.optim.schedules import make_schedule
 from repro_torch.telemetry import fidelity as FID
@@ -610,3 +623,96 @@ def make_train_step(cfg: ArchConfig, run: RunConfig, topo: MeshTopo,
         return metrics
 
     return step_fn
+
+
+# ---------------------------------------------------------------------------
+# serving
+# ---------------------------------------------------------------------------
+
+def serve_window(cfg: ArchConfig, prompt_len: int, decode_steps: int) -> int:
+    """KV slots that hold a whole generation: the prompt and every decoded
+    token; for an encoder-decoder the decoder's start token and its decoded
+    tokens, at most ``dec_len``."""
+    if cfg.enc_dec:
+        return min(1 + decode_steps, cfg.dec_len)
+    return prompt_len + decode_steps
+
+
+def serve_rows(batch: int, topo: MeshTopo) -> slice:
+    """This rank's rows of a ``batch``-row serving batch: its ``batch /
+    dp`` when ``batch >= dp``, else all of them (replicated)."""
+    if batch < topo.dp:
+        return slice(0, batch)
+    if batch % topo.dp:
+        raise ValueError(f"serving batch {batch} does not split over "
+                         f"dp={topo.dp}")
+    n = batch // topo.dp
+    return slice(topo.rank * n, (topo.rank + 1) * n)
+
+
+def greedy(logits: torch.Tensor, topo: MeshTopo) -> torch.Tensor:
+    """(B, V_local) local logits -> (B, 1) int64 token ids: the argmax over
+    the vocab shards of the model group, the padded tail included (the
+    reference's ``pmax``/``pmin``): each rank's max and first argmax (plus
+    ``tp_rank * V_local``); the group's max; the least id among the
+    ranks that reach it."""
+    lg = logits.float()
+    arg = lg.argmax(dim=-1, keepdim=True)
+    if topo.tp == 1:
+        return arg
+    top = lg.gather(-1, arg)
+    arg = arg + topo.tp_rank * lg.shape[-1]
+    gmax = MC.pmax_tp(top, topo.model)
+    cand = torch.where(top >= gmax, arg, torch.full_like(arg, 2**30))
+    dist.all_reduce(cand, op=dist.ReduceOp.MIN, group=topo.model)
+    return cand
+
+
+def make_prefill_step(cfg: ArchConfig, topo: MeshTopo, device: torch.device,
+                      *, batch: int, window: int):
+    """Returns ``prefill(params, batch) -> (local logits (B_l, V_local) of
+    the last position, state)``: ``params`` a rank's serving tensors
+    (``flatparam.init_serve_params``), ``batch`` the global ``{"tokens":
+    (batch, S)}`` (an encoder-decoder's ``{"frames": (batch, S,
+    d_model)}``), ``state`` the caches with a ``window``-token KV window
+    (:func:`serve_window`).  An encoder-decoder encodes the frames and
+    runs its start token (0) through the decoder, as the reference does."""
+    model = build_model(cfg, topo.tp, model_group=topo.model)
+    groups = model.groups()
+    rows = serve_rows(batch, topo)
+
+    @torch.inference_mode()
+    def prefill(params: dict, batch_in: dict):
+        store = FP.ServeStore(groups, params)
+        if cfg.enc_dec:
+            frames = batch_in["frames"][rows].to(device)
+            memory = model.encode(store, frames, remat=False)
+            state = model.init_decode_state(memory, frames.shape[0], window)
+            tok0 = torch.zeros(frames.shape[0], 1, dtype=torch.int64,
+                               device=device)
+            logits, state = model.decode_step(store, state, tok0)
+            return logits[:, -1], state
+        tokens = batch_in["tokens"][rows].to(device)
+        state = init_decode_state(cfg, topo.tp, tokens.shape[0], window,
+                                  device)
+        logits, state = model.prefill(store, tokens, state)
+        return logits[:, -1], state
+
+    return prefill
+
+
+def make_decode_step(cfg: ArchConfig, topo: MeshTopo, device: torch.device):
+    """Returns ``decode(params, state, token) -> (next token (B_l, 1),
+    local logits (B_l, V_local), state)``: one token per row through the
+    caches (updated in place), sampled greedily (:func:`greedy`)."""
+    model = build_model(cfg, topo.tp, model_group=topo.model)
+    groups = model.groups()
+
+    @torch.inference_mode()
+    def decode(params: dict, state, token: torch.Tensor):
+        store = FP.ServeStore(groups, params)
+        logits, state = model.decode_step(store, state, token)
+        logits = logits[:, -1]
+        return greedy(logits, topo), logits, state
+
+    return decode

@@ -38,6 +38,14 @@ that were scaled in f32 and rounded back to bf16, as the reference does
 (``common.py`` blockwise attention).  With the keys in one block (the
 reference's block is 512 keys) the result is the reference's online
 softmax exactly; the port always takes one block.
+
+Serving adds :func:`attention_at`, the same arithmetic over absolute
+query and key positions (a key slot at position -1 is empty), the ring
+:class:`KVCache` and the context-parallel cache of the reference
+(``build_cp_cache``, ``cp_append``, ``cp_decode_attention``): when kv
+heads are fewer than tp, each model rank keeps ``W / tp`` slots of the
+window, and a decode step merges the ranks' softmax statistics.  They
+run under ``torch.inference_mode`` and need no autograd.
 """
 from __future__ import annotations
 
@@ -289,15 +297,49 @@ class _Tanh(torch.autograd.Function):
 
 
 def soft_cap(x, cap: float):
-    """``cap * tanh(x / cap)`` on f32 ``x``, as the reference computes it:
-    XLA divides by a constant as a multiply by its f32 reciprocal, and its
-    tanh is :func:`_xla_tanh`."""
-    return cap * _Tanh.apply(x * _rounded(1.0 / cap, torch.float32))
+    """``cap * tanh(x / cap)``, as the reference computes it: XLA divides by
+    a constant as a multiply by its f32 reciprocal, and its tanh is
+    :func:`_xla_tanh`.  On a bf16 ``x`` (the decode step's final cap, which
+    the reference takes on its bf16 logits) each of the three results is
+    rounded to bf16, as XLA rounds them there; no gradient."""
+    inv = _rounded(1.0 / cap, torch.float32)
+    if x.dtype == torch.float32:
+        return cap * _Tanh.apply(x * inv)
+    y = (x.float() * inv).to(x.dtype)
+    t = _xla_tanh(y.float()).to(x.dtype)
+    return (t.float() * _rounded(cap, x.dtype)).to(x.dtype)
 
 
 # ---------------------------------------------------------------------------
 # attention
 # ---------------------------------------------------------------------------
+
+def _attend(q, k, v, keep, scale: float, softcap: float | None):
+    """The f32 core of :func:`attention` and :func:`attention_at`: q: (B,
+    Sq, H, hd), k, v: (B, Sk, H, hd), ``keep`` a boolean mask broadcast
+    over (B, H, Sq, Sk) or None -> ``(m, l, acc)`` of shapes (B, H, Sq, 1),
+    (B, H, Sq, 1), (B, H, Sq, hd): q scaled and rounded to its dtype, f32
+    scores, ``softcap`` before the mask, ``exp(s - m)``, ``p`` rounded to
+    v's dtype."""
+    qf = (q.float() * scale).to(q.dtype).transpose(1, 2)     # (B, H, Sq, hd)
+    kt = k.transpose(1, 2)
+    vt = v.transpose(1, 2)
+    s = torch.matmul(qf.float(), kt.float().transpose(-1, -2))
+    if softcap is not None:
+        s = soft_cap(s, softcap)
+    if keep is not None:
+        s = s.masked_fill(~keep, NEG_INF)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    l = p.sum(dim=-1, keepdim=True)
+    acc = torch.matmul(p.to(v.dtype).float(), vt.float())
+    return m, l, acc
+
+
+def _normalize(q, l, acc):
+    out = acc / torch.clamp(l, min=1e-30)
+    return out.transpose(1, 2).to(q.dtype)
+
 
 def attention(q, k, v, causal: bool = True, scale: float | None = None,
               window: int | None = None, softcap: float | None = None):
@@ -310,23 +352,13 @@ def attention(q, k, v, causal: bool = True, scale: float | None = None,
     are soft-capped (:func:`soft_cap`) before the mask."""
     Sq, Sk, hd = q.shape[1], k.shape[1], q.shape[-1]
     scale = scale if scale is not None else 1.0 / math.sqrt(hd)
-    qf = (q.float() * scale).to(q.dtype).transpose(1, 2)     # (B, H, Sq, hd)
-    kt = k.transpose(1, 2)
-    vt = v.transpose(1, 2)
-    s = torch.matmul(qf.float(), kt.float().transpose(-1, -2))
-    if softcap is not None:
-        s = soft_cap(s, softcap)
+    keep = None
     if causal:
         keep = torch.ones(Sq, Sk, dtype=torch.bool, device=q.device).tril()
         if window is not None and window < Sk:
             keep = keep.triu(1 - window)
-        s = s.masked_fill(~keep, NEG_INF)
-    m = s.amax(dim=-1, keepdim=True)
-    p = torch.exp(s - m)
-    l = p.sum(dim=-1, keepdim=True)
-    acc = torch.matmul(p.to(v.dtype).float(), vt.float())
-    out = acc / torch.clamp(l, min=1e-30)
-    return out.transpose(1, 2).to(q.dtype)
+    _, l, acc = _attend(q, k, v, keep, scale, softcap)
+    return _normalize(q, l, acc)
 
 
 # ---------------------------------------------------------------------------
@@ -440,6 +472,14 @@ class HeadLayout:
         return torch.clamp(gq // group, 0, self.n_kv - 1)
 
 
+    def kv_runs_global(self) -> tuple[int, ...]:
+        """``kv_runs`` over all ``h_pad`` q heads of the model group (the
+        reference's ``kv_map_global``: padded heads read the last kv
+        head)."""
+        group = self.n_heads // self.n_kv
+        heads = [min(q // group, self.n_kv - 1) for q in range(self.h_pad)]
+        return tuple(heads.count(j) for j in range(self.n_kv))
+
     def kv_runs(self, rank: int = 0) -> tuple[int, ...]:
         """How many consecutive local q heads each local kv head serves on
         model rank ``rank`` (``kv_map`` is non-decreasing): the counts of
@@ -461,3 +501,136 @@ def expand_kv(k, runs):
     run; an expand's sums each kv head's gradient in one reduction."""
     return torch.cat([k[:, :, j:j + 1].expand(-1, -1, n, -1)
                       for j, n in enumerate(runs) if n], dim=2)
+
+
+# ---------------------------------------------------------------------------
+# serving: attention over absolute positions, the ring KV cache and the
+# context-parallel (window-sharded) cache
+# ---------------------------------------------------------------------------
+
+def attention_at(q, k, v, q_pos, k_pos, *, window: int | None = None,
+                 softcap: float | None = None, return_stats: bool = False):
+    """q: (B, Sq, H, hd) at absolute positions ``q_pos`` (Sq,); k, v:
+    (B, Sk, H, hd) (expanded to the q heads) at ``k_pos`` (Sk,), -1 for an
+    empty slot.  A query sees a key when ``0 <= k_pos <= q_pos`` and, with
+    ``window``, ``k_pos > q_pos - window``.  The arithmetic of
+    :func:`attention`; with ``return_stats`` the f32 ``(m, l, acc)`` of
+    shapes (B, H, Sq), (B, H, Sq), (B, H, Sq, hd), as the reference's
+    ``blockwise_attention`` returns them."""
+    kp, qp = k_pos[None, :], q_pos[:, None]
+    keep = (kp >= 0) & (kp <= qp)
+    if window is not None:
+        keep = keep & (kp > qp - window)
+    m, l, acc = _attend(q, k, v, keep, 1.0 / math.sqrt(q.shape[-1]), softcap)
+    if return_stats:
+        return m[..., 0], l[..., 0], acc
+    return _normalize(q, l, acc)
+
+
+@dataclasses.dataclass
+class KVCache:
+    """Ring buffer of one attention layer's keys and values at absolute
+    positions (the reference's ``KVCache``): ``k``, ``v`` (B, W, KVl, hd),
+    ``pos`` (W,) int64, -1 for an empty slot; position p lives in slot
+    ``p % W``, so a full and a sliding-window cache are the same object.
+    Written in place."""
+
+    k: torch.Tensor
+    v: torch.Tensor
+    pos: torch.Tensor
+
+    @staticmethod
+    def create(batch: int, window: int, heads_local: int, head_dim: int,
+               device) -> "KVCache":
+        shape = (batch, window, heads_local, head_dim)
+        return KVCache(torch.zeros(shape, dtype=torch.bfloat16, device=device),
+                       torch.zeros(shape, dtype=torch.bfloat16, device=device),
+                       torch.full((window,), -1, dtype=torch.int64,
+                                  device=device))
+
+    @property
+    def window(self) -> int:
+        return self.k.shape[1]
+
+    def append(self, k_new, v_new, start_pos: int) -> "KVCache":
+        """Write Sq entries at positions ``start_pos + arange(Sq)``; when
+        Sq >= W only the last W survive (the ring would wrap)."""
+        W, Sq = self.window, k_new.shape[1]
+        if Sq >= W:
+            k_new, v_new = k_new[:, -W:], v_new[:, -W:]
+            start_pos, Sq = start_pos + Sq - W, W
+        p = torch.arange(start_pos, start_pos + Sq, device=self.pos.device)
+        slots = p % W
+        self.k.index_copy_(1, slots, k_new.to(self.k.dtype))
+        self.v.index_copy_(1, slots, v_new.to(self.v.dtype))
+        self.pos.index_copy_(0, slots, p)
+        return self
+
+
+def cp_degree(lay: HeadLayout) -> int:
+    """Ranks a layer's cache window is cut over: tp when the kv heads are
+    replicated over the model group (fewer than tp), else 1."""
+    return lay.tp if (not lay.kv_sharded and lay.tp > 1) else 1
+
+
+def build_cp_cache(cache: KVCache, k, v, cp: int, rank: int) -> KVCache:
+    """Prefill: fill model rank ``rank``'s shard of the window from the
+    (B, S, KV, hd) fresh keys.  Global slot g (of ``W_g = w_local * cp``)
+    holds the latest position p < S with ``p % W_g == g``; rank r owns
+    slots ``[r * w_local, (r + 1) * w_local)``.  A gather, in place."""
+    S, w_local = k.shape[1], cache.window
+    w_g = w_local * cp
+    g = rank * w_local + torch.arange(w_local, device=k.device)
+    p = g + torch.div(S - 1 - g, w_g, rounding_mode="floor") * w_g
+    valid = p >= 0
+    pc = p.clamp(0, S - 1)
+    zero = torch.zeros((), dtype=cache.k.dtype, device=k.device)
+    for dst, src in ((cache.k, k), (cache.v, v)):
+        dst.copy_(torch.where(valid[None, :, None, None],
+                              src.index_select(1, pc).to(dst.dtype), zero))
+    cache.pos.copy_(torch.where(valid, p, -1))
+    return cache
+
+
+def cp_append(cache: KVCache, k_new, v_new, p: int, cp: int,
+              rank: int) -> KVCache:
+    """Decode: the rank that owns position ``p``'s global slot writes the
+    token there (in place); the others keep their shard."""
+    w_local = cache.window
+    g = p % (w_local * cp)
+    if g // w_local == rank:
+        ls = g % w_local
+        cache.k[:, ls:ls + 1] = k_new.to(cache.k.dtype)
+        cache.v[:, ls:ls + 1] = v_new.to(cache.v.dtype)
+        cache.pos[ls] = p
+    return cache
+
+
+def pmax_tp(x, group):
+    """Elementwise max over the model group."""
+    out = x.contiguous().clone()
+    dist.all_reduce(out, op=dist.ReduceOp.MAX, group=group)
+    return out
+
+
+def cp_decode_attention(q, cache: KVCache, lay: HeadLayout, q_pos, group, *,
+                        window: int | None = None,
+                        softcap: float | None = None):
+    """q: (B, 1, Hl, hd) this rank's query heads -> (B, 1, Hl, hd).  Every
+    query head (all-gathered over the model group) attends to this rank's
+    window shard; the ranks' ``(m, l, acc)`` merge by a max and two sums
+    over the group (flash-decoding), and each rank keeps its heads."""
+    Hl = q.shape[2]
+    q_all = all_gather_tp(q, group, dim=2)                   # (B, 1, H, hd)
+    runs = lay.kv_runs_global()
+    m, l, acc = attention_at(q_all, expand_kv(cache.k, runs),
+                             expand_kv(cache.v, runs), q_pos, cache.pos,
+                             window=window, softcap=softcap,
+                             return_stats=True)
+    m_g = pmax_tp(m, group)
+    w = torch.exp(m - m_g)
+    l_g = psum_tp(l * w, group)
+    acc_g = psum_tp(acc * w[..., None], group)
+    out = acc_g / torch.clamp(l_g[..., None], min=1e-30)     # (B, H, 1, hd)
+    r = tp_rank(group)
+    return out[:, r * Hl:(r + 1) * Hl].transpose(1, 2).to(q.dtype)

@@ -30,6 +30,18 @@ reference does.  The shared block is gathered once per microbatch, before
 the super-blocks, so its gradient sums over every application (and the
 recomputation adds nothing) before its one sync.  The audio family
 (whisper) is :mod:`repro_torch.models.whisper`.
+
+Serving (the reference's ``forward(caches=...)``, ``_prefill_unrolled``
+and ``decode_step``): :meth:`DecoderLM.prefill` runs a prompt through
+the layers into a :class:`DecodeState` (a ring :class:`KVCache` per
+attention layer, or per application of the hybrid's shared block, and a
+:class:`MambaCache` of conv contexts and SSD state per mamba layer), and
+:meth:`DecoderLM.decode_step` steps one token, the caches written in
+place.  Both run the layers in a Python loop under
+``torch.inference_mode`` with no recomputation.  A cache's window is the
+caller's: ``init_decode_state`` takes it (an ``swa`` layer keeps at most
+``cfg.window``), and serving sizes it to the whole generation
+(``launch/steps.py``).
 """
 from __future__ import annotations
 
@@ -45,7 +57,7 @@ from repro_torch.core.flatparam import ParamGroup, ParamInfo
 from repro_torch.models import common as C
 from repro_torch.models import moe as MOE
 from repro_torch.models import ssm as SSM
-from repro_torch.models.common import HeadLayout
+from repro_torch.models.common import HeadLayout, KVCache
 
 LOCO_MIN_NUMEL = 2**16  # smaller tensors sync in bf16
 SHARED = "s_"  # name prefix of the hybrid's shared attention block
@@ -229,24 +241,62 @@ def layer_window(cfg: ArchConfig, layer_idx: int) -> int | None:
 
 
 def attention_block(p, x, cfg: ArchConfig, lay: HeadLayout, positions,
-                    group=None, sp: bool = False, layer_idx: int = 0):
+                    group=None, sp: bool = False, layer_idx: int = 0,
+                    cache: KVCache | None = None, start: int = 0):
     """Returns the attention output (pre-residual).  ``group``: the model
     group (None at ``tp = 1``).  Under ``sp`` x is the (B, S/tp, d)
     sequence shard: the norm runs on the shard, the block gathers the full
     sequence for attention and returns a reduce-scattered shard.
-    ``layer_idx``: the global layer index (its window)."""
+    ``layer_idx``: the global layer index (its window).
+
+    With a ``cache`` (serving; ``positions`` = ``start + arange(S)``): a
+    prompt (S > 1) attends over its own keys and is then written to the
+    cache (this rank's window shard under context parallelism); one token
+    (S == 1) is written first and attends over the cache."""
     h = C.norm(cfg.norm, x, p["norm1"])
     if sp:
         h = C.sp_gather(h, group)
     B, S, _ = h.shape
     q, k, v = _qkv(p, h, lay, cfg, positions)
-    if not lay.kv_identity:
-        runs = lay.kv_runs(C.tp_rank(group))
-        k, v = C.expand_kv(k, runs), C.expand_kv(v, runs)
-    out = C.attention(q, k, v, window=layer_window(cfg, layer_idx),
-                      softcap=cfg.attn_softcap)
+    window = layer_window(cfg, layer_idx)
+    runs = None if lay.kv_identity else lay.kv_runs(C.tp_rank(group))
+    if cache is None:
+        if runs is not None:
+            k, v = C.expand_kv(k, runs), C.expand_kv(v, runs)
+        out = C.attention(q, k, v, window=window, softcap=cfg.attn_softcap)
+    else:
+        out = _cached_attention(q, k, v, lay, positions, cache, start, runs,
+                                group, window, cfg.attn_softcap)
     out = out.reshape(B, S, lay.hl * lay.head_dim)
     return C.row_linear(out, p["wo"], group, sp)
+
+
+def _cached_attention(q, k, v, lay: HeadLayout, positions, cache: KVCache,
+                      start: int, runs, group, window, softcap):
+    """The serving branches of :func:`attention_block` (the reference's
+    attention_block with a cache)."""
+    cp = C.cp_degree(lay)
+    rank = C.tp_rank(group)
+    if q.shape[1] > 1:
+        # prefill into an empty cache: attend over the in-flight k/v
+        kq, vq = ((k, v) if runs is None
+                  else (C.expand_kv(k, runs), C.expand_kv(v, runs)))
+        out = C.attention_at(q, kq, vq, positions, positions, window=window,
+                             softcap=softcap)
+        if cp > 1:
+            C.build_cp_cache(cache, k, v, cp, rank)
+        else:
+            cache.append(k, v, start)
+        return out
+    if cp > 1:
+        C.cp_append(cache, k, v, start, cp, rank)
+        return C.cp_decode_attention(q, cache, lay, positions, group,
+                                     window=window, softcap=softcap)
+    cache.append(k, v, start)
+    kq, vq = ((cache.k, cache.v) if runs is None
+              else (C.expand_kv(cache.k, runs), C.expand_kv(cache.v, runs)))
+    return C.attention_at(q, kq, vq, positions, cache.pos, window=window,
+                          softcap=softcap)
 
 
 def mlp_block(p, x, cfg: ArchConfig, group=None, sp: bool = False):
@@ -267,25 +317,29 @@ def _res(cfg: ArchConfig, x, delta):
 
 
 def dense_block(p, x, cfg: ArchConfig, lay: HeadLayout, positions,
-                group=None, sp: bool = False, layer_idx: int = 0):
+                group=None, sp: bool = False, layer_idx: int = 0,
+                cache: KVCache | None = None, start: int = 0):
     if cfg.parallel_block:
         # attention and MLP both read x; one residual add takes their sum
-        a = attention_block(p, x, cfg, lay, positions, group, sp, layer_idx)
+        a = attention_block(p, x, cfg, lay, positions, group, sp, layer_idx,
+                            cache, start)
         return _res(cfg, x, a + mlp_block(p, x, cfg, group, sp))
     x = _res(cfg, x, attention_block(p, x, cfg, lay, positions, group, sp,
-                                     layer_idx))
+                                     layer_idx, cache, start))
     return _res(cfg, x, mlp_block(p, x, cfg, group, sp))
 
 
 def moe_layer(p, x, cfg: ArchConfig, lay: HeadLayout, positions, group,
-              sp: bool = False, a2a_state=None, layer_idx: int = 0):
+              sp: bool = False, a2a_state=None, layer_idx: int = 0,
+              cache: KVCache | None = None, start: int = 0):
     """Attention then the MoE FFN; returns (x, router aux, router z), and
     the layer's new combine EF residual after them when ``a2a_state`` is
     given.  ``group``: the model group (the expert exchange runs on it
-    also at ``tp = 1``)."""
+    also at ``tp = 1``).  Serving passes no ``a2a_state``: ``block8+ef``
+    then exchanges as the stateless ``block8``, as in the reference."""
     tpg = group if C.tp_size(group) > 1 else None
     x = _res(cfg, x, attention_block(p, x, cfg, lay, positions, tpg, sp,
-                                     layer_idx))
+                                     layer_idx, cache, start))
     h = C.norm(cfg.norm, x, p["norm2"])
     if sp:
         h = C.sp_gather(h, tpg)
@@ -296,17 +350,91 @@ def moe_layer(p, x, cfg: ArchConfig, lay: HeadLayout, positions, group,
     return x, aux["aux"], aux["z"]
 
 
-def mamba_layer(p, x, cfg: ArchConfig, group=None, sp: bool = False):
-    """Pre-norm mamba2 mixer with its residual (training: no caches)."""
+@dataclasses.dataclass
+class MambaCache:
+    """One mamba layer's decode state: ``conv``, the (x, B, C) trailing
+    conv contexts, (B, K-1, ch) bf16 each; ``ssm``, the (B, Hl, N, P) f32
+    SSD state.  Rewritten by each call."""
+
+    conv: tuple
+    ssm: torch.Tensor
+
+
+def mamba_layer(p, x, cfg: ArchConfig, group=None, sp: bool = False,
+                cache: MambaCache | None = None, single_step: bool = False):
+    """Pre-norm mamba2 mixer with its residual.  With a ``cache``
+    (serving) the SSD scan starts from ``cache.ssm``, ``single_step``
+    steps one token from the conv contexts too (a prompt's conv starts
+    from zeros, as in the reference), and the new contexts (rounded to
+    bf16, as the reference stores them) and state replace the cache's."""
     h = C.norm("rmsnorm", x, p["normm"])
     if sp:
         h = C.sp_gather(h, group)
-    y, _ = SSM.mamba2_mixer(h, p, cfg, group=group, sp=sp)
+    if cache is None:
+        y, _ = SSM.mamba2_mixer(h, p, cfg, group=group, sp=sp)
+        return _res(cfg, x, y)
+    y, (conv, S) = SSM.mamba2_mixer(h, p, cfg, conv_cache=cache.conv,
+                                    ssm_state=cache.ssm,
+                                    single_step=single_step, group=group)
+    cache.conv = tuple(c.to(torch.bfloat16) for c in conv)
+    cache.ssm = S
     return _res(cfg, x, y)
 
 
 def _unprefixed(p: dict, prefix: str) -> dict:
     return {k[len(prefix):]: v for k, v in p.items() if k.startswith(prefix)}
+
+
+# ---------------------------------------------------------------------------
+# decode state (serving)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class DecodeState:
+    """A rank's serving caches: ``kv``, one :class:`KVCache` per attention
+    layer (per application of the hybrid's shared block); ``mamba``, one
+    :class:`MambaCache` per mamba layer; ``pos``, the next absolute
+    position."""
+
+    kv: list
+    mamba: list
+    pos: int = 0
+
+
+def _conv_zeros(cfg: ArchConfig, tp: int, batch_local: int, device):
+    K, N = cfg.d_conv, cfg.ssm_state
+    return tuple(torch.zeros(batch_local, K - 1, ch, dtype=torch.bfloat16,
+                             device=device)
+                 for ch in (cfg.d_inner // tp, N, N))
+
+
+def init_decode_state(cfg: ArchConfig, tp: int, batch_local: int,
+                      window: int, device) -> DecodeState:
+    """Empty caches for ``batch_local`` rows and a ``window``-token KV
+    window: at most ``cfg.window`` slots under ``swa``, and ceil(W / tp)
+    on a rank under context parallelism (the hybrid keeps ``window``
+    whole, as the reference does)."""
+    kv, mamba = [], []
+    if cfg.family in ("dense", "vlm", "moe", "hybrid"):
+        lay = head_layout(cfg, tp)
+        n, w = cfg.n_layers, window
+        if cfg.family == "hybrid":
+            n = cfg.n_layers // cfg.hybrid_attn_every
+        else:
+            if cfg.attn_kind == "swa":
+                w = min(window, cfg.window)
+            w = -(-w // C.cp_degree(lay))
+        kv = [KVCache.create(batch_local, w, lay.kvl, lay.head_dim, device)
+              for _ in range(n)]
+    elif cfg.family != "ssm":
+        raise ValueError(cfg.family)
+    if cfg.family in ("ssm", "hybrid"):
+        mamba = [MambaCache(_conv_zeros(cfg, tp, batch_local, device),
+                            torch.zeros(batch_local, cfg.ssm_heads // tp,
+                                        cfg.ssm_state, cfg.ssm_headdim,
+                                        dtype=torch.float32, device=device))
+                 for _ in range(cfg.n_layers)]
+    return DecodeState(kv=kv, mamba=mamba)
 
 
 # ---------------------------------------------------------------------------
@@ -354,11 +482,7 @@ class DecoderLM:
         tpg = self.tp_group
         sp = self.sp and self.tp > 1 and S % self.tp == 0
         positions = torch.arange(S, device=tokens.device)
-        # gathered (and synced in the backward) once: tied logits reuse it
-        emb = store.group("embed")["tok"]
-        x = C.vocab_parallel_embed(emb, tokens, tpg, sp)
-        if cfg.emb_scale:
-            x = C.scale_by(x, cfg.emb_scale)
+        x, emb = self._embed(store, tokens, sp)
         aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
         z = torch.zeros((), dtype=torch.float32, device=tokens.device)
 
@@ -392,16 +516,10 @@ class DecoderLM:
 
         if sp:
             x = C.sp_gather(x, tpg)  # exit sequence parallelism
-        fin = store.group("final")
-        x = C.norm(cfg.norm, x, fin["norm_f"])
         out_aux = {"aux": aux, "z": z}
         if ef is not None:
             out_aux["moe_a2a_state"] = torch.stack(new_ef)
-        w = emb.T if cfg.tied_embeddings else fin["head"]
-        logits = C.vocab_parallel_logits(x, w)
-        if cfg.logit_scale:
-            logits = C.scale_by(logits, cfg.logit_scale)
-        return logits, out_aux
+        return self._logits(store, x, emb), out_aux
 
     @property
     def _lay(self) -> HeadLayout | None:
@@ -432,6 +550,88 @@ class DecoderLM:
             x = (checkpoint(super_body, x, use_reentrant=False) if remat
                  else super_body(x))
         return x
+
+    def _logits(self, store, x, emb):
+        fin = store.group("final")
+        x = C.norm(self.cfg.norm, x, fin["norm_f"])
+        w = emb.T if self.cfg.tied_embeddings else fin["head"]
+        logits = C.vocab_parallel_logits(x, w)
+        if self.cfg.logit_scale:
+            logits = C.scale_by(logits, self.cfg.logit_scale)
+        return logits
+
+    def _embed(self, store, tokens, sp: bool = False):
+        """-> (x, the embedding table): gathered (and synced in the
+        backward) once, the tied logits reuse it."""
+        emb = store.group("embed")["tok"]
+        x = C.vocab_parallel_embed(emb, tokens, self.tp_group, sp)
+        if self.cfg.emb_scale:
+            x = C.scale_by(x, self.cfg.emb_scale)
+        return x, emb
+
+    def _cached_layers(self, store, x, state: DecodeState,
+                       single_step: bool):
+        """Every layer over ``x`` (B, S, d) at positions ``state.pos +
+        arange(S)``, reading and writing ``state``'s caches."""
+        cfg, tpg = self.cfg, self.tp_group
+        start = state.pos
+        positions = torch.arange(start, start + x.shape[1], device=x.device)
+        if cfg.family == "ssm":
+            for l in range(cfg.n_layers):
+                x = mamba_layer(store.layer("block", l), x, cfg, tpg,
+                                cache=state.mamba[l],
+                                single_step=single_step)
+            return x
+        if cfg.family == "hybrid":
+            k = cfg.hybrid_attn_every
+            shared = _unprefixed(store.group("shared"), SHARED)
+            for sidx in range(cfg.n_layers // k):
+                for j in range(k):
+                    l = sidx * k + j
+                    x = mamba_layer(store.layer("block", l), x, cfg, tpg,
+                                    cache=state.mamba[l],
+                                    single_step=single_step)
+                x = _res(cfg, x, attention_block(
+                    shared, x, cfg, self._lay, positions, tpg,
+                    layer_idx=sidx, cache=state.kv[sidx], start=start))
+                x = _res(cfg, x, mlp_block(shared, x, cfg, tpg))
+            return x
+        for l in range(cfg.n_layers):
+            p = store.layer("block", l)
+            if cfg.family == "moe":
+                x = moe_layer(p, x, cfg, self._lay, positions,
+                              self.model_group, layer_idx=l,
+                              cache=state.kv[l], start=start)[0]
+            else:
+                x = dense_block(p, x, cfg, self._lay, positions, tpg,
+                                layer_idx=l, cache=state.kv[l], start=start)
+        return x
+
+    @torch.inference_mode()
+    def prefill(self, store, tokens, state: DecodeState):
+        """tokens: (B, S) prompt -> (local logits (B, S, V_local), state):
+        the reference's ``forward(caches=...)`` (``_prefill_unrolled``)
+        from an empty ``state``, whose caches it fills; ``state.pos``
+        advances by S.  The logits are not soft-capped, as the
+        reference's prefill returns them."""
+        x, emb = self._embed(store, tokens)
+        x = self._cached_layers(store, x, state, single_step=False)
+        state.pos += tokens.shape[1]
+        return self._logits(store, x, emb), state
+
+    @torch.inference_mode()
+    def decode_step(self, store, state: DecodeState, token):
+        """token: (B, 1) -> (local logits (B, 1, V_local), state): one token
+        at ``state.pos`` through the caches, which it updates; the bf16
+        logits soft-capped by ``final_softcap`` (:func:`common.soft_cap`),
+        which the reference applies here and not to the prefill's."""
+        x, emb = self._embed(store, token)
+        x = self._cached_layers(store, x, state, single_step=True)
+        state.pos += 1
+        logits = self._logits(store, x, emb)
+        if self.cfg.final_softcap:
+            logits = C.soft_cap(logits, self.cfg.final_softcap)
+        return logits, state
 
     def loss_fn(self, store, batch, remat: bool = True, moe_a2a_state=None):
         """-> (total loss, {"ce", "aux", "z"}); the total adds the router

@@ -12,8 +12,14 @@ one sync).
 Shapes (the reference's): ``seq_len`` is the encoder's frame count; the
 decoder trains on ``cfg.dec_len`` tokens.  At ``tp > 1`` the heads, the
 MLP and the vocabulary shard over the ``model`` group as in the decoder
-(no sequence parallelism, as in the reference).  Incremental decoding
-(``WhisperDecodeState``, ``decode_step``) waits for serving (ROADMAP.md).
+(no sequence parallelism, as in the reference).
+
+Serving (the reference's ``init_decode_state`` and ``decode_step``): the
+encoder runs once over the frames, and each decoder token attends over a
+ring :class:`~repro_torch.models.common.KVCache` of its self-attention
+keys per layer and across to the encoder memory, whose keys and values
+are projected again at every step, as the reference does.  The token's
+learned position is ``pos_dec[min(pos, dec_len - 1)]``.
 """
 from __future__ import annotations
 
@@ -26,7 +32,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.flatparam import ParamGroup
 from repro_torch.models import common as C
-from repro_torch.models.common import HeadLayout
+from repro_torch.models.common import HeadLayout, KVCache
 from repro_torch.models.transformer import (_pi, check_supported,
                                             head_layout, vocab_padded)
 
@@ -93,26 +99,47 @@ def build_groups(cfg: ArchConfig, tp: int) -> list[ParamGroup]:
 
 
 def _mha(p, x, kv_src, lay: HeadLayout, causal: bool, group,
-         names=("wq", "wk", "wv", "wo")):
+         names=("wq", "wk", "wv", "wo"), cache: KVCache | None = None,
+         pos: int = 0):
     """Attention of ``x``'s queries over ``kv_src``'s keys (self-attention
     when they are the same tensor), finished by the row-parallel output
-    projection over ``group``."""
+    projection over ``group``.  With a ``cache`` (decoder self-attention
+    while serving) the new keys at position ``pos`` are appended first and
+    the query at ``pos`` attends over the cache."""
     B, Sq, _ = x.shape
     Sk, hd = kv_src.shape[1], lay.head_dim
     nq, nk, nv, no = names
     q = C.col_linear(x, p[nq]).reshape(B, Sq, lay.hl, hd)
     k = C.col_linear(kv_src, p[nk]).reshape(B, Sk, lay.kvl, hd)
     v = C.col_linear(kv_src, p[nv]).reshape(B, Sk, lay.kvl, hd)
+    if cache is not None:
+        cache.append(k, v, pos)
+        k, v = cache.k, cache.v
     if not lay.kv_identity:
         runs = lay.kv_runs(C.tp_rank(group))
         k, v = C.expand_kv(k, runs), C.expand_kv(v, runs)
-    out = C.attention(q, k, v, causal=causal).reshape(B, Sq, lay.hl * hd)
-    return C.row_linear(out, p[no], group)
+    if cache is None:
+        out = C.attention(q, k, v, causal=causal)
+    else:
+        q_pos = torch.arange(pos, pos + Sq, device=x.device)
+        out = C.attention_at(q, k, v, q_pos, cache.pos)
+    return C.row_linear(out.reshape(B, Sq, lay.hl * hd), p[no], group)
 
 
 def _mlp(p, h, group):
     a = C.activation("gelu", C.col_linear(h, p["w1"]))
     return C.row_linear(a, p["w2"], group)
+
+
+@dataclasses.dataclass
+class WhisperDecodeState:
+    """A rank's serving state: ``self_kv``, one self-attention
+    :class:`KVCache` per decoder layer; ``memory``, the (B, frames, d)
+    encoder output; ``pos``, the next decoder position."""
+
+    self_kv: list
+    memory: torch.Tensor
+    pos: int = 0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -182,6 +209,40 @@ class EncDecLM:
         # gather syncs the gradient of its own use
         x = C.norm(cfg.norm, x, store.group("final")["norm_f"])
         return C.vocab_parallel_logits(x, emb["tok"].T)  # tied head
+
+    def init_decode_state(self, memory, batch_local: int,
+                          window: int) -> WhisperDecodeState:
+        """Empty ``window``-slot self-attention caches beside ``memory``."""
+        lay = head_layout(self.cfg, self.tp)
+        kv = [KVCache.create(batch_local, window, lay.kvl, lay.head_dim,
+                             memory.device) for _ in range(self.cfg.n_layers)]
+        return WhisperDecodeState(self_kv=kv, memory=memory)
+
+    @torch.inference_mode()
+    def decode_step(self, store, state: WhisperDecodeState, token):
+        """token: (B, 1) -> (local logits (B, 1, V_local), state): one
+        decoder token at ``state.pos``, its self-attention caches updated
+        in place."""
+        cfg, tpg = self.cfg, self.tp_group
+        lay = head_layout(cfg, self.tp)
+        pos = state.pos
+        emb = store.group("embed")
+        x = C.vocab_parallel_embed(emb["tok"], token, tpg)
+        pidx = min(pos, cfg.dec_len - 1)
+        x = x + emb["pos_dec"][None, pidx:pidx + 1].to(x.dtype)
+        memory = state.memory.to(torch.bfloat16)
+        for l in range(cfg.n_layers):
+            p = store.layer("dec_block", l)
+            h = C.norm(cfg.norm, x, p["norm1"])
+            x = x + _mha(p, h, h, lay, True, tpg, cache=state.self_kv[l],
+                         pos=pos)
+            h = C.norm(cfg.norm, x, p["normx"])
+            x = x + _mha(p, h, memory, lay, False, tpg,
+                         names=("xq", "xk", "xv", "xo"))
+            x = x + _mlp(p, C.norm(cfg.norm, x, p["norm2"]), tpg)
+        x = C.norm(cfg.norm, x, store.group("final")["norm_f"])
+        state.pos += 1
+        return C.vocab_parallel_logits(x, emb["tok"].T), state
 
     def loss_fn(self, store, batch, remat: bool = True):
         """batch: ``frames`` (B, T_f, d) and ``tokens`` (B, dec_len + 1)
