@@ -207,6 +207,23 @@ Phases, in order; any failure exits non-zero and prints no result:
    the card, reduced llama2-400m with
    ``--bucket-mb 0.0625`` under a uniform policy gives the monolithic
    run's losses bit for bit.
+5. dryrun: two spawned worker processes, started once the train phase
+   is done (a fake CUDA tensor creates its process's CUDA context, for
+   which paths k-m leave no room), run ``launch/dryrun``'s
+   ``dryrun_one`` on fake tensors while the main process drives the
+   card; the phase reads them after the reference phase and checks the
+   card's total memory against ``analysis/roofline.HBM_BYTES``: (a)
+   path a's command on fake CUDA tensors predicts path a's run: its
+   kernel launches and collectives per step exactly, its peak memory
+   within DRYRUN_PEAK_RTOL of ``max_memory_allocated``, and a roofline
+   bound (H100 constants) no longer than the traced step's device busy
+   time, its dispatched ops printed beside the trace's launches; (b) the
+   reference dry run's cells llama2-400m ``train_4k`` at 16 x 16 and
+   mixtral-8x7b ``train_4k`` at 2 x 16 x 16 with ``--fidelity-every 4``
+   (qwen3-moe-30b-a3b's takes twice as long, MOE_DRYRUN) finish on fake
+   CUDA tensors with ``torch.cuda.memory_allocated()`` moved by under 1
+   MiB, their record lines printed; (c) path a's command on fake CPU
+   tensors gives (a)'s ops, FLOPs, bytes, collectives and kernels.
 
 Where the time goes is read from traces inside the train phase, not from
 models built to profile: paths a, b and the first d trace step 2 (as e,
@@ -1103,10 +1120,25 @@ def main(argv=None) -> int:
           flush=True)
 
     t0 = time.perf_counter()
-    launches = train_phase(LQ)
+    launches, path_a = train_phase(LQ)
     time_grad_norm(dev, rate)
     phase_s["train"] = time.perf_counter() - t0
     print(f"train: phase took {phase_s['train']:.1f} s", flush=True)
+    with dryrun_pool(src) as pool:
+        # the dry runs are host work on fake tensors, in worker processes
+        # while the main process drives the card; they start after the
+        # train phase because a fake CUDA tensor creates its process's
+        # CUDA context, which paths k-m leave no room for
+        dry = {label: pool.apply_async(_dryrun, (kw,))
+               for label, kw in dryrun_jobs().items()}
+        return _late_phases(LQ, dev, src, card, t_start, phase_s, launches,
+                            timing, path_a, dry)
+
+
+def _late_phases(LQ, dev, src, card, t_start, phase_s, launches, timing,
+                 path_a, dry) -> int:
+    import torch
+
     t0 = time.perf_counter()
     _add(launches, checkpoint_phase(LQ, src))
     phase_s["checkpoint"] = time.perf_counter() - t0
@@ -1129,6 +1161,11 @@ def main(argv=None) -> int:
     phase_s["reference"] = time.perf_counter() - t0
     print(f"reference: phase took {phase_s['reference']:.1f} s",
           flush=True)
+    t0 = time.perf_counter()
+    dryrun_phase(dry, path_a)
+    phase_s["dryrun"] = time.perf_counter() - t0
+    print(f"dryrun: phase took {phase_s['dryrun']:.1f} s (waiting for its "
+          "worker processes included)", flush=True)
 
     rows = []
     for name, src, replaces in KERNEL_ROWS:
@@ -1407,7 +1444,7 @@ def train_phase(LQ) -> dict:
     every d and d' run must give the same losses bit for bit, and every
     path the parent's losses (``check_parent``), with no model-group
     collective called.  Returns
-    every kernel's launches summed over the runs."""
+    every kernel's launches summed over the runs, and path a's result."""
     import tempfile
 
     total: dict[str, int] = {}
@@ -1450,7 +1487,7 @@ def train_phase(LQ) -> dict:
     if any(x != losses[0] for x in losses):
         raise AssertionError(f"train: the overlapped and the flat schedule's "
                              f"losses differ: {losses}")
-    return total
+    return total, runs["a"][0]
 
 
 # ---------------------------------------------------------------------------
@@ -2997,6 +3034,207 @@ def reference_card_side(serve_cpu: dict, train_cpu: dict) -> None:
                                  f"left the CPU run's (step 0 rtol "
                                  f"{REF_STEP0_RTOL}, all steps atol "
                                  f"{REF_ATOL})")
+
+
+# ---------------------------------------------------------------------------
+# phase 6: the dry run (launch/dryrun) against path a, and at the
+# production meshes
+# ---------------------------------------------------------------------------
+
+# (a)'s limit on the dry run's predicted peak memory against path a's
+# torch.cuda.max_memory_allocated(), relative, set before the first run
+# (PERF.md section 6): the prediction counts every storage the step's ops
+# create, rounded to the caching allocator's 512 bytes, and not cuBLAS's
+# workspace or the allocator's own rounding of large blocks.
+DRYRUN_PEAK_RTOL = 0.10
+# (b): cells of the reference dry run, on fake CUDA tensors.  The MoE
+# cell is mixtral-8x7b's: qwen3-moe-30b-a3b's (two steps of 8
+# microbatches of 48 MoE layers) takes some 8 minutes of host time, which
+# the script's budget does not hold; mixtral-8x7b's some 4
+MOE_DRYRUN = "mixtral-8x7b"
+PRODUCTION_DRYRUNS = {
+    "llama2-400m train_4k 16x16": dict(arch="llama2-400m",
+                                       shape_name="train_4k"),
+    f"{MOE_DRYRUN} train_4k 2x16x16 --fidelity-every 4": dict(
+        arch=MOE_DRYRUN, shape_name="train_4k", multi_pod=True,
+        run_overrides={"fidelity_every": 4}),
+}
+DRYRUN_WORKERS = 2
+# core/comm's and torch.distributed's collective calls (count_collectives)
+# by the dry run's kind
+COLLECTIVE_KINDS = {"all_reduce": "all-reduce",
+                    "all_to_all_single": "all-to-all",
+                    "_ALL_GATHER": "all-gather",
+                    "all_gather_into_tensor": "all-gather",
+                    "all_gather": "all-gather",
+                    "_REDUCE_SCATTER": "reduce-scatter",
+                    "reduce_scatter_tensor": "reduce-scatter",
+                    "reduce_scatter": "reduce-scatter"}
+
+
+def dryrun_jobs() -> dict:
+    """The dry runs, longest first: the two production cells (b), and path
+    a's command on fake CUDA (a) and fake CPU tensors (c)."""
+    jobs = {label: dict(kw, device="cuda")
+            for label, kw in PRODUCTION_DRYRUNS.items()}
+    for dev in ("cuda", "cpu"):
+        jobs[f"path a, fake {dev}"] = dict(cli=TRAIN_ARGS, device=dev)
+    return jobs
+
+
+def _dryrun_worker_init(src: str) -> None:
+    import torch
+
+    sys.path.insert(0, src)
+    torch.set_num_threads(1)
+
+
+def _dryrun(kw: dict) -> dict:
+    """One dry run, in a worker: its record, its printed line, its host
+    seconds, and ``torch.cuda.memory_allocated()`` before and after it
+    (0 while the process has not initialized CUDA, which a dry run never
+    needs) with whether it had."""
+    import dataclasses
+    import io
+
+    import torch
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun as DR
+    from repro_torch.launch import train
+
+    kw = dict(kw)
+    cli = kw.pop("cli", None)
+    if cli is not None:
+        # a train CLI command at dp 1: its config, shape and RunConfig
+        args = train.build_args(cli)
+        run = train.make_run(args)
+        kw.update(arch=args.arch, shape_name="cli", cfg=train.make_cfg(args),
+                  shape=ShapeConfig("cli", args.seq_len, args.global_batch,
+                                    "train"),
+                  world=DR.parse_world("1x1"),
+                  run_overrides={f.name: getattr(run, f.name)
+                                 for f in dataclasses.fields(run)})
+    m0 = torch.cuda.memory_allocated()
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rec = DR.dryrun_one(**kw)
+    return {"rec": rec, "line": out.getvalue().strip(),
+            "s": time.perf_counter() - t0,
+            "mem": (m0, torch.cuda.memory_allocated()),
+            "cuda_init": torch.cuda.is_initialized()}
+
+
+@contextlib.contextmanager
+def dryrun_pool(src: Path):
+    """The dry runs' worker processes (spawned); terminated on the way
+    out, finished or not."""
+    import multiprocessing
+
+    pool = multiprocessing.get_context("spawn").Pool(
+        DRYRUN_WORKERS, initializer=_dryrun_worker_init, initargs=(str(src),))
+    try:
+        yield pool
+    finally:
+        pool.terminate()
+        pool.join()
+
+
+def _dryrun_result(label: str, fut, t_phase: float) -> dict:
+    res = fut.get()
+    rec = res["rec"]
+    print(f"dryrun: {label}: {res['line']}", flush=True)
+    print(f"dryrun: {label}: {res['s']:.1f} s of host time in its worker "
+          f"(trace {rec.get('trace_s')} s); collected "
+          f"{time.perf_counter() - t_phase:.1f} s into the phase",
+          flush=True)
+    if rec["status"] != "ok":
+        raise AssertionError(f"dryrun: {label}: {rec['status']}: "
+                             f"{rec.get('traceback')}")
+    return res
+
+
+def dryrun_phase(dry: dict, path_a: dict) -> None:
+    """The card's memory is the report's fit mark (on an H100 80GB HBM3);
+    (a) the dry run of path a's command on fake CUDA tensors predicts
+    path a's run: its kernel launches and collectives per step exactly,
+    its peak memory within DRYRUN_PEAK_RTOL of max_memory_allocated, and
+    a roofline bound max(compute_s, memory_s) no longer than the traced
+    step's device busy time; (b) the production dry runs finish on fake
+    CUDA tensors without moving torch.cuda.memory_allocated() by 1 MiB;
+    (c) path a's dry run on fake CPU tensors gives the same counts, FLOPs
+    and bytes as on fake CUDA ones."""
+    import torch
+    from repro_torch.analysis import roofline as RL
+
+    t_phase = time.perf_counter()
+    name = torch.cuda.get_device_name(0)
+    total = torch.cuda.get_device_properties(0).total_memory
+    print(f"dryrun: {name}: total_memory {total:,} B; the report's fit "
+          f"mark (analysis/roofline.HBM_BYTES) {RL.HBM_BYTES:,} B",
+          flush=True)
+    if name == "NVIDIA H100 80GB HBM3" and total != RL.HBM_BYTES:
+        raise AssertionError("dryrun: roofline.HBM_BYTES is not this "
+                             "card's memory")
+    res = {label: _dryrun_result(label, fut, t_phase)
+           for label, fut in dry.items()}
+    a = res["path a, fake cuda"]["rec"]
+    steps = len(path_a["losses"])
+    per_step = {k: v / steps for k, v in path_a["launches"].items()}
+    print(f"dryrun: (a) kernel launches per step: predicted {a['kernels']}, "
+          f"path a {per_step}", flush=True)
+    if a["kernels"] != per_step:
+        raise AssertionError("dryrun: (a) the predicted kernel launches are "
+                             "not path a's")
+    coll: dict[str, float] = {}
+    for name, n in path_a["collectives"].items():
+        kind = COLLECTIVE_KINDS[name]
+        coll[kind] = coll.get(kind, 0) + n / steps
+    print(f"dryrun: (a) collectives per step: predicted "
+          f"{a['collectives']['counts']}, path a {coll}", flush=True)
+    if a["collectives"]["counts"] != coll:
+        raise AssertionError("dryrun: (a) the predicted collectives are not "
+                             "path a's")
+    peak, real = a["memory"]["peak_bytes"], path_a["peak_mem_bytes"]
+    print(f"dryrun: (a) peak memory: predicted {peak / 2**30:.3f} GiB, path "
+          f"a's max_memory_allocated {real / 2**30:.3f} GiB "
+          f"({peak / real - 1:+.2%}; limit {DRYRUN_PEAK_RTOL:.0%})",
+          flush=True)
+    if abs(peak - real) > DRYRUN_PEAK_RTOL * real:
+        raise AssertionError("dryrun: (a) the predicted peak memory left "
+                             "its limit")
+    rf, t = a["roofline"], path_a["trace"]
+    bound_ms = max(rf["compute_s"], rf["memory_s"]) * 1e3
+    print(f"dryrun: (a) roofline: compute {rf['compute_s'] * 1e3:.2f} ms, "
+          f"memory {rf['memory_s'] * 1e3:.2f} ms (dominant "
+          f"{rf['dominant']}), wire {rf['collective_s'] * 1e3:.2f} ms; the "
+          f"traced step's device busy time {t['device_busy_ms']:.1f} ms "
+          f"({bound_ms / t['device_busy_ms']:.1%} of it)", flush=True)
+    print(f"dryrun: (a) dispatched ops predicted per step {a['ops']}; the "
+          f"traced step's device launches {t['device_launches']} (kernels, "
+          "memcpys and memsets)", flush=True)
+    if bound_ms > t["device_busy_ms"]:
+        raise AssertionError("dryrun: (a) the roofline bound exceeds the "
+                             "measured busy time: the count is wrong")
+    for label in PRODUCTION_DRYRUNS:
+        m0, m1 = res[label]["mem"]
+        print(f"dryrun: (b) {label}: torch.cuda.memory_allocated() "
+              f"{m0} -> {m1} B in its worker (CUDA initialized there: "
+              f"{res[label]['cuda_init']})", flush=True)
+        if abs(m1 - m0) >= 2**20:
+            raise AssertionError(f"dryrun: (b) {label} moved the card's "
+                                 "memory")
+    c = res["path a, fake cpu"]["rec"]
+    keys = ("ops", "flops_per_device", "hbm_bytes_per_device",
+            "collectives", "kernels")
+    same = all(a[k] == c[k] for k in keys)
+    print(f"dryrun: (c) path a on fake CPU vs fake CUDA tensors: "
+          f"{'the same' if same else 'DIFFERENT'} ops, FLOPs, bytes, "
+          "collectives and kernels", flush=True)
+    if not same:
+        raise AssertionError("dryrun: (c) the device changed the plan: "
+                             + str({k: (a[k], c[k]) for k in keys
+                                    if a[k] != c[k]}))
 
 
 if __name__ == "__main__":

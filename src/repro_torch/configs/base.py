@@ -121,6 +121,15 @@ class ShapeConfig:
     kind: str  # train | prefill | decode
 
 
+# the reference's input shapes (``repro.configs.base.SHAPES``): the dry
+# run's train, prefill and decode cells
+SHAPES: dict[str, ShapeConfig] = {
+    "train_4k": ShapeConfig("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524288, 1, "decode"),
+}
+
 _REGISTRY: dict[str, ArchConfig] = {}
 
 
@@ -137,3 +146,9 @@ def get_arch(name: str) -> ArchConfig:
     except KeyError:
         raise ValueError(f"unknown arch {name!r} "
                          f"(ported: {sorted(_REGISTRY)})") from None
+
+
+def list_archs() -> list[str]:
+    import repro_torch.configs.all_archs  # noqa: F401
+
+    return sorted(_REGISTRY)

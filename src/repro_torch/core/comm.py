@@ -46,6 +46,7 @@ from repro_torch.core import wirepack as WP
 from repro_torch.core.buckets import ParamPlan
 from repro_torch.core.loco import SyncConfig
 from repro_torch.kernels import loco_quant as LQ
+from repro_torch.kernels.wrap import same_start
 from repro_torch.telemetry import profiler as PROF
 
 # torch renamed the tensor-in/tensor-out collectives; take whichever exists
@@ -53,6 +54,10 @@ _ALL_GATHER = getattr(dist, "all_gather_single", None) \
     or dist.all_gather_into_tensor
 _REDUCE_SCATTER = getattr(dist, "reduce_scatter_single", None) \
     or dist.reduce_scatter_tensor
+
+# the dry run's recorder (analysis.op_stats.OpStats) while it records, else
+# None: told of each asynchronous collective's issue, and it waits for each
+OBSERVER = None
 
 
 def axis_size(group) -> int:
@@ -627,7 +632,7 @@ class _SyncPass:
             wire, ns = codec.encode(seg, st, inplace=inplace or private)
             ns = select(ns, st)
             dst = cols(new_states[ri])
-            if ns.data_ptr() != dst.data_ptr():
+            if not same_start(ns, dst):
                 dst.copy_(ns.view(D, -1))
         elif self.run_space:
             wire, ns = codec.encode(seg, states[ri], inplace=inplace)
@@ -655,6 +660,8 @@ class _SyncPass:
 
         def start(collective, x, group):
             out, work = collective(x, group, async_op=True)
+            if OBSERVER is not None:
+                OBSERVER.issued(work)
             inf.works.append(work)
             inf.sent.append(x)
             return out
@@ -684,7 +691,10 @@ class _SyncPass:
         unit slot (leading peer axis), bit-identical to what the
         per-bucket :func:`exchange_wire` would deliver."""
         for w in inf.works:
-            w.wait()
+            if OBSERVER is None:
+                w.wait()
+            else:
+                OBSERVER.wait(w)
         recv: dict[int, dict[str, torch.Tensor]] = {}
         if inf.red is not None:
             self.shards.update(WP.unpack_reduce(

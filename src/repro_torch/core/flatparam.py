@@ -31,14 +31,17 @@ A replicated leaf (``tp_dim`` None) is wrapped in
 from __future__ import annotations
 
 import concurrent.futures
+import contextlib
 import dataclasses
 import math
 import os
+import types
 import zlib
 from typing import Sequence
 
 import torch
 import torch.distributed as dist
+from torch.utils._python_dispatch import _get_current_dispatch_mode
 
 from repro_torch.core import loco as loco_lib
 from repro_torch.core import wirepack as WP
@@ -317,6 +320,17 @@ def init_train_state(groups: Sequence[ParamGroup], cfg: SyncConfig,
 INIT_THREADS = 8
 
 
+def _pool(n_jobs: int):
+    """The draws' executor: a pool of host threads, or the calling
+    thread (the builtin ``map``) while a dispatch mode is active (a
+    fake-tensor dry run's modes are thread-local: a pool thread would
+    draw real tensors)."""
+    if _get_current_dispatch_mode() is not None:
+        return contextlib.nullcontext(types.SimpleNamespace(map=map))
+    workers = min(INIT_THREADS, os.cpu_count() or 1, n_jobs)
+    return concurrent.futures.ThreadPoolExecutor(max(workers, 1))
+
+
 def _draw_chunks(groups: Sequence[ParamGroup], topo: MeshTopo,
                  device: torch.device, seed: int) -> dict:
     """``{(group, name, layer): chunk}`` of every tensor (and layer) of
@@ -331,8 +345,7 @@ def _draw_chunks(groups: Sequence[ParamGroup], topo: MeshTopo,
         return init_chunk(info, _param_gen(seed, f"{gname}/{info.name}", l),
                           topo, device)
 
-    workers = min(INIT_THREADS, os.cpu_count() or 1, len(jobs))
-    with concurrent.futures.ThreadPoolExecutor(max(workers, 1)) as ex:
+    with _pool(len(jobs)) as ex:
         out = list(ex.map(draw, jobs))
     return {(gname, info.name, l): c for (gname, info, l), c in zip(jobs,
                                                                    out)}
@@ -470,6 +483,17 @@ def serve_param_shapes(groups: Sequence[ParamGroup],
                      + i.local_shape(tp) for i in g.infos} for g in groups}
 
 
+def count_params(groups: Sequence[ParamGroup]) -> int:
+    """Logical parameters of ``groups`` (every layer of a stacked
+    group), whatever the tp and dp cut: the reference's count."""
+    n = 0
+    for g in groups:
+        mult = g.n_layers if g.stacked else 1
+        for info in g.infos:
+            n += mult * math.prod(info.shape)
+    return n
+
+
 def init_serve_params(groups: Sequence[ParamGroup], tp: int, tp_rank: int,
                       device: torch.device, seed: int) -> dict:
     """A rank's serving tensors (:func:`serve_param_shapes`), drawn as
@@ -490,8 +514,7 @@ def init_serve_params(groups: Sequence[ParamGroup], tp: int, tp_rank: int,
                        tp, tp_rank)
         return t.reshape(info.local_shape(tp)).to(torch.bfloat16)
 
-    workers = min(INIT_THREADS, os.cpu_count() or 1, len(jobs))
-    with concurrent.futures.ThreadPoolExecutor(max(workers, 1)) as ex:
+    with _pool(len(jobs)) as ex:
         for (g, info, l), t in zip(jobs, ex.map(draw, jobs)):
             dst = out[g.name][info.name]
             (dst[l] if g.stacked else dst).copy_(t)

@@ -50,6 +50,7 @@ from repro_torch.core import codec as codec_lib
 from repro_torch.core import loco as loco_lib
 from repro_torch.core.buckets import ParamPlan
 from repro_torch.core.loco import SyncConfig
+from repro_torch.kernels.wrap import address
 
 Stage = Literal["flat", "hier1", "hier2"]
 Kind = Literal["a2a", "gather", "reduce"]
@@ -540,7 +541,7 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
     """``t``, or a copy of it when its data does not start on a 16-byte
     boundary (what the kernels take).  Leaves are packed back to back, so
     a leaf after 8*k bytes of scales can start at 8 mod 16."""
-    if t.data_ptr() % 16:
+    if address(t) % 16:
         return t.clone(memory_format=torch.contiguous_format)
     return t
 

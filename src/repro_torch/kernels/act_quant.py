@@ -29,6 +29,7 @@ import functools
 
 import torch
 
+from repro_torch.kernels import wrap as W
 from repro_torch.kernels.wrap import (  # noqa: F401  (LAUNCHES re-exported)
     LAUNCHES, check_aligned, device_kind, launched, reset_launches, stream)
 
@@ -49,6 +50,12 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
+def act_bytes(rows: int) -> float:
+    """Bytes act_encode (and act_decode) must move: f32 rows and int8
+    rows, one read and one written, plus one f32 scale per row."""
+    return rows * ACT_BLOCK * (4 + 1) + rows * 4
+
+
 def _check_rows(t: torch.Tensor, dtype: torch.dtype, what: str) -> int:
     if t.dim() != 2 or t.shape[1] != ACT_BLOCK or t.dtype != dtype \
             or t.shape[0] == 0:
@@ -60,6 +67,10 @@ def _check_rows(t: torch.Tensor, dtype: torch.dtype, what: str) -> int:
 def act_encode(h: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """``(rows, 512)`` f32 -> (int8 codes ``(rows, 512)``, f32 scales
     ``(rows,)``)."""
+    if W.OBSERVER is not None or W.is_planned(h):
+        return W.observed("act_encode", act_bytes(h.shape[0]), h,
+                          lambda: _encode_planned(h),
+                          lambda: act_encode(h))
     rows = _check_rows(h, torch.float32, "h")
     if device_kind(h) == "cpu":
         return act_encode_plain(h)
@@ -72,6 +83,12 @@ def act_encode(h: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return q, s
 
 
+def _encode_planned(h):
+    rows = _check_rows(h, torch.float32, "h")
+    return (h.new_empty(rows, ACT_BLOCK, dtype=torch.int8),
+            h.new_empty(rows, dtype=torch.float32))
+
+
 def act_encode_plain(h: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """The same function in plain PyTorch ops (Pallas body ``_encode_kernel``)."""
     absmax = h.abs().amax(dim=1)
@@ -81,15 +98,26 @@ def act_encode_plain(h: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return q.to(torch.int8), scale
 
 
-def act_decode(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
-    """(int8 codes ``(rows, 512)``, f32 scales ``(rows,)``) -> ``(rows, 512)``
-    f32."""
+def _check_decode(q: torch.Tensor, scale: torch.Tensor) -> int:
     rows = _check_rows(q, torch.int8, "q")
     if tuple(scale.shape) != (rows,) or scale.dtype != torch.float32:
         raise ValueError(f"scale must be f32 ({rows},), got {scale.dtype} "
                          f"{tuple(scale.shape)}")
     if scale.device != q.device:
         raise ValueError(f"q on {q.device} but scale on {scale.device}")
+    return rows
+
+
+def act_decode(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """(int8 codes ``(rows, 512)``, f32 scales ``(rows,)``) -> ``(rows, 512)``
+    f32."""
+    if W.OBSERVER is not None or W.is_planned(q):
+        return W.observed("act_decode", act_bytes(q.shape[0]), q,
+                          lambda: q.new_empty(_check_decode(q, scale),
+                                              ACT_BLOCK,
+                                              dtype=torch.float32),
+                          lambda: act_decode(q, scale))
+    rows = _check_decode(q, scale)
     if device_kind(q) == "cpu":
         return act_decode_plain(q, scale)
     check_aligned(q, scale)

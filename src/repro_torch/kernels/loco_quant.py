@@ -37,6 +37,7 @@ import math
 import torch
 
 from repro_torch.core.quantizer import F8_MAX, pack_int4, unpack_int4
+from repro_torch.kernels import wrap as W
 from repro_torch.kernels.wrap import (  # noqa: F401  (LAUNCHES re-exported)
     LAUNCHES, check_aligned, device_kind, launched, reset_launches, stream)
 
@@ -73,7 +74,23 @@ def exact_inverse(x: float) -> float:
 # kernel 1: fused compensate + quantize(block absmax) + pack + err update
 # ---------------------------------------------------------------------------
 
-def _check_compress(g, e, bits, err, e_out):
+def compress_bytes(n: int, bits: int = 4, g_bytes: int = 2,
+                   err: str = "f8") -> float:
+    """Bytes fused_compress must move: g and e read once; payload, e_new
+    and the scales written once."""
+    eb = 1 if err == "f8" else 2
+    return n * g_bytes + 2 * n * eb + (n / 2 if bits == 4 else n) \
+        + n / QBLOCK * 4
+
+
+def dequant_bytes(n: int, D: int = 1, bits: int = 4,
+                  out_bytes: int = 2) -> float:
+    """Bytes dequant_mean must move: D payload rows and scale rows read
+    once, the mean written once."""
+    return D * ((n / 2 if bits == 4 else n) + n / QBLOCK * 4) + n * out_bytes
+
+
+def _check_compress(g, e, bits, err, e_out, aligned=True):
     if bits not in (4, 8):
         raise ValueError(f"bits must be 4 or 8, got {bits}")
     if err not in _ERR_CODE:
@@ -91,7 +108,8 @@ def _check_compress(g, e, bits, err, e_out):
                              f"{tuple(t.shape)}")
         if t.device != g.device:
             raise ValueError(f"g on {g.device} but the error on {t.device}")
-    check_aligned(g, *errs)
+    if aligned:
+        check_aligned(g, *errs)
 
 
 def fused_compress(g: torch.Tensor, e: torch.Tensor, *, bits: int = 4,
@@ -106,6 +124,8 @@ def fused_compress(g: torch.Tensor, e: torch.Tensor, *, bits: int = 4,
     ``e`` itself (an in-place update: each element is read before it is
     written).  n must be a multiple of 512.
     """
+    if W.OBSERVER is not None or W.is_planned(g):
+        return _observed_compress(g, e, bits, beta, escale, err, e_out)
     _check_compress(g, e, bits, err, e_out)
     if device_kind(g) == "cpu":
         payload, scales, e_new = fused_compress_plain(
@@ -128,6 +148,23 @@ def fused_compress(g: torch.Tensor, e: torch.Tensor, *, bits: int = 4,
         stream(dev))
     launched(rc, "fused_compress")
     return payload, scales, e_out
+
+
+def _observed_compress(g, e, bits, beta, escale, err, e_out):
+    """:func:`fused_compress` on fake tensors or under a recorder
+    (``wrap.observed``)."""
+    def planned():
+        _check_compress(g, e, bits, err, e_out, aligned=False)
+        n = g.shape[0]
+        return (g.new_empty(n // 2 if bits == 4 else n, dtype=torch.int8),
+                g.new_empty(n // QBLOCK, dtype=torch.float32),
+                torch.empty_like(e) if e_out is None else e_out)
+
+    return W.observed(
+        "fused_compress", compress_bytes(g.numel(), bits, g.element_size(),
+                                         err), g, planned,
+        lambda: fused_compress(g, e, bits=bits, beta=beta, escale=escale,
+                               err=err, e_out=e_out))
 
 
 def _divide(x: torch.Tensor, y: float) -> torch.Tensor:
@@ -168,7 +205,7 @@ def fused_compress_plain(g: torch.Tensor, e: torch.Tensor, *, bits: int = 4,
 # kernel 2: unpack + dequant + mean over peers
 # ---------------------------------------------------------------------------
 
-def _check_dequant(payload, scales, bits, out_dtype):
+def _check_dequant(payload, scales, bits, out_dtype, aligned=True):
     if bits not in (4, 8):
         raise ValueError(f"bits must be 4 or 8, got {bits}")
     if out_dtype not in _DTYPE_CODE:
@@ -188,7 +225,8 @@ def _check_dequant(payload, scales, bits, out_dtype):
     if scales.device != payload.device:
         raise ValueError(f"payload on {payload.device} but scales on "
                          f"{scales.device}")
-    check_aligned(payload, scales)
+    if aligned:
+        check_aligned(payload, scales)
     return D, n_chunk
 
 
@@ -201,6 +239,8 @@ def dequant_mean(payload: torch.Tensor, scales: torch.Tensor, *,
     scales:  (D, n_chunk/256) f32;
     out_dtype: f32, or bf16 (the f32 mean rounded to nearest-even).
     """
+    if W.OBSERVER is not None or W.is_planned(payload):
+        return _observed_dequant(payload, scales, bits, out_dtype)
     D, n_chunk = _check_dequant(payload, scales, bits, out_dtype)
     if device_kind(payload) == "cpu":
         return dequant_mean_plain(payload, scales, bits=bits,
@@ -212,6 +252,23 @@ def dequant_mean(payload: torch.Tensor, scales: torch.Tensor, *,
                                   n_chunk, bits, exact_inverse(D), stream(dev))
     launched(rc, "dequant_mean")
     return out
+
+
+def _observed_dequant(payload, scales, bits, out_dtype):
+    """:func:`dequant_mean` on fake tensors or under a recorder
+    (``wrap.observed``)."""
+    def planned():
+        _, n = _check_dequant(payload, scales, bits, out_dtype,
+                              aligned=False)
+        return payload.new_empty(n, dtype=out_dtype)
+
+    D, m = payload.shape
+    return W.observed(
+        "dequant_mean", dequant_bytes(m * 2 if bits == 4 else m, D, bits,
+                                      out_dtype.itemsize),
+        payload, planned,
+        lambda: dequant_mean(payload, scales, bits=bits,
+                             out_dtype=out_dtype))
 
 
 def dequant_mean_plain(payload: torch.Tensor, scales: torch.Tensor, *,

@@ -21,6 +21,7 @@ import functools
 import torch
 
 from repro_torch.core.quantizer import SIGN_PACK, pack_signs
+from repro_torch.kernels import wrap as W
 from repro_torch.kernels.wrap import (  # noqa: F401  (LAUNCHES re-exported)
     LAUNCHES, check_aligned, device_kind, launched, reset_launches, stream)
 
@@ -38,14 +39,7 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def onebit_pack(h: torch.Tensor, scale: torch.Tensor
-                ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Compensated flat ``(n,)`` f32 gradient + scalar f32 L1 scale ->
-    (packed signs ``(n/8,)`` uint8, ``e_new`` ``(n,)`` bf16).
-
-    ``scale`` is a one-element f32 tensor on ``h``'s device; n must be a
-    multiple of 512.
-    """
+def _check(h: torch.Tensor, scale: torch.Tensor) -> None:
     if h.dim() != 1 or h.dtype != torch.float32 or h.shape[0] % GRAIN:
         raise ValueError(f"h must be a flat f32 vector of a multiple of "
                          f"{GRAIN} elements, got {h.dtype} {tuple(h.shape)}")
@@ -54,6 +48,27 @@ def onebit_pack(h: torch.Tensor, scale: torch.Tensor
                          f"{tuple(scale.shape)}")
     if scale.device != h.device:
         raise ValueError(f"h on {h.device} but scale on {scale.device}")
+
+
+def onebit_bytes(n: int) -> float:
+    """Bytes onebit_pack must move: f32 h read; n/8 sign bytes and the
+    bf16 error written; one f32 scale read."""
+    return n * 4 + n / 8 + n * 2 + 4
+
+
+def onebit_pack(h: torch.Tensor, scale: torch.Tensor
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Compensated flat ``(n,)`` f32 gradient + scalar f32 L1 scale ->
+    (packed signs ``(n/8,)`` uint8, ``e_new`` ``(n,)`` bf16).
+
+    ``scale`` is a one-element f32 tensor on ``h``'s device; n must be a
+    multiple of 512.
+    """
+    if W.OBSERVER is not None or W.is_planned(h):
+        return W.observed("onebit_pack", onebit_bytes(h.numel()), h,
+                          lambda: _onebit_planned(h, scale),
+                          lambda: onebit_pack(h, scale))
+    _check(h, scale)
     if device_kind(h) == "cpu":
         return onebit_pack_plain(h, scale)
     check_aligned(h)
@@ -65,6 +80,13 @@ def onebit_pack(h: torch.Tensor, scale: torch.Tensor
                             stream(h.device))
     launched(rc, "onebit_pack")
     return packed, e_new
+
+
+def _onebit_planned(h, scale):
+    _check(h, scale)
+    n = h.shape[0]
+    return (h.new_empty(n // SIGN_PACK, dtype=torch.uint8),
+            h.new_empty(n, dtype=torch.bfloat16))
 
 
 def onebit_pack_plain(h: torch.Tensor, scale: torch.Tensor

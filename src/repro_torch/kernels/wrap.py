@@ -5,18 +5,73 @@ and the checks around a ctypes launch.
 name, across all kernel modules; each module re-exports it.  A wrapper
 launches its kernel for a CUDA tensor and runs the plain version for a CPU
 tensor; a tensor on any other device raises.
+
+A fake tensor (a dry run's, ``launch/dryrun``) has shapes and no data:
+the wrapper then returns empty outputs of the kernel's shapes and dtypes
+and counts a planned launch in ``PLANNED`` (:func:`observed`).  A meta
+tensor still raises, as any device without a kernel or a plain version.
+While ``OBSERVER`` (an ``analysis.op_stats.OpStats``) records, each
+wrapper call, on any tensor, is reported to it as one kernel op.
 """
 from __future__ import annotations
 
 import collections
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
 
 LAUNCHES: collections.Counter = collections.Counter()
+# planned launches per kernel name: wrapper calls on fake tensors
+PLANNED: collections.Counter = collections.Counter()
+# the dry run's recorder while it records (analysis.op_stats), else None
+OBSERVER = None
 
 
 def reset_launches() -> None:
     LAUNCHES.clear()
+
+
+def is_planned(t: torch.Tensor) -> bool:
+    """A fake tensor: shapes without data, nothing to launch on."""
+    return isinstance(t, FakeTensor)
+
+
+def address(t: torch.Tensor) -> int:
+    """``t.data_ptr()``; for a planned tensor its byte offset into its
+    storage (a fake storage starts at address 0)."""
+    if is_planned(t):
+        return t.storage_offset() * t.element_size()
+    return t.data_ptr()
+
+
+def same_start(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Do ``a`` and ``b`` start at the same memory?  Planned tensors: the
+    same storage at the same offset."""
+    if is_planned(a) or is_planned(b):
+        return (a.untyped_storage() is b.untyped_storage()
+                and address(a) == address(b))
+    return a.data_ptr() == b.data_ptr()
+
+
+def observed(name: str, nbytes: float, t: torch.Tensor, planned, real):
+    """A wrapper's call on a planned tensor ``t`` or while ``OBSERVER``
+    records: ``planned()`` (the outputs' shapes, no launch) on a fake
+    ``t``, counted in ``PLANNED``; else ``real()``, the wrapper's own
+    path, with ``OBSERVER`` unset meanwhile.  A recording ``OBSERVER``
+    counts the call as one kernel moving ``nbytes``."""
+    global OBSERVER
+    fake = is_planned(t)
+    if fake:
+        PLANNED[name] += 1
+    obs = OBSERVER
+    if obs is None:
+        return planned()
+    OBSERVER = None
+    try:
+        with obs.kernel(name, nbytes):
+            return planned() if fake else real()
+    finally:
+        OBSERVER = obs
 
 
 def device_kind(t: torch.Tensor) -> str:

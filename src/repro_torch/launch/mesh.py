@@ -22,11 +22,54 @@ temporary directory, so concurrent processes never compete for a port.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
+import math
 import os
 import tempfile
 
 import torch
 import torch.distributed as dist
+
+
+@dataclasses.dataclass(frozen=True)
+class ProductionMesh:
+    """The paper's production mesh: ``shape`` over the axes ``axes``,
+    outermost first, ``model`` last."""
+
+    shape: tuple[int, ...]
+    axes: tuple[str, ...]
+
+    @property
+    def world(self) -> int:
+        return math.prod(self.shape)
+
+    @property
+    def tp(self) -> int:
+        return self.shape[-1]
+
+    @property
+    def dp(self) -> int:
+        """The flat data group's size (every dp axis)."""
+        return self.world // self.tp
+
+    @property
+    def pods(self) -> int:
+        """The pod axis's size, 0 without one (``mesh_axes``'s ``pods``)."""
+        return dict(zip(self.axes, self.shape)).get("pod", 0)
+
+    @property
+    def name(self) -> str:
+        return "x".join(map(str, self.shape))
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> ProductionMesh:
+    """The reference's production mesh: 16 x 16 ``(data, model)``, or
+    2 x 16 x 16 ``(pod, data, model)``.  Its groups are
+    :func:`mesh_groups` with ``tp`` and :func:`mesh_axes` with ``pods``
+    over a world of ``world`` ranks, in their rank order."""
+    if multi_pod:
+        return ProductionMesh((2, 16, 16), ("pod", "data", "model"))
+    return ProductionMesh((16, 16), ("data", "model"))
 
 
 def backend_for(device: torch.device) -> str:
@@ -158,3 +201,26 @@ def init_file_group(device: torch.device, rank: int, world_size: int,
     dist.init_process_group(backend_for(device),
                             init_method=f"file://{rendezvous}",
                             rank=rank, world_size=world_size)
+
+
+def _rank_main(rank: int, fn, world: int, rendezvous: str, args) -> None:
+    # the ranks share the host's cores
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
+    init_file_group(torch.device("cpu"), rank, world, rendezvous)
+    try:
+        fn(rank, *args)
+    finally:
+        dist.destroy_process_group()
+
+
+def spawn_ranks(fn, world: int, *args) -> None:
+    """Run ``fn(rank, *args)`` on ``world`` spawned CPU processes joined
+    into one gloo group (a ``file://`` rendezvous in a fresh temporary
+    directory); the CPU form of a ``torchrun`` launch.  ``fn`` must be
+    importable from the spawned process (a module-level function)."""
+    import torch.multiprocessing as mp
+
+    with tempfile.TemporaryDirectory(prefix="repro_torch_ranks_") as tmp:
+        mp.start_processes(_rank_main,
+                           args=(fn, world, os.path.join(tmp, "rdv"), args),
+                           nprocs=world, start_method="spawn")

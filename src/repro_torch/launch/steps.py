@@ -470,7 +470,8 @@ def grad_norm(grads: dict, groups, topo: MeshTopo,
 
 
 def make_train_step(cfg: ArchConfig, run: RunConfig, topo: MeshTopo,
-                    device: torch.device, shape: ShapeConfig):
+                    device: torch.device, shape: ShapeConfig,
+                    finalize: bool = True):
     """Returns ``step_fn(state, step, batch) -> metrics``.
 
     ``batch["tokens"]`` is the global ``(global_batch, seq_len + 1)`` batch
@@ -486,7 +487,9 @@ def make_train_step(cfg: ArchConfig, run: RunConfig, topo: MeshTopo,
     metrics of ``telemetry/metrics.metric_keys`` join them (0-dim CPU
     tensors): their sums ride the same all-reduce, undivided, and are
     finalized on the host.  A probe step (``is_probe_step``) adds the
-    ``telemetry/fidelity.fidelity_keys`` the same way.
+    ``telemetry/fidelity.fidelity_keys`` the same way.  ``finalize=False``
+    leaves those sums unread on the host, as ``metrics["sums"]`` (the dry
+    run's fake tensors have no values to read).
     """
     model = build_model(cfg, topo.tp, model_group=topo.model, sp=True)
     moe_metrics = bool(cfg.n_experts)
@@ -614,6 +617,9 @@ def make_train_step(cfg: ArchConfig, run: RunConfig, topo: MeshTopo,
             metrics["moe_aux"], metrics["moe_z"] = means[1], means[2]
         tail = (packed[n_mean:].cpu()
                 if mvec is not None or fvec is not None else None)
+        if not finalize:
+            metrics["sums"] = tail
+            return metrics
         off = 0
         if mvec is not None:
             metrics.update(METRICS.finalize(tail[:mvec.numel()], munits))

@@ -120,6 +120,11 @@ def build_args(argv=None):
                     help="size of the outermost WAN mesh axis for 3-tier "
                          "sync schedules (policy flag "
                          "'...+wan:topkN%%everyK'); needs --pods >= 2")
+    ap.add_argument("--production-mesh", action="store_true",
+                    help="the paper's production mesh "
+                         "(launch.mesh.make_production_mesh): tp 16 over a "
+                         "world of 256 ranks, 16 x 16, or with --pods 2 of "
+                         "512, 2 x 16 x 16; any other world is refused")
     ap.add_argument("--sync", default="loco",
                     choices=["fp", "loco", "ef", "naive4", "onebit", "topk"])
     ap.add_argument("--hierarchical", action="store_true",
@@ -254,6 +259,24 @@ def make_cfg(args):
     return cfg
 
 
+def production_mesh(args, world: int) -> None:
+    """``--production-mesh``: set ``args.tp`` and ``args.pods`` to
+    the production mesh's (16, and 2 with ``--pods 2``), or refuse a
+    world that is not its size."""
+    if args.pods not in (0, 1, 2) or args.wans:
+        raise SystemExit("--production-mesh is 16 x 16 or, with --pods 2, "
+                         "2 x 16 x 16; it takes no other --pods and no "
+                         "--wans")
+    pm = mesh.make_production_mesh(multi_pod=args.pods == 2)
+    if world != pm.world:
+        raise SystemExit(f"--production-mesh {pm.name} "
+                         f"({' x '.join(pm.axes)}) needs a world of "
+                         f"{pm.world} ranks; this one has {world} (the "
+                         "production meshes take 256 or, with --pods 2, "
+                         "512)")
+    args.tp, args.pods = pm.tp, pm.pods
+
+
 def _header(args, fingerprint: dict, topo: MeshTopo,
             moe_rep: dict | None) -> dict:
     """The telemetry stream's header fields, under the reference's names."""
@@ -295,6 +318,8 @@ def main(argv=None) -> dict:
     router: dict[str, list[float]] = {"moe_aux": [], "moe_z": []}
     metrics_every = args.metrics_every or args.log_every
     with mesh.dp_group(device):
+        if args.production_mesh:
+            production_mesh(args, dist.get_world_size())
         data, model = mesh.mesh_groups(args.tp)
         topo = MeshTopo.from_group(
             data, model=model,
