@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py            # needs one CUDA card; all phases
     python3 chip_smoke.py --profile-only [--src OTHER/src]   # traces only
-    python3 chip_smoke.py --serve-only   # serving and its reference runs
+    python3 chip_smoke.py --serve-only [v,w]   # serving (or paths v, w)
 
 Phases, in order; any failure exits non-zero and prints no result:
 
@@ -152,6 +152,22 @@ Phases, in order; any failure exits non-zero and prints no result:
       (``serve_expected_launches``);
    q', t'. q and t cut to 4 and 6 layers (one super-block) at full width,
       where the rounding has fewer mixers to grow through;
+   v. llama2-400m, batch 1 x prompt 32,768 (the reference's prefill_32k
+      length), 16 decode steps: the prefill in query tiles of 512-key
+      blocks (``common.prefill_attention``);
+   w. gemma2-27b at full width cut to W_LAYERS = 4 layers (two 4,096-token
+      windows, two global; soft cap 50, GQA 32/16), as v otherwise;
+   v and w hold (a) layer 0's attention over the 32,768 keys, in query
+      tiles, to the untiled call bit for bit (both timed) and at its last
+      LONG_ROWS query rows to the one-block formula within ATTN_RTOL of
+      their mean |output|, that formula with one 512-key block left out
+      beyond it; (b) the run's own prefill and 16 decode steps to one
+      prefill over the prompt and the generated tokens within
+      LONG_DECODE_LIMIT (largest and mean gap), one more step from the
+      final caches with their position one stale beyond the mean's
+      limit; (c) their peak memory to their
+      prefill's dry run (phase 5 (d)); (d) their tokens to
+      ``PARENT_TOKENS``; each prints the card beside its times and peak;
    on p-t the uncached forward over the prompt and the generated tokens
    (teacher-forced) gives every decoded position's logits within
    SERVE_FWD_LIMIT on p and r, and on s, q, t, q' and t', the largest
@@ -223,7 +239,11 @@ Phases, in order; any failure exits non-zero and prints no result:
    (qwen3-moe-30b-a3b's takes twice as long, MOE_DRYRUN) finish on fake
    CUDA tensors with ``torch.cuda.memory_allocated()`` moved by under 1
    MiB, their record lines printed; (c) path a's command on fake CPU
-   tensors gives (a)'s ops, FLOPs, bytes, collectives and kernels.
+   tensors gives (a)'s ops, FLOPs, bytes, collectives and kernels; (d)
+   the prefill of serve paths v and w (their model, batch and prompt at
+   world 1) on fake CUDA tensors predicts each path's peak memory within
+   DRYRUN_PEAK_RTOL (``--serve-only`` runs these two dry runs beside
+   the serve phase; ``--serve-only v,w`` runs only those paths).
 
 Where the time goes is read from traces inside the train phase, not from
 models built to profile: paths a, b and the first d trace step 2 (as e,
@@ -1044,9 +1064,11 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile-only", action="store_true",
                     help="build, then run only phase 4 (print no result)")
-    ap.add_argument("--serve-only", action="store_true",
-                    help="build, then run only the serve phase and the "
-                         "reference phase's serving runs (print no result)")
+    ap.add_argument("--serve-only", nargs="?", const="", default=None,
+                    metavar="P,Q",
+                    help="build, then run only the serve phase (or its "
+                         "paths P,Q) and the reference phase's serving runs "
+                         "(print no result)")
     ap.add_argument("--src", default=str(ROOT / "src"),
                     help="the package tree to import (with --profile-only: "
                          "another checkout's src/, to compare two commits)")
@@ -1081,11 +1103,17 @@ def main(argv=None) -> int:
     if opts.profile_only:
         profile_only(src)
         return 0
-    if opts.serve_only:
+    if opts.serve_only is not None:
         from repro_torch.kernels import loco_quant as LQ
 
+        names = opts.serve_only.split(",") if opts.serve_only else None
         t0 = time.perf_counter()
-        serve_phase(LQ)
+        with dryrun_pool(src) as pool:
+            dry = {label: pool.apply_async(_dryrun, (kw,))
+                   for label, kw in long_dryrun_jobs(names).items()}
+            _, peaks = serve_phase(LQ, names)
+            check_long_peaks({label: _dryrun_result(label, fut, t0)
+                              for label, fut in dry.items()}, peaks)
         print(f"serve: phase took {time.perf_counter() - t0:.1f} s",
               flush=True)
         t0 = time.perf_counter()
@@ -1150,7 +1178,8 @@ def _late_phases(LQ, dev, src, card, t_start, phase_s, launches, timing,
     print(f"hierarchical: phase took {phase_s['hierarchical']:.1f} s",
           flush=True)
     t0 = time.perf_counter()
-    _add(launches, serve_phase(LQ))
+    serve_launches, long_peaks = serve_phase(LQ)
+    _add(launches, serve_launches)
     phase_s["serve"] = time.perf_counter() - t0
     print(f"serve: phase took {phase_s['serve']:.1f} s", flush=True)
     missing = [name for name, _, _ in KERNEL_ROWS if not launches.get(name)]
@@ -1162,7 +1191,7 @@ def _late_phases(LQ, dev, src, card, t_start, phase_s, launches, timing,
     print(f"reference: phase took {phase_s['reference']:.1f} s",
           flush=True)
     t0 = time.perf_counter()
-    dryrun_phase(dry, path_a)
+    dryrun_phase(dry, path_a, long_peaks)
     phase_s["dryrun"] = time.perf_counter() - t0
     print(f"dryrun: phase took {phase_s['dryrun']:.1f} s (waiting for its "
           "worker processes included)", flush=True)
@@ -2264,16 +2293,52 @@ SERVE_TRACED_STEP = 3
 SERVE_FWD_LIMIT = {"p": 0.135, "r": 0.13}
 SERVE_FLOOR_FACTOR, SERVE_MEDIAN_FACTOR = 2.0, 1.5
 # sha256 (first 16 hex digits) of each path's generated tokens, (batch,
-# 1 + steps) int64, as two processes gave them in run AV (p, r, s, u) and
-# in run AW (q, t; H100 80GB HBM3, 700 W): what every later run must give
-# bit for bit.
-PARENT_TOKENS = {"p": "6a1c22218e320782", "q": "8888dcc10b3880ba",
-                 "r": "95fee021f2b1835c", "s": "e7ae814e759fd7d2",
-                 "t": "473ffe914a3a1388", "u": "8f7e7e0c8b0eb7ff"}
+# 1 + steps) int64, as two processes gave them in run AV (s) and in run
+# AW (q), and in runs BI and BK (p, r, t, u, whose prefills cross 512
+# keys, re-recorded once the prefill took 512-key blocks; v, w; H100
+# 80GB HBM3, 700 W): what every later run must give bit for bit.
+PARENT_TOKENS = {"p": "148d4562033affca", "q": "8888dcc10b3880ba",
+                 "r": "9def73e86cff5bc4", "s": "e7ae814e759fd7d2",
+                 "t": "d38d4a0f5437e913", "u": "44357edd34485bfb",
+                 "v": "09aae1d2e965aee6", "w": "453d788e2c2ff408"}
 # q and t cut to their first layers at full width (zamba2: one
 # super-block), where the rounding has few layers to grow through, so
 # the floor and the limit are tight (their tokens are not recorded).
 SERVE_CUT_PATHS = {"q'": ("q", 4), "t'": ("t", 6)}
+# Paths v and w: the reference's prefill_32k sequence length at batch 1,
+# 16 decode steps; w is gemma2-27b at full width cut to W_LAYERS layers,
+# two of its 4,096-window layers and two global ones.  Their tokens are
+# recorded in PARENT_TOKENS as the other paths'.
+LONG_PROMPT, LONG_STEPS, W_LAYERS = 32768, 16, 4
+LONG_PATHS = {
+    "v": (_serve_args("llama2-400m", 1, LONG_PROMPT, LONG_STEPS), None),
+    "w": (_serve_args("gemma2-27b", 1, LONG_PROMPT, LONG_STEPS), W_LAYERS),
+}
+# (a) layer 0's last LONG_ROWS query rows over all 32,768 keys: the
+# prefill's blockwise attention against the one-block formula
+# (``one_block_attention``), its largest gap within ATTN_RTOL of the mean
+# |output| of those rows: 1.5 times the largest in run BN (v 2.44e-4 of a
+# mean 8.65e-3, 0.0282; w 4.88e-4 of 2.14e-2, 0.0228; H100 80GB HBM3,
+# 700 W).  The control, the formula with the 512 keys before those rows
+# left out (every row sees them), must exceed it: BN gave 1.68 and 5.15
+# of the mean.
+LONG_ROWS = 1024
+ATTN_RTOL = 0.0423
+# (b) the serve run's own logits (its prefill's last position, then its 16
+# decode steps) against one prefill over the prompt and the generated
+# tokens at those positions; per step the largest logit gap and the mean
+# one; their limits are 1.5 times the largest of each in run BN (v: 0.0972
+# and 0.0162; w: 0.0625 and 0.00673; the prefill's own position 0 on
+# both; the paths are deterministic).  The control, one more decode step
+# from the run's final caches with their position one stale (the step's
+# token written over the newest position and roped there), must exceed
+# the mean's limit: BN gave 0.148 on v, 0.0126 on w (largest 0.801 and
+# 0.0781).  Single slots cannot be seen: with random weights over 32,768
+# keys the attention is near uniform, and emptying the newest slot or
+# shifting every slot's keys and values by one position moved a first
+# step by no more than its rounding (run BJ: v 0.0859 and 0.0898, w
+# 0.0625 both, largest gaps).
+LONG_DECODE_LIMIT = {"v": (0.1458, 0.0243), "w": (0.09375, 0.010095)}
 
 
 def serve_param_count(cfg) -> int:
@@ -2396,14 +2461,16 @@ def teacher_forced_gaps(cfg, res, argv, control: bool = False) -> dict:
 
 
 def serve_path(LQ, name: str, argv, tmp: str, cut: int | None = None
-               ) -> dict:
+               ) -> tuple[dict, int]:
     """One path through ``repro_torch.launch.serve.main`` with the launch
     counters zeroed just before and read just after: tokens in range and
     their digest against ``PARENT_TOKENS``, kernel launches per prefill
     and per decode step as derived, decode against the uncached forward
-    (p-t), and the path's metrics printed.  With ``cut`` the model keeps
-    its first ``cut`` layers and the tokens are not checked.  Returns its
-    launches."""
+    (p-t) or checks (a) and (b) (the long paths v and w,
+    :func:`long_checks`), and the path's metrics printed.  With ``cut``
+    the model keeps its first ``cut`` layers and the tokens are not
+    checked (but on w).  Returns its launches and its peak memory above
+    what was allocated before it."""
     import numpy as np
     import torch
 
@@ -2412,12 +2479,14 @@ def serve_path(LQ, name: str, argv, tmp: str, cut: int | None = None
     from repro_torch.models.transformer import vocab_padded
 
     args = serve.build_args(argv)
+    long = name in LONG_PATHS
     with cut_depth(cut, serve):
         cfg = serve.make_cfg(args)
         per_pre, per_step = serve_expected_launches(argv)
         print(f"serve: path {name}: python -m repro_torch.launch.serve "
               f"{' '.join(argv)}" + (f" at {cut} layers" if cut else ""),
               flush=True)
+        base = torch.cuda.memory_allocated()
         LQ.reset_launches()
         t0 = time.perf_counter()
         res = serve.main(argv + ["--profile-steps", str(SERVE_TRACED_STEP),
@@ -2455,7 +2524,18 @@ def serve_path(LQ, name: str, argv, tmp: str, cut: int | None = None
               f"oldest cached position is {int(kv.pos.min())}", flush=True)
     digest = tokens_digest(toks)
     check, limits, gaps, stale = "", None, [], None
-    if name != "u":
+    if long:
+        gaps, stale = long_checks(cfg, res, args, name)
+        state = res["state"] = None
+        lim_max, lim_mean = LONG_DECODE_LIMIT[name]
+        limits = [(max(g for g, _ in gaps), lim_max),
+                  (max(m for _, m in gaps), lim_mean)]
+        check = (f"; (b) against one prefill of the prompt and its tokens: "
+                 f"largest gap {limits[0][0]:.4f} and mean {limits[1][0]:.5f} "
+                 f"(limits {lim_max} and {lim_mean}), the control's mean "
+                 f"{stale:.5f}")
+        gaps = [g for g, _ in gaps]
+    elif name != "u":
         tf = teacher_forced_gaps(cfg, res, argv,
                                  control=cfg.family in ("ssm", "hybrid"))
         gaps, stale = tf["gaps"], tf.get("stale")
@@ -2486,6 +2566,7 @@ def serve_path(LQ, name: str, argv, tmp: str, cut: int | None = None
     wall = statistics.median(walls)
     depth = (f"{cut} of {get_arch(args.arch).n_layers} layers" if cut
              else "whole")
+    peak = (res["peak_mem_bytes"] or 0) - base
     print(f"serve: path {name}: {cfg.name} {depth}, "
           f"{serve_param_count(cfg):,} parameters; batch {args.batch} x "
           f"prompt {args.prompt_len}, {args.decode_steps} steps, KV window "
@@ -2494,8 +2575,9 @@ def serve_path(LQ, name: str, argv, tmp: str, cut: int | None = None
           f"{'frames' if cfg.enc_dec else 'tok'}/s); decode "
           f"{res['decode_tok_per_s']:,.1f} tok/s, median {wall:.2f} ms per "
           f"step; peak device memory "
-          f"{(res['peak_mem_bytes'] or 0) / 2**30:.2f} "
-          f"GiB; decode step {SERVE_TRACED_STEP} traced: device busy "
+          f"{peak / 2**30:.2f} GiB ({peak:,} B)"
+          + (f" on {nvidia_smi()}" if long else "")
+          + f"; decode step {SERVE_TRACED_STEP} traced: device busy "
           f"{t['device_busy_ms']:.2f} ms in {t['device_launches']} "
           f"launches, idle share "
           f"{max(0.0, 1 - t['device_busy_ms'] / wall):.1%}; launches "
@@ -2512,36 +2594,196 @@ def serve_path(LQ, name: str, argv, tmp: str, cut: int | None = None
                                  f"uncached forward ({got:.4f}, limit "
                                  f"{lim:.4f})")
     if stale is not None and not stale > limits[-1][1]:
-        raise AssertionError(f"serve: path {name}: a stale conv context "
+        raise AssertionError(f"serve: path {name}: the stale control "
                              f"({stale:.4f}) stays within the limit "
                              f"{limits[-1][1]:.4f}: the check cannot see "
                              "it")
     want_digest = PARENT_TOKENS.get(name)
     del res, state
     torch.cuda.empty_cache()
-    if not cut and want_digest != digest:
+    if (long or not cut) and want_digest != digest:
         raise AssertionError(
             f"serve: path {name}: tokens {digest}, parent "
             f"{want_digest or 'not recorded'}: the tokens moved")
-    return launches
+    return launches, peak
 
 
-def serve_phase(LQ) -> dict:
-    """Paths p-u (``SERVE_PATHS``), no model-group collective called at
-    tp = 1; every path runs before a failure is raised, so each prints
-    its tokens' digest.  Returns the kernels' launches summed."""
+def one_block_attention(q, k, v, keep, softcap):
+    """The one-block formula, apart from the port's blockwise loop: q (B,
+    Sq, H, hd) scaled by 1/sqrt(hd) and rounded to its dtype, f32 scores
+    over every key of k, v (B, Sk, H, hd), ``softcap`` before the mask
+    ``keep`` (Sq, Sk), ``exp(s - max)`` rounded to v's dtype before the
+    value product -> (B, Sq, H, hd) in q's dtype."""
+    from repro_torch.models import common as C
+
+    qs = (q.float() / math.sqrt(q.shape[-1])).to(q.dtype).transpose(1, 2)
+    s = qs.float() @ k.transpose(1, 2).float().transpose(-1, -2)
+    if softcap is not None:
+        s = C.soft_cap(s, softcap)
+    s.masked_fill_(~keep, C.NEG_INF)
+    p = s.sub_(s.amax(dim=-1, keepdim=True)).exp_()
+    acc = p.to(v.dtype).float() @ v.transpose(1, 2).float()
+    return (acc / p.sum(dim=-1, keepdim=True)).transpose(1, 2).to(q.dtype)
+
+
+def long_checks(cfg, res, args, name) -> tuple[list, float]:
+    """Checks (a) and (b) of a long path on the serve run ``res`` (its
+    weights, prompt, per-step logits and final caches); returns (b)'s
+    (largest, mean) gaps per step and its control's mean gap, raises if
+    (a) fails.  (a): layer 0's q, k and v over the prompt; the prefill's
+    attention (``prefill_attention``: query tiles of 512-key blocks),
+    timed beside the untiled 512-key call and equal to it bit for bit, at
+    the last LONG_ROWS rows against :func:`one_block_attention` over
+    every key within ATTN_RTOL of the mean |output| of those rows; the
+    control, the formula with one 512-key block every such row sees left
+    out, must exceed that limit.  (b): one prefill over the prompt and the
+    generated tokens, its last positions' logits (soft-capped, as a
+    decode step caps them, but the first), against the serve run's own
+    logits (the prefill's last position, then each decode step's); per
+    step the largest and the mean gap.  The control: one more step from
+    the run's final caches with their position one stale (the newest
+    token's key and value overwritten), against the prefill's next
+    position."""
+    import torch
+
+    from repro_torch.core import flatparam as FP
+    from repro_torch.launch import steps
+    from repro_torch.models import common as C
+    from repro_torch.models import transformer as T
+
+    model = steps.build_model(cfg, 1)
+    store = FP.ServeStore(model.groups(), res["params"])
+    dev = res["logits"][0].device
+    prompt = res["batch"]["tokens"].to(dev)
+    B, S = prompt.shape
+    n = args.decode_steps
+    lay = model._lay
+    with torch.inference_mode():
+        t0 = time.perf_counter()
+        x, _ = model._embed(store, prompt)
+        p = store.layer("block", 0)
+        pos = torch.arange(S, device=dev)
+        q, k, v = T._qkv(p, C.norm(cfg.norm, x, p["norm1"]), lay, cfg, pos)
+        del x
+        if not lay.kv_identity:
+            runs = lay.kv_runs(0)
+            k, v = C.expand_kv(k, runs), C.expand_kv(v, runs)
+        window = T.layer_window(cfg, 0)
+        kw = dict(window=window, softcap=cfg.attn_softcap)
+
+        def timed(fn, *args, **more):  # (its output, its ms)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            out = fn(*args, **kw, **more)
+            torch.cuda.synchronize()
+            return out, (time.perf_counter() - t1) * 1e3
+
+        got, tiled_ms = timed(C.prefill_attention, q, k, v, pos)
+        out, untiled_ms = timed(C.blockwise_attention, q, k, v, pos, pos,
+                                block_k=C.PREFILL_BLOCK_K)
+        same = torch.equal(got, out)
+        tiles = C.query_tiles(S, window)
+        visits = sum(-(-(k1 - k0) // C.PREFILL_BLOCK_K)
+                     for _, _, k0, k1 in tiles)
+        print(f"serve: path {name}: (a) layer 0's prefill attention: "
+              f"{len(tiles)} query tiles, {visits} block visits, "
+              f"{tiled_ms:.1f} ms; untiled ({-(-S // C.PREFILL_BLOCK_K)} "
+              f"blocks) {untiled_ms:.1f} ms; every row bit for bit the "
+              f"untiled call's: {same}", flush=True)
+        if not same:
+            raise AssertionError(f"serve: path {name}: (a) the query tiles "
+                                 "left the untiled call's bits")
+        got = got[:, -LONG_ROWS:].float()
+        del out
+        qr, qp = q[:, -LONG_ROWS:], pos[-LONG_ROWS:, None]
+        keep = pos[None] <= qp
+        if window is not None:
+            keep &= pos[None] > qp - window
+        want = one_block_attention(qr, k, v, keep, cfg.attn_softcap).float()
+        typical = float(want.abs().mean())
+        attn_gap = float((got - want).abs().max())
+        del want
+        lo = S - LONG_ROWS - C.PREFILL_BLOCK_K
+        keep[:, lo:lo + C.PREFILL_BLOCK_K] = False
+        dropped = float((got - one_block_attention(
+            qr, k, v, keep, cfg.attn_softcap).float()).abs().max())
+        del q, k, v, got, qr, keep
+        torch.cuda.synchronize()
+        limit = ATTN_RTOL * typical
+        print(f"serve: path {name}: (a) layer 0 (window {window}, soft cap "
+              f"{cfg.attn_softcap}) over {S:,} keys, its last {LONG_ROWS} "
+              f"rows (mean |output| {typical:.4e}): the prefill's blockwise "
+              f"attention against the one-block formula, largest gap "
+              f"{attn_gap:.4e} ({attn_gap / typical:.4f} of the mean; limit "
+              f"{ATTN_RTOL}: {limit:.4e}); the control, keys "
+              f"[{lo}, {lo + C.PREFILL_BLOCK_K}) left out, "
+              f"{dropped:.4e} ({dropped / typical:.4f} of the mean); "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        if not attn_gap <= limit:
+            raise AssertionError(f"serve: path {name}: (a) the blockwise "
+                                 f"attention left the one-block formula "
+                                 f"({attn_gap:.4e} > {limit:.4e})")
+        if not dropped > limit:
+            raise AssertionError(f"serve: path {name}: (a) the control "
+                                 f"({dropped:.4e}) stays within the limit "
+                                 f"{limit:.4e}: the check cannot see it")
+        t0 = time.perf_counter()
+        gen = torch.tensor(res["tokens"], device=dev)       # (B, 1 + n)
+        toks = torch.cat([prompt, gen], 1)
+        state = T.init_decode_state(cfg, 1, B, toks.shape[1], dev)
+        want = model.prefill(store, toks, state, last=n + 2)[0]
+        del state
+        if cfg.final_softcap:
+            want[:, 1:] = C.soft_cap(want[:, 1:], cfg.final_softcap)
+
+        def gap(got, i):  # the largest and the mean logit gap at step i
+            d = (got.float().reshape(B, -1) - want[:, i].float()).abs()
+            return float(d.max()), float(d.mean())
+
+        gaps = [gap(lg, i) for i, lg in enumerate(res["logits"])]
+        stale = res["state"]
+        stale.pos -= 1
+        stale_gap = gap(model.decode_step(store, stale, gen[:, n:])[0],
+                        n + 1)
+        del stale, want
+        torch.cuda.synchronize()
+        print(f"serve: path {name}: (b) against one prefill of the "
+              f"{toks.shape[1]:,} tokens, per step (the prefill's last "
+              f"position first) the largest and the mean logit gap "
+              f"{[(round(g, 4), round(m, 5)) for g, m in gaps]}; the control "
+              f"(the final caches' position one stale) {stale_gap[0]:.4f} "
+              f"and {stale_gap[1]:.5f}; {time.perf_counter() - t0:.1f} s",
+              flush=True)
+    return gaps, stale_gap[1]
+
+
+def serve_phase(LQ, names=None) -> tuple[dict, dict]:
+    """Paths p-w (``SERVE_PATHS``, ``SERVE_CUT_PATHS``, ``LONG_PATHS``; or
+    those of ``names``), no model-group collective called at tp = 1;
+    every path runs before a failure is raised, so each prints its
+    tokens' digest.  Returns the kernels' launches summed, and the long
+    paths' peak memory (``max_memory_allocated`` above what was allocated
+    before the run)."""
     import tempfile
 
     total: dict[str, int] = {}
+    peaks: dict[str, int] = {}
     failed = []
     with count_model_group_calls() as tp_calls, \
             tempfile.TemporaryDirectory(prefix="chip_smoke_serve_") as tmp:
         runs = [(name, argv, None) for name, argv in SERVE_PATHS.items()]
         runs += [(name, SERVE_PATHS[of], cut)
                  for name, (of, cut) in SERVE_CUT_PATHS.items()]
+        runs += [(name, argv, cut)
+                 for name, (argv, cut) in LONG_PATHS.items()]
         for name, argv, cut in runs:
+            if names is not None and name not in names:
+                continue
             try:
-                _add(total, serve_path(LQ, name, argv, tmp, cut))
+                launches, peak = serve_path(LQ, name, argv, tmp, cut)
+                _add(total, launches)
+                if name in LONG_PATHS:
+                    peaks[name] = peak
             except AssertionError as e:
                 print(f"serve: FAILED: {e}", flush=True)
                 failed.append(str(e))
@@ -2551,7 +2793,7 @@ def serve_phase(LQ) -> dict:
         failed.append("a tp = 1 serve path called a model-group collective")
     if failed:
         raise AssertionError("serve: " + "; ".join(failed))
-    return total
+    return total, peaks
 
 
 # The reduced serving runs card against CPU: prefill and SERVE_REF_STEPS
@@ -3072,13 +3314,25 @@ COLLECTIVE_KINDS = {"all_reduce": "all-reduce",
                     "reduce_scatter": "reduce-scatter"}
 
 
+def long_dryrun_jobs(names=None) -> dict:
+    """(d): each long serve path's prefill (or those of ``names``), its
+    model (w cut to W_LAYERS layers) at its batch and prompt at world 1,
+    on fake CUDA tensors."""
+    return {f"path {name}, fake cuda": dict(serve=argv, cut=cut,
+                                            device="cuda")
+            for name, (argv, cut) in LONG_PATHS.items()
+            if names is None or name in names}
+
+
 def dryrun_jobs() -> dict:
-    """The dry runs, longest first: the two production cells (b), and path
-    a's command on fake CUDA (a) and fake CPU tensors (c)."""
+    """The dry runs, longest first: the two production cells (b), path
+    a's command on fake CUDA (a) and fake CPU tensors (c), and the long
+    serve paths' prefills (d)."""
     jobs = {label: dict(kw, device="cuda")
             for label, kw in PRODUCTION_DRYRUNS.items()}
     for dev in ("cuda", "cpu"):
         jobs[f"path a, fake {dev}"] = dict(cli=TRAIN_ARGS, device=dev)
+    jobs.update(long_dryrun_jobs())
     return jobs
 
 
@@ -3104,6 +3358,19 @@ def _dryrun(kw: dict) -> dict:
 
     kw = dict(kw)
     cli = kw.pop("cli", None)
+    serve_cli, cut = kw.pop("serve", None), kw.pop("cut", None)
+    if serve_cli is not None:
+        # a serve CLI command's prefill at world 1
+        from repro_torch.launch import serve
+
+        args = serve.build_args(serve_cli)
+        cfg = serve.make_cfg(args)
+        if cut:
+            cfg = dataclasses.replace(cfg, n_layers=cut)
+        kw.update(arch=args.arch, shape_name="prefill_32k", cfg=cfg,
+                  shape=ShapeConfig("prefill_32k", args.prompt_len,
+                                    args.batch, "prefill"),
+                  world=DR.parse_world("1x1"))
     if cli is not None:
         # a train CLI command at dp 1: its config, shape and RunConfig
         args = train.build_args(cli)
@@ -3154,7 +3421,21 @@ def _dryrun_result(label: str, fut, t_phase: float) -> dict:
     return res
 
 
-def dryrun_phase(dry: dict, path_a: dict) -> None:
+def check_long_peaks(res: dict, peaks: dict) -> None:
+    """(d): each long serve path's peak memory within DRYRUN_PEAK_RTOL of
+    its prefill's dry run (``long_dryrun_jobs``)."""
+    for name, real in peaks.items():
+        pred = res[f"path {name}, fake cuda"]["rec"]["memory"]["peak_bytes"]
+        print(f"dryrun: (d) path {name}'s prefill: predicted peak "
+              f"{pred / 2**30:.3f} GiB, path {name}'s max_memory_allocated "
+              f"{real / 2**30:.3f} GiB ({pred / real - 1:+.2%}; limit "
+              f"{DRYRUN_PEAK_RTOL:.0%})", flush=True)
+        if abs(pred - real) > DRYRUN_PEAK_RTOL * real:
+            raise AssertionError(f"dryrun: (d) path {name}'s predicted peak "
+                                 "memory left its limit")
+
+
+def dryrun_phase(dry: dict, path_a: dict, long_peaks: dict) -> None:
     """The card's memory is the report's fit mark (on an H100 80GB HBM3);
     (a) the dry run of path a's command on fake CUDA tensors predicts
     path a's run: its kernel launches and collectives per step exactly,
@@ -3235,6 +3516,7 @@ def dryrun_phase(dry: dict, path_a: dict) -> None:
         raise AssertionError("dryrun: (c) the device changed the plan: "
                              + str({k: (a[k], c[k]) for k in keys
                                     if a[k] != c[k]}))
+    check_long_peaks(res, long_peaks)
 
 
 if __name__ == "__main__":

@@ -701,7 +701,7 @@ def make_prefill_step(cfg: ArchConfig, topo: MeshTopo, device: torch.device,
         tokens = batch_in["tokens"][rows].to(device)
         state = init_decode_state(cfg, topo.tp, tokens.shape[0], window,
                                   device)
-        logits, state = model.prefill(store, tokens, state)
+        logits, state = model.prefill(store, tokens, state, last=1)
         return logits[:, -1], state
 
     return prefill

@@ -35,12 +35,15 @@ loss: ``tp`` times its gradient, clipped by the global norm).
 
 Attention is plain tensor ops: scores and softmax in f32 over bf16 inputs
 that were scaled in f32 and rounded back to bf16, as the reference does
-(``common.py`` blockwise attention).  With the keys in one block (the
-reference's block is 512 keys) the result is the reference's online
-softmax exactly; the port always takes one block.
+(``common.py`` blockwise attention).  Training's :func:`attention` takes
+every key in one block, where the reference's online softmax takes
+512-key blocks (ROADMAP.md C).
 
-Serving adds :func:`attention_at`, the same arithmetic over absolute
-query and key positions (a key slot at position -1 is empty), the ring
+Serving runs the reference's online softmax, :func:`blockwise_attention`,
+over absolute query and key positions (a key slot at position -1 is
+empty): a prompt in 512-key blocks and query tiles
+(:func:`prefill_attention`), a decode step in one block over its cache
+(:func:`attention_at`).  Serving also adds the ring
 :class:`KVCache` and the context-parallel cache of the reference
 (``build_cp_cache``, ``cp_append``, ``cp_decode_attention``): when kv
 heads are fewer than tp, each model rank keeps ``W / tp`` slots of the
@@ -72,6 +75,12 @@ def pad_to_multiple(n: int, m: int) -> int:
 def rmsnorm(x, scale, eps=1e-5):
     xf = x.float()
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    if torch.is_inference_mode_enabled():
+        # serving: the same products in place on one f32 copy of x (a
+        # 32,768-token prompt's norm held three)
+        xf = x.to(torch.float32, copy=True) if xf is x else xf
+        return xf.mul_(torch.rsqrt(var + eps)).mul_(scale.float()).to(
+            x.dtype)
     out = xf * torch.rsqrt(var + eps) * scale.float()
     return out.to(x.dtype)
 
@@ -259,23 +268,31 @@ def _fma(a, b, c):
     """f32 ``a * b + c`` as XLA's CPU code contracts it into one fused
     multiply-add: the product is exact in f64, and the f64 sum rounded to
     f32 is the fused result but where the two roundings tie (the
-    reference's bits on 10^6 inputs, tests/test_torch_archs.py)."""
-    return (a.double() * b.double() + c).float()
+    reference's bits on 10^6 inputs, tests/test_torch_archs.py).  One
+    ``addcmul`` pass computes in f64 (``a`` is made f64, so the inputs
+    promote) and writes f32."""
+    a = a.double()
+    if not isinstance(c, torch.Tensor):
+        c = torch.full((), c, dtype=torch.float64, device=a.device)
+    out = torch.empty(torch.broadcast_shapes(a.shape, b.shape),
+                      dtype=torch.float32, device=a.device)
+    return torch.addcmul(c, a, b, out=out)
 
 
-def _horner(x2, coeffs):
-    """The polynomial in fused multiply-adds (f32 coefficients)."""
-    acc = torch.full_like(x2, coeffs[0])
+def _horner(x2d, coeffs):
+    """The polynomial in f32 fused multiply-adds (f32 coefficients) at
+    ``x2d``, the f32 argument held in f64 (shared by both loops)."""
+    acc = torch.full_like(x2d, coeffs[0], dtype=torch.float32)
     for c in coeffs[1:]:
-        acc = _fma(x2, acc, float(torch.tensor(c)))
+        acc = _fma(x2d, acc, _rounded(c, torch.float32))
     return acc
 
 
 def _xla_tanh(x):
     xc = x.clamp(-_TANH_CLAMP, _TANH_CLAMP)
-    x2 = xc * xc
-    num = xc * _horner(x2, _TANH_NUM)
-    return torch.where(x.abs() < 4e-4, x, num / _horner(x2, _TANH_DEN))
+    x2d = (xc * xc).double()
+    num = xc * _horner(x2d, _TANH_NUM)
+    return torch.where(x.abs() < 4e-4, x, num / _horner(x2d, _TANH_DEN))
 
 
 class _Tanh(torch.autograd.Function):
@@ -314,51 +331,25 @@ def soft_cap(x, cap: float):
 # attention
 # ---------------------------------------------------------------------------
 
-def _attend(q, k, v, keep, scale: float, softcap: float | None):
-    """The f32 core of :func:`attention` and :func:`attention_at`: q: (B,
-    Sq, H, hd), k, v: (B, Sk, H, hd), ``keep`` a boolean mask broadcast
-    over (B, H, Sq, Sk) or None -> ``(m, l, acc)`` of shapes (B, H, Sq, 1),
-    (B, H, Sq, 1), (B, H, Sq, hd): q scaled and rounded to its dtype, f32
-    scores, ``softcap`` before the mask, ``exp(s - m)``, ``p`` rounded to
-    v's dtype."""
-    qf = (q.float() * scale).to(q.dtype).transpose(1, 2)     # (B, H, Sq, hd)
-    kt = k.transpose(1, 2)
-    vt = v.transpose(1, 2)
-    s = torch.matmul(qf.float(), kt.float().transpose(-1, -2))
-    if softcap is not None:
-        s = soft_cap(s, softcap)
-    if keep is not None:
-        s = s.masked_fill(~keep, NEG_INF)
-    m = s.amax(dim=-1, keepdim=True)
-    p = torch.exp(s - m)
-    l = p.sum(dim=-1, keepdim=True)
-    acc = torch.matmul(p.to(v.dtype).float(), vt.float())
-    return m, l, acc
-
-
 def _normalize(q, l, acc):
     out = acc / torch.clamp(l, min=1e-30)
     return out.transpose(1, 2).to(q.dtype)
 
 
-def attention(q, k, v, causal: bool = True, scale: float | None = None,
-              window: int | None = None, softcap: float | None = None):
+def attention(q, k, v, causal: bool = True, window: int | None = None,
+              softcap: float | None = None):
     """q: (B, Sq, H, hd); k, v: (B, Sk, H, hd) (already expanded to the q
     heads) -> (B, Sq, H, hd) in q's dtype.  ``causal``: query i sees keys
     j <= i (positions 0..S-1 on both sides, so Sk == Sq); otherwise every
     key (encoder self-attention, cross-attention with Sk != Sq).
     ``window`` (causal only): query i sees keys j with ``i - window < j <=
     i`` (``window`` keys, its own included); ``softcap``: the f32 scores
-    are soft-capped (:func:`soft_cap`) before the mask."""
-    Sq, Sk, hd = q.shape[1], k.shape[1], q.shape[-1]
-    scale = scale if scale is not None else 1.0 / math.sqrt(hd)
-    keep = None
-    if causal:
-        keep = torch.ones(Sq, Sk, dtype=torch.bool, device=q.device).tril()
-        if window is not None and window < Sk:
-            keep = keep.triu(1 - window)
-    _, l, acc = _attend(q, k, v, keep, scale, softcap)
-    return _normalize(q, l, acc)
+    are soft-capped (:func:`soft_cap`) before the mask.  Every key in one
+    block of :func:`blockwise_attention` (ROADMAP.md C)."""
+    q_pos, k_pos = (torch.arange(x.shape[1], device=q.device) for x in (q, k))
+    return blockwise_attention(q, k, v, q_pos, k_pos, causal=causal,
+                               window=window, softcap=softcap,
+                               block_k=k.shape[1])
 
 
 # ---------------------------------------------------------------------------
@@ -508,23 +499,132 @@ def expand_kv(k, runs):
 # context-parallel (window-sharded) cache
 # ---------------------------------------------------------------------------
 
-def attention_at(q, k, v, q_pos, k_pos, *, window: int | None = None,
-                 softcap: float | None = None, return_stats: bool = False):
-    """q: (B, Sq, H, hd) at absolute positions ``q_pos`` (Sq,); k, v:
-    (B, Sk, H, hd) (expanded to the q heads) at ``k_pos`` (Sk,), -1 for an
-    empty slot.  A query sees a key when ``0 <= k_pos <= q_pos`` and, with
-    ``window``, ``k_pos > q_pos - window``.  The arithmetic of
-    :func:`attention`; with ``return_stats`` the f32 ``(m, l, acc)`` of
-    shapes (B, H, Sq), (B, H, Sq), (B, H, Sq, hd), as the reference's
-    ``blockwise_attention`` returns them."""
-    kp, qp = k_pos[None, :], q_pos[:, None]
-    keep = (kp >= 0) & (kp <= qp)
-    if window is not None:
-        keep = keep & (kp > qp - window)
-    m, l, acc = _attend(q, k, v, keep, 1.0 / math.sqrt(q.shape[-1]), softcap)
+# the reference's key block, which a prompt's attention takes
+PREFILL_BLOCK_K = 512
+# query tiles may visit at most this many times the untiled call's blocks
+TILE_BLOCKS = 2
+
+
+def blockwise_attention(q, k, v, q_pos, k_pos, *, block_k: int,
+                        causal: bool = True, window: int | None = None,
+                        softcap: float | None = None,
+                        return_stats: bool = False):
+    """The reference's ``blockwise_attention``: an online softmax over
+    blocks of ``block_k`` keys (the last one may be ragged).  q: (B, Sq,
+    H, hd) at absolute positions ``q_pos`` (Sq,); k, v: (B, Sk, H, hd)
+    (expanded to the q heads) at ``k_pos`` (Sk,), -1 for an empty slot.
+    A query sees a key when ``k_pos >= 0``, with ``causal`` ``k_pos <=
+    q_pos``, and with ``window`` ``k_pos > q_pos - window``.
+
+    Each block: q scaled by ``1/sqrt(hd)`` and rounded to its dtype, f32
+    scores, ``softcap`` before the mask, ``exp(s - m)``, ``p`` rounded to
+    v's dtype before the value product; the blocks fold into f32 ``(m, l,
+    acc)``.  K and V stay in their dtype: one block at a time is cast to
+    f32, and its mask is built from the positions, so no (Sq, Sk) tensor
+    exists but with one block.  The scores are overwritten in place unless
+    autograd records them (training, which takes one block: the fold of
+    several is in place).  Returns (B, Sq, H, hd)
+    in q's dtype, or with ``return_stats`` ``(m, l, acc)`` of shapes (B,
+    H, Sq), (B, H, Sq), (B, H, Sq, hd)."""
+    Sk = k.shape[1]
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    qf = (q.float() * scale).to(q.dtype).transpose(1, 2).float()
+    kt, vt = k.transpose(1, 2), v.transpose(1, 2)          # (B, H, Sk, hd)
+    qp = q_pos[:, None]
+    far = qp - window if window is not None else None
+    m = l = acc = None
+    for lo in range(0, Sk, block_k):
+        hi = min(lo + block_k, Sk)
+        kp = k_pos[lo:hi]
+        drop = kp < 0
+        if causal:
+            drop = (kp > qp).logical_or_(drop)               # (Sq, bk)
+        if far is not None:
+            drop = drop | (kp <= far)
+        s = torch.matmul(qf, kt[:, :, lo:hi].float().transpose(-1, -2))
+        if softcap is not None:
+            s = soft_cap(s, softcap)
+        inplace = not s.requires_grad      # amax's backward keeps s
+        s = s.masked_fill_(drop, NEG_INF) if inplace else s.masked_fill(
+            drop, NEG_INF)
+        m_new = s.amax(dim=-1, keepdim=True)
+        if m is not None:
+            m_new = torch.maximum(m, m_new)
+        p = s.sub_(m_new).exp_() if inplace else torch.exp(s - m_new)
+        l_new = p.sum(dim=-1, keepdim=True)
+        pv = torch.matmul(p.to(v.dtype).float(), vt[:, :, lo:hi].float())
+        del s, p
+        if m is None:
+            m, l, acc = m_new, l_new, pv
+        else:
+            corr = torch.exp(m - m_new)
+            l, acc = l.mul_(corr).add_(l_new), acc.mul_(corr).add_(pv)
+            m = m_new
     if return_stats:
         return m[..., 0], l[..., 0], acc
     return _normalize(q, l, acc)
+
+
+@functools.lru_cache(maxsize=None)
+def query_tiles(S: int, window: int | None
+                ) -> tuple[tuple[int, int, int, int], ...]:
+    """``(q0, q1, k0, k1)`` for each query tile of a causal prompt of S
+    tokens over its own keys: tile rows ``[q0, q1)`` see the key blocks of
+    ``[k0, k1)``, every PREFILL_BLOCK_K-key block that holds a key one of
+    its rows can see (``k0`` a multiple of the block, so the blocks are
+    the untiled call's).  Of the tilings into whole blocks of rows, the
+    one that scores the fewest (row, key) pairs while its tiles visit at
+    most TILE_BLOCKS times the untiled call's blocks; ties go to fewer
+    tiles."""
+    bk = PREFILL_BLOCK_K
+    nblk = -(-S // bk)
+    best = None
+    for t in range(nblk, 0, -1):
+        rows, tiles = t * bk, []
+        for q0 in range(0, S, rows):
+            q1 = min(S, q0 + rows)
+            k0 = 0 if window is None else max(0, q0 - window + 1) // bk * bk
+            tiles.append((q0, q1, k0, min(S, -(-q1 // bk) * bk)))
+        blocks = sum(-(-(k1 - k0) // bk) for _, _, k0, k1 in tiles)
+        work = sum((q1 - q0) * (k1 - k0) for q0, q1, k0, k1 in tiles)
+        if blocks <= TILE_BLOCKS * nblk and (best is None or work < best[0]):
+            best = (work, tuple(tiles))
+    return best[1]
+
+
+def prefill_attention(q, k, v, positions, *, window: int | None = None,
+                      softcap: float | None = None):
+    """A prompt's causal attention over its own keys: q, k, v (B, S, H,
+    hd) (k and v expanded to the q heads) at the consecutive ``positions``
+    (S,) -> (B, S, H, hd).  :func:`blockwise_attention` in
+    PREFILL_BLOCK_K-key blocks over the query tiles of
+    :func:`query_tiles`, each over the key blocks it can see: a block
+    wholly in a tile's future, or before its window, is left out.  The
+    online softmax is per row, and a tile's blocks come in the untiled
+    call's order, so every row is the untiled call's bit for bit (a row's
+    fully masked leading blocks leave no trace: the first block it sees
+    scales them by ``exp(NEG_INF - m) = 0``)."""
+    out = torch.empty_like(q)
+    for q0, q1, k0, k1 in query_tiles(q.shape[1], window):
+        out[:, q0:q1] = blockwise_attention(
+            q[:, q0:q1], k[:, k0:k1], v[:, k0:k1], positions[q0:q1],
+            positions[k0:k1], window=window, softcap=softcap,
+            block_k=PREFILL_BLOCK_K)
+    return out
+
+
+def attention_at(q, k, v, q_pos, k_pos, *, window: int | None = None,
+                 softcap: float | None = None, return_stats: bool = False):
+    """A decode step's attention over its cache: q (B, Sq, H, hd) at
+    absolute positions ``q_pos`` (Sq,); k, v (B, Sk, H, hd) (expanded to
+    the q heads) at ``k_pos`` (Sk,), -1 for an empty slot.
+    :func:`blockwise_attention` with every key in one block (the cache's
+    window: one query's scores are (B, H, 1, Sk)), causal, with
+    ``window`` and ``softcap``; with ``return_stats`` the f32 ``(m, l,
+    acc)``."""
+    return blockwise_attention(q, k, v, q_pos, k_pos, window=window,
+                               softcap=softcap, block_k=k.shape[1],
+                               return_stats=return_stats)
 
 
 @dataclasses.dataclass

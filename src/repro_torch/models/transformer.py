@@ -281,8 +281,8 @@ def _cached_attention(q, k, v, lay: HeadLayout, positions, cache: KVCache,
         # prefill into an empty cache: attend over the in-flight k/v
         kq, vq = ((k, v) if runs is None
                   else (C.expand_kv(k, runs), C.expand_kv(v, runs)))
-        out = C.attention_at(q, kq, vq, positions, positions, window=window,
-                             softcap=softcap)
+        out = C.prefill_attention(q, kq, vq, positions, window=window,
+                                  softcap=softcap)
         if cp > 1:
             C.build_cp_cache(cache, k, v, cp, rank)
         else:
@@ -608,15 +608,19 @@ class DecoderLM:
         return x
 
     @torch.inference_mode()
-    def prefill(self, store, tokens, state: DecodeState):
+    def prefill(self, store, tokens, state: DecodeState,
+                last: int | None = None):
         """tokens: (B, S) prompt -> (local logits (B, S, V_local), state):
         the reference's ``forward(caches=...)`` (``_prefill_unrolled``)
         from an empty ``state``, whose caches it fills; ``state.pos``
-        advances by S.  The logits are not soft-capped, as the
-        reference's prefill returns them."""
+        advances by S.  With ``last`` only the last ``last`` positions'
+        logits are computed, (B, last, V_local).  The logits are not
+        soft-capped, as the reference's prefill returns them."""
         x, emb = self._embed(store, tokens)
         x = self._cached_layers(store, x, state, single_step=False)
         state.pos += tokens.shape[1]
+        if last is not None:
+            x = x[:, -last:]
         return self._logits(store, x, emb), state
 
     @torch.inference_mode()

@@ -69,6 +69,20 @@ def test_ssd_chunked_vs_recurrence():
     np.testing.assert_allclose(S1.numpy(), S2.numpy(), atol=2e-4)
 
 
+@pytest.mark.parametrize("T", [512, 1100])
+def test_ssd_chunked_is_the_recurrence_in_f64(T):
+    """In f64 the chunked scan is the sequential recurrence to 1e-12 of
+    the output's largest value, over 2 chunks of 256 and over 275 chunks
+    of 4: the chunking changes only the rounding."""
+    X, dt, A, Bm, Cm = (a.double() for a in _t(ssd_inputs(T, 2, T, 3, 8,
+                                                          16)))
+    Y1, S1 = TS.ssd_chunked(X, dt, A, Bm, Cm)
+    Y2, S2 = TS.ssd_reference(X, dt, A, Bm, Cm)
+    assert TS.chunk_len(T) == {512: 256, 1100: 4}[T]
+    assert (Y1 - Y2).abs().max() <= 1e-12 * Y2.abs().max()
+    assert (S1 - S2).abs().max() <= 1e-12 * S2.abs().max()
+
+
 def test_ssd_state_continuation_matches_decode():
     """prefill state + ssd_step == longer prefill (cache correctness)."""
     X, dt, A, Bm, Cm = _t(ssd_inputs(1, 1, 33, 2, 4, 8, a_scale=1.0))
@@ -80,10 +94,12 @@ def test_ssd_state_continuation_matches_decode():
     np.testing.assert_allclose(S_step.numpy(), Sf.numpy(), atol=2e-4)
 
 
-@pytest.mark.parametrize("T", [48, 256, 512])
+@pytest.mark.parametrize("T", [48, 256, 512, 1100])
 def test_ssd_chunked_matches_reference(T):
     """One chunk (48), one full chunk (256), two chunks and the
-    inter-chunk recurrence (512), with and without an initial state."""
+    inter-chunk recurrence (512), and 1,100 steps, which the halving rule
+    cuts into 275 chunks of 4 (a 1,100-token prefill's scan), with and
+    without an initial state."""
     a = ssd_inputs(T, 2, T, 3, 8, 16)
     rng = np.random.default_rng(T + 1)
     S0 = rng.standard_normal((2, 3, 16, 8)).astype(np.float32)
