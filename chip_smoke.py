@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py            # needs one CUDA card; all phases
     python3 chip_smoke.py --profile-only [--src OTHER/src]   # traces only
-    python3 chip_smoke.py --serve-only [v,w]   # serving (or paths v, w)
+    python3 chip_smoke.py --serve-only [v,w,x]   # serving (or paths v-x)
 
 Phases, in order; any failure exits non-zero and prints no result:
 
@@ -157,6 +157,8 @@ Phases, in order; any failure exits non-zero and prints no result:
       blocks (``common.prefill_attention``);
    w. gemma2-27b at full width cut to W_LAYERS = 4 layers (two 4,096-token
       windows, two global; soft cap 50, GQA 32/16), as v otherwise;
+   x. mamba2-2.7b, all 64 layers, as v otherwise: the SSD scan in groups
+      of 16 chunks of 256 steps, the conv caches their own (1, 3, ch);
    v and w hold (a) layer 0's attention over the 32,768 keys, in query
       tiles, to the untiled call bit for bit (both timed) and at its last
       LONG_ROWS query rows to the one-block formula within ATTN_RTOL of
@@ -168,6 +170,16 @@ Phases, in order; any failure exits non-zero and prints no result:
       limit; (c) their peak memory to their
       prefill's dry run (phase 5 (d)); (d) their tokens to
       ``PARENT_TOKENS``; each prints the card beside its times and peak;
+   x holds (a) layer 0's SSD scan over the prompt, in groups, to the
+      whole form (every chunk in one group) within SCAN_RTOL of the mean
+      |Y|, both timed with their peaks, one group from a zero state beyond
+      it; (b) its 16 decode steps to one prefill of the generated tokens
+      from a copy of a fresh prefill's caches (the continuation), within
+      q's limits on their floor (the continuation with the scan in chunks
+      of one step), and a first step from conv contexts one token stale
+      beyond the median's; (c) every conv cache, after the prefill and
+      after the decode, owns only its (B, K-1, ch) storage; (d) and its
+      peak and tokens as v's;
    on p-t the uncached forward over the prompt and the generated tokens
    (teacher-forced) gives every decoded position's logits within
    SERVE_FWD_LIMIT on p and r, and on s, q, t, q' and t', the largest
@@ -240,10 +252,10 @@ Phases, in order; any failure exits non-zero and prints no result:
    CUDA tensors with ``torch.cuda.memory_allocated()`` moved by under 1
    MiB, their record lines printed; (c) path a's command on fake CPU
    tensors gives (a)'s ops, FLOPs, bytes, collectives and kernels; (d)
-   the prefill of serve paths v and w (their model, batch and prompt at
-   world 1) on fake CUDA tensors predicts each path's peak memory within
-   DRYRUN_PEAK_RTOL (``--serve-only`` runs these two dry runs beside
-   the serve phase; ``--serve-only v,w`` runs only those paths).
+   the prefill of serve paths v, w and x (their model, batch and prompt
+   at world 1) on fake CUDA tensors predicts each path's peak memory
+   within DRYRUN_PEAK_RTOL (``--serve-only`` runs these dry runs beside
+   the serve phase; ``--serve-only v,w,x`` runs only those paths).
 
 Where the time goes is read from traces inside the train phase, not from
 models built to profile: paths a, b and the first d trace step 2 (as e,
@@ -2290,17 +2302,25 @@ SERVE_TRACED_STEP = 3
 # at full depth: a first decode step whose conv contexts are one token
 # stale leaves the forward by 6.34, 6.23, 5.33 and 5.83 on q, t, q' and
 # t' (BA), 1.8-76x their median limits, which that control must exceed.
+# Path x holds its decode to a continuation (long_ssm_checks) under the
+# same factors; its floor, the continuation with the scan in chunks of one
+# step, was 0.768 at most and 0.410 at the median position in runs BP and
+# BQ (H100 80GB HBM3, 700 W), the decode's gaps 0.928 and 0.590 (1.21x
+# and 1.44x), the stale control 5.75.
 SERVE_FWD_LIMIT = {"p": 0.135, "r": 0.13}
 SERVE_FLOOR_FACTOR, SERVE_MEDIAN_FACTOR = 2.0, 1.5
 # sha256 (first 16 hex digits) of each path's generated tokens, (batch,
 # 1 + steps) int64, as two processes gave them in run AV (s) and in run
 # AW (q), and in runs BI and BK (p, r, t, u, whose prefills cross 512
 # keys, re-recorded once the prefill took 512-key blocks; v, w; H100
-# 80GB HBM3, 700 W): what every later run must give bit for bit.
+# 80GB HBM3, 700 W), in runs BP and BQ (s, re-recorded once its serving
+# encoder took three 512-key blocks over the 1,500 frames; x): what every
+# later run must give bit for bit.
 PARENT_TOKENS = {"p": "148d4562033affca", "q": "8888dcc10b3880ba",
-                 "r": "9def73e86cff5bc4", "s": "e7ae814e759fd7d2",
+                 "r": "9def73e86cff5bc4", "s": "442c5782b09562f4",
                  "t": "d38d4a0f5437e913", "u": "44357edd34485bfb",
-                 "v": "09aae1d2e965aee6", "w": "453d788e2c2ff408"}
+                 "v": "09aae1d2e965aee6", "w": "453d788e2c2ff408",
+                 "x": "1de1979ebf3bc99c"}
 # q and t cut to their first layers at full width (zamba2: one
 # super-block), where the rounding has few layers to grow through, so
 # the floor and the limit are tight (their tokens are not recorded).
@@ -2310,9 +2330,13 @@ SERVE_CUT_PATHS = {"q'": ("q", 4), "t'": ("t", 6)}
 # two of its 4,096-window layers and two global ones.  Their tokens are
 # recorded in PARENT_TOKENS as the other paths'.
 LONG_PROMPT, LONG_STEPS, W_LAYERS = 32768, 16, 4
+# Path x: mamba2-2.7b at full width and depth, as v otherwise: its SSD scan
+# in groups of ssm.GROUP chunks and its conv caches of their own storage
+# (long_ssm_checks).
 LONG_PATHS = {
     "v": (_serve_args("llama2-400m", 1, LONG_PROMPT, LONG_STEPS), None),
     "w": (_serve_args("gemma2-27b", 1, LONG_PROMPT, LONG_STEPS), W_LAYERS),
+    "x": (_serve_args("mamba2-2.7b", 1, LONG_PROMPT, LONG_STEPS), None),
 }
 # (a) layer 0's last LONG_ROWS query rows over all 32,768 keys: the
 # prefill's blockwise attention against the one-block formula
@@ -2339,6 +2363,15 @@ ATTN_RTOL = 0.0423
 # step by no more than its rounding (run BJ: v 0.0859 and 0.0898, w
 # 0.0625 both, largest gaps).
 LONG_DECODE_LIMIT = {"v": (0.1458, 0.0243), "w": (0.09375, 0.010095)}
+# x's (a): layer 0's SSD scan over the prompt, in groups, against the
+# whole form (every chunk in one group, the scan as it was before the
+# groups) on the same inputs: the largest gap of Y relative to the mean
+# |Y| within SCAN_RTOL (0: bit for bit).  The control, group
+# SCAN_DROP_GROUP run from a zero state instead of the one entering it,
+# must exceed it.  Runs BP and BQ (H100 80GB HBM3, 700 W): bit for bit,
+# the control 24.3 times the mean |Y|.
+SCAN_RTOL = 0.0
+SCAN_DROP_GROUP = 4
 
 
 def serve_param_count(cfg) -> int:
@@ -2467,10 +2500,10 @@ def serve_path(LQ, name: str, argv, tmp: str, cut: int | None = None
     their digest against ``PARENT_TOKENS``, kernel launches per prefill
     and per decode step as derived, decode against the uncached forward
     (p-t) or checks (a) and (b) (the long paths v and w,
-    :func:`long_checks`), and the path's metrics printed.  With ``cut``
-    the model keeps its first ``cut`` layers and the tokens are not
-    checked (but on w).  Returns its launches and its peak memory above
-    what was allocated before it."""
+    :func:`long_checks`; x, :func:`long_ssm_checks`), and the path's
+    metrics printed.  With ``cut`` the model keeps its first ``cut``
+    layers and the tokens are not checked (but on w).  Returns its
+    launches and its peak memory above what was allocated before it."""
     import numpy as np
     import torch
 
@@ -2524,7 +2557,7 @@ def serve_path(LQ, name: str, argv, tmp: str, cut: int | None = None
               f"oldest cached position is {int(kv.pos.min())}", flush=True)
     digest = tokens_digest(toks)
     check, limits, gaps, stale = "", None, [], None
-    if long:
+    if long and cfg.family != "ssm":
         gaps, stale = long_checks(cfg, res, args, name)
         state = res["state"] = None
         lim_max, lim_mean = LONG_DECODE_LIMIT[name]
@@ -2536,8 +2569,9 @@ def serve_path(LQ, name: str, argv, tmp: str, cut: int | None = None
                  f"{stale:.5f}")
         gaps = [g for g, _ in gaps]
     elif name != "u":
-        tf = teacher_forced_gaps(cfg, res, argv,
-                                 control=cfg.family in ("ssm", "hybrid"))
+        tf = (long_ssm_checks(cfg, res, args, name) if long else
+              teacher_forced_gaps(cfg, res, argv,
+                                  control=cfg.family in ("ssm", "hybrid")))
         gaps, stale = tf["gaps"], tf.get("stale")
         floor, floor_med = max(tf["floor"]), statistics.median(tf["floor"])
         med = statistics.median(gaps[1:])
@@ -2547,11 +2581,12 @@ def serve_path(LQ, name: str, argv, tmp: str, cut: int | None = None
                   [(max(gaps), SERVE_FLOOR_FACTOR * floor),
                    (med, SERVE_MEDIAN_FACTOR * floor_med)])
         scale = max(float(lg.abs().max()) for lg in res["logits"])
-        check = (f"; against the uncached forward: largest gap "
-                 f"{max(gaps):.4f} (prefill {gaps[0]:.4f}, median decode "
-                 f"step {med:.4f}; limits "
+        ref = "continuation" if long else "forward"
+        check = (f"; against the {'' if long else 'uncached '}{ref}: "
+                 f"largest gap {max(gaps):.4f} (prefill {gaps[0]:.4f}, "
+                 f"median decode step {med:.4f}; limits "
                  f"{' and '.join(f'{lim:.4f}' for _, lim in limits)}; "
-                 f"logits up to {scale:.2f}); the forward's own rounding "
+                 f"logits up to {scale:.2f}); the {ref}'s own rounding "
                  f"floor {floor:.4f} (median position {floor_med:.4f})"
                  + (f"; a first decode step with one-token-stale conv "
                     f"contexts {stale:.4f}" if stale is not None else "")
@@ -2757,8 +2792,172 @@ def long_checks(cfg, res, args, name) -> tuple[list, float]:
     return gaps, stale_gap[1]
 
 
+def fork_state(state):
+    """A copy of a state-space model's serving caches (no KV caches)."""
+    from repro_torch.models import transformer as T
+
+    assert not state.kv
+    return T.DecodeState(kv=[], mamba=[
+        T.MambaCache(tuple(c.clone() for c in m.conv), m.ssm.clone())
+        for m in state.mamba], pos=state.pos)
+
+
+def conv_cache_excess(cfg, state) -> list:
+    """(c): every conv cache of ``state`` whose storage is not its own
+    (B, K-1, ch) bf16 elements: (layer, shape, storage bytes)."""
+    bad = []
+    for l, m in enumerate(state.mamba):
+        for c in m.conv:
+            want = c.shape[0] * (cfg.d_conv - 1) * c.shape[2] * 2
+            if (c.shape[1] != cfg.d_conv - 1 or c.dtype.itemsize != 2
+                    or c.untyped_storage().nbytes() != want):
+                bad.append((l, tuple(c.shape),
+                            c.untyped_storage().nbytes()))
+    return bad
+
+
+def long_ssm_checks(cfg, res, args, name) -> dict:
+    """Checks (a) and (c) of a state-space long path on the serve run
+    ``res``, and (b)'s gaps, raising if (a) or (c) fails.  (a): layer 0's
+    SSD scan inputs over the prompt, the scan in groups of ssm.GROUP
+    chunks against the whole form (GROUP patched to hold every chunk:
+    the scan before the groups, op for op), each timed with its peak
+    memory, within SCAN_RTOL of the mean |Y|; the control, one group from
+    a zero state, beyond it.  (c): after a fresh prefill of the prompt and
+    after the run's decode steps, every conv cache owns its (B, K-1, ch)
+    storage alone.  (b): from a copy of that prefill's caches, one prefill
+    of the first ``decode_steps`` generated tokens (the continuation)
+    against the run's decode steps, per step the largest logit gap, the
+    fresh prefill's last logits against the run's first; ``floor``, the
+    continuation's own rounding, per position: the same prefill from
+    another copy with the scan in chunks of one step (``ssm.CHUNK``
+    patched; the decode's recurrence in the scan's arithmetic) against it;
+    ``stale``, a first decode step from a copy whose conv contexts are
+    one token stale, against the continuation.  Returns ``gaps``,
+    ``floor``, ``stale`` and ``agree`` (the share of decoded tokens that
+    are the continuation's argmax), as ``teacher_forced_gaps`` does."""
+    from unittest import mock
+
+    import torch
+
+    from repro_torch.core import flatparam as FP
+    from repro_torch.launch import steps
+    from repro_torch.models import common as C
+    from repro_torch.models import ssm as SSM
+    from repro_torch.models import transformer as T
+
+    class Captured(Exception):
+        pass
+
+    def capture(*a, **kw):
+        scan.extend(a)
+        raise Captured
+
+    def timed(group, reps: int = 3):  # (Y, S), median ms, peak bytes
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        ms = []
+        with mock.patch.object(SSM, "GROUP", group):
+            for _ in range(reps):
+                t1 = time.perf_counter()
+                out = SSM.ssd_chunked(*scan)
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t1) * 1e3)
+        return out, statistics.median(ms), \
+            torch.cuda.max_memory_allocated() - base
+
+    model = steps.build_model(cfg, 1)
+    store = FP.ServeStore(model.groups(), res["params"])
+    dev = res["logits"][0].device
+    prompt = res["batch"]["tokens"].to(dev)
+    B, S = prompt.shape
+    n = args.decode_steps
+    failed = []
+    with torch.inference_mode():
+        t0 = time.perf_counter()
+        scan: list = []
+        x, _ = model._embed(store, prompt)
+        p = store.layer("block", 0)
+        with mock.patch.object(SSM, "ssd_chunked", capture):
+            try:
+                SSM.mamba2_mixer(C.norm("rmsnorm", x, p["normm"]), p, cfg)
+            except Captured:
+                pass
+        del x
+        Q = SSM.chunk_len(S)
+        nc = S // Q
+        (Yg, Sg), g_ms, g_peak = timed(SSM.GROUP)
+        (Yw, Sw), w_ms, w_peak = timed(nc)
+        same = torch.equal(Yg, Yw) and torch.equal(Sg, Sw)
+        typical = float(Yw.abs().mean())
+        scan_gap = float((Yg - Yw).abs().max()) / typical
+        state_gap = float((Sg - Sw).abs().max() / Sw.abs().mean())
+        X, dt, A, Bm, Cm = scan
+        span = SSM.GROUP * SSM.CHUNK
+        rows = slice(SCAN_DROP_GROUP * span, (SCAN_DROP_GROUP + 1) * span)
+        y_bad, _ = SSM._ssd_group(X[:, rows], dt[:, rows], A, Bm[:, rows],
+                                  Cm[:, rows], torch.zeros_like(Sg), Q)
+        dropped = float((y_bad - Yg[:, rows]).abs().max()) / typical
+        del scan[:], X, dt, A, Bm, Cm, Yg, Yw, Sg, Sw, y_bad
+        print(f"serve: path {name}: (a) layer 0's SSD scan over {S:,} "
+              f"steps ({nc} chunks of {Q}, groups of {span // Q}): grouped "
+              f"{g_ms:.1f} ms, peak {g_peak / 2**30:.3f} GiB; whole form "
+              f"{w_ms:.1f} ms, peak {w_peak / 2**30:.3f} GiB; bit for bit: "
+              f"{same}; largest gap of Y {scan_gap:.3e} of its mean "
+              f"|Y| {typical:.4e} (limit {SCAN_RTOL}), of the final "
+              f"state {state_gap:.3e} of its mean; the control (group "
+              f"{SCAN_DROP_GROUP} from a zero state) {dropped:.3e}; "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        if not scan_gap <= SCAN_RTOL or not state_gap <= SCAN_RTOL:
+            failed.append(f"(a) the grouped scan left the whole form "
+                          f"({scan_gap:.3e}, {state_gap:.3e} > {SCAN_RTOL})")
+        if not dropped > SCAN_RTOL:
+            failed.append(f"(a) the control ({dropped:.3e}) stays within "
+                          f"the limit {SCAN_RTOL}")
+
+        t0 = time.perf_counter()
+        gen = torch.tensor(res["tokens"], device=dev)       # (B, 1 + n)
+        state = T.init_decode_state(cfg, 1, B, res["window"], dev)
+        first = model.prefill(store, prompt, state, last=1)[0][:, -1]
+        excess = conv_cache_excess(cfg, state) + conv_cache_excess(
+            cfg, res["state"])
+        conv_bytes = sum(c.untyped_storage().nbytes()
+                         for m in state.mamba for c in m.conv)
+        print(f"serve: path {name}: (c) the {3 * len(state.mamba)} conv "
+              f"caches after a fresh prefill hold {conv_bytes:,} B of "
+              f"storage; any beyond their own (B, K-1, ch), after it or "
+              f"after the run's decode steps: {excess or 'none'}",
+              flush=True)
+        if excess:
+            failed.append(f"(c) conv caches keep larger storages: "
+                          f"{excess[:3]}")
+        want = model.prefill(store, gen[:, :n], fork_state(state))[0]
+        with mock.patch.object(SSM, "CHUNK", 1):
+            ones = model.prefill(store, gen[:, :n], fork_state(state))[0]
+        floor = (ones.float() - want.float()).abs().amax(dim=(0, 2)).tolist()
+        stale = fork_state(state)
+        for mc in stale.mamba:
+            mc.conv = tuple(torch.cat([c[:, :1], c[:, :-1]], 1)
+                            for c in mc.conv)
+        stale_gap = float((model.decode_step(store, stale, gen[:, :1])[0]
+                           [:, 0].float() - want[:, 0].float()).abs().max())
+        gaps = [float((res["logits"][0].float() - first.float()).abs().max())]
+        gaps += [float((lg.float() - want[:, i].float()).abs().max())
+                 for i, lg in enumerate(res["logits"][1:])]
+        agree = float((want.float().argmax(-1) == gen[:, 1:]).float().mean())
+        del state, stale, want, ones
+        torch.cuda.synchronize()
+        print(f"serve: path {name}: (b) a continuation of the prompt's "
+              f"caches over the {n} generated tokens against the decode "
+              f"steps: {time.perf_counter() - t0:.1f} s", flush=True)
+    if failed:
+        raise AssertionError(f"serve: path {name}: " + "; ".join(failed))
+    return dict(gaps=gaps, floor=floor, stale=stale_gap, agree=agree)
+
+
 def serve_phase(LQ, names=None) -> tuple[dict, dict]:
-    """Paths p-w (``SERVE_PATHS``, ``SERVE_CUT_PATHS``, ``LONG_PATHS``; or
+    """Paths p-x (``SERVE_PATHS``, ``SERVE_CUT_PATHS``, ``LONG_PATHS``; or
     those of ``names``), no model-group collective called at tp = 1;
     every path runs before a failure is raised, so each prints its
     tokens' digest.  Returns the kernels' launches summed, and the long

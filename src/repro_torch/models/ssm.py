@@ -4,9 +4,12 @@ Port of ``repro.models.ssm``: the chunked SSD algorithm [arXiv:2405.21060]
 in matmul form.  Within a chunk of ``Q`` steps the scan is an
 attention-like product of f32 einsums; the recurrence between chunks is a
 Python loop over the ``T / Q`` chunk states (the reference's
-``lax.scan``).  Heads are sharded over the ``model`` group (``d_inner /
-tp`` channels local); the B/C projections (one group) are replicated, and
-the gated norm is per head, so it needs no statistic across ranks.
+``lax.scan``).  Past ``GROUP`` chunks the scan runs over groups of them,
+one after another, so that a long prompt's (chunks, Q, Q) products are
+one group's at a time (the reference forms them all).  Heads are sharded
+over the ``model`` group (``d_inner / tp`` channels local); the B/C
+projections (one group) are replicated, and the gated norm is per head,
+so it needs no statistic across ranks.
 
 One fault of the reference is not copied: its ``_segsum_lower`` takes
 ``exp`` of every pairwise sum of step sizes and masks the upper triangle
@@ -30,6 +33,8 @@ import torch
 from repro_torch.models import common as C
 
 CHUNK = 256
+# chunks of CHUNK steps per group of :func:`ssd_chunked` (4,096 steps)
+GROUP = 16
 
 
 def _segsum_lower(cs):
@@ -52,7 +57,7 @@ def chunk_len(T: int) -> int:
 
 
 def ssd_chunked(X, dt, A, Bm, Cm, init_state=None):
-    """Chunked SSD scan.
+    """Chunked SSD scan, run over groups of chunks one at a time.
 
     X:  (B, T, H, P) f32   inputs per head
     dt: (B, T, H)    f32   positive step sizes (already softplused)
@@ -60,10 +65,40 @@ def ssd_chunked(X, dt, A, Bm, Cm, init_state=None):
     Bm: (B, T, N)    f32   input projection (one group, broadcast to H)
     Cm: (B, T, N)    f32   output projection
     Returns (Y (B, T, H, P), final_state (B, H, N, P)).
+
+    The chunk is the reference's (:func:`chunk_len` of the whole ``T``).
+    A group spans ``GROUP * CHUNK`` steps (a multiple of every chunk the
+    halving rule gives past CHUNK steps), starts from the state that
+    leaves the one before it and writes its rows of ``Y``, so only one
+    group's (B, chunks, H, Q, Q) products exist at a time; every op is
+    the whole form's on fewer chunks, so on the CPU the groups give its
+    bits.  A scan of at most one span is the whole form itself.
     """
     Bb, T, H, P = X.shape
-    N = Bm.shape[-1]
     Q = chunk_len(T)
+    S = (torch.zeros(Bb, H, Bm.shape[-1], P, dtype=torch.float32,
+                     device=X.device)
+         if init_state is None else init_state.float())
+    span = GROUP * CHUNK
+    if T <= span:
+        return _ssd_group(X, dt, A, Bm, Cm, S, Q)
+    Y = None
+    for lo in range(0, T, span):
+        hi = min(T, lo + span)
+        y, S = _ssd_group(X[:, lo:hi], dt[:, lo:hi], A, Bm[:, lo:hi],
+                          Cm[:, lo:hi], S, Q)
+        if Y is None:
+            Y = y.new_empty(Bb, T, H, P)
+        Y[:, lo:hi] = y
+        del y
+    return Y, S
+
+
+def _ssd_group(X, dt, A, Bm, Cm, S, Q):
+    """The chunked scan of ``T`` steps in chunks of ``Q`` from the entering
+    state ``S`` (B, H, N, P) f32 -> (Y (B, T, H, P), the leaving state)."""
+    Bb, T, H, P = X.shape
+    N = Bm.shape[-1]
     nc = T // Q
 
     dA = dt * A[None, None, :]                       # (B, T, H) negative
@@ -88,8 +123,6 @@ def ssd_chunked(X, dt, A, Bm, Cm, init_state=None):
 
     # inter-chunk recurrence: the state entering each chunk
     chunk_decay = torch.exp(torch.sum(dAc, dim=2))   # (B, nc, H)
-    S = (torch.zeros(Bb, H, N, P, dtype=torch.float32, device=X.device)
-         if init_state is None else init_state.float())
     S_prevs = []
     for c in range(nc):
         S_prevs.append(S)
@@ -134,8 +167,8 @@ def ssd_reference(X, dt, A, Bm, Cm):
 def _causal_conv(x, w, cache=None):
     """Depthwise causal conv.  x: (B, T, Ch); w: (K, Ch); cache: (B, K-1,
     Ch) trailing context or None (zeros).  Returns (y (B, T, Ch),
-    new_cache (B, K-1, Ch)).  The sum of K shifted products, in the
-    reference's order."""
+    new_cache (B, K-1, Ch), a tensor of its own).  The sum of K shifted
+    products, in the reference's order."""
     K = w.shape[0]
     B, T, Ch = x.shape
     ctx = (torch.zeros(B, K - 1, Ch, dtype=x.dtype, device=x.device)
@@ -144,7 +177,8 @@ def _causal_conv(x, w, cache=None):
     y = 0
     for i in range(K):
         y = y + xp[:, i:i + T] * w[i][None, None, :]
-    return y, xp[:, T:]
+    # a copy: a view would keep all of ``xp`` alive with the cache
+    return y, xp[:, T:].clone()
 
 
 class _Softplus(torch.autograd.Function):
@@ -179,7 +213,9 @@ def mamba2_mixer(x, p, cfg, *, conv_cache=None, ssm_state=None,
     w_out (dil, d).  ``group``: the model group (None at tp = 1); under
     ``sp`` the output is reduce-scattered over the sequence.
     ``conv_cache`` (the three trailing contexts) and ``ssm_state`` carry
-    a sequence on; ``single_step`` steps one token through ``ssd_step``.
+    a sequence on (the reference's prefill starts its conv from zeros
+    whatever the cache holds; a fresh cache holds zeros, so the bits are
+    the same); ``single_step`` steps one token through ``ssd_step``.
     """
     B, T, d = x.shape
     P = cfg.ssm_headdim
@@ -189,9 +225,7 @@ def mamba2_mixer(x, p, cfg, *, conv_cache=None, ssm_state=None,
     Cm = C.col_linear(x, p["w_C"]).float()
     dt = C.col_linear(x, p["w_dt"]).float()
 
-    ccx = ccB = ccC = None
-    if single_step:
-        ccx, ccB, ccC = conv_cache
+    ccx, ccB, ccC = conv_cache if conv_cache is not None else (None,) * 3
     xc, ccx = _causal_conv(xc, p["conv_x"], ccx)
     Bm, ccB = _causal_conv(Bm, p["conv_B"], ccB)
     Cm, ccC = _causal_conv(Cm, p["conv_C"], ccC)

@@ -363,10 +363,13 @@ class MambaCache:
 def mamba_layer(p, x, cfg: ArchConfig, group=None, sp: bool = False,
                 cache: MambaCache | None = None, single_step: bool = False):
     """Pre-norm mamba2 mixer with its residual.  With a ``cache``
-    (serving) the SSD scan starts from ``cache.ssm``, ``single_step``
-    steps one token from the conv contexts too (a prompt's conv starts
-    from zeros, as in the reference), and the new contexts (rounded to
-    bf16, as the reference stores them) and state replace the cache's."""
+    (serving) the conv starts from ``cache.conv`` and the SSD scan from
+    ``cache.ssm`` (a fresh cache's zeros for a prompt, as in the
+    reference; a later prefill continues the sequence, where the
+    reference restarts the conv from zeros), ``single_step`` steps one
+    token, and the new contexts (rounded to bf16, as the reference stores
+    them; each a (B, K-1, ch) tensor of its own) and state replace the
+    cache's."""
     h = C.norm("rmsnorm", x, p["normm"])
     if sp:
         h = C.sp_gather(h, group)

@@ -15,9 +15,10 @@ MLP and the vocabulary shard over the ``model`` group as in the decoder
 (no sequence parallelism, as in the reference).
 
 Serving (the reference's ``init_decode_state`` and ``decode_step``): the
-encoder runs once over the frames, and each decoder token attends over a
-ring :class:`~repro_torch.models.common.KVCache` of its self-attention
-keys per layer and across to the encoder memory, whose keys and values
+encoder runs once over the frames, in the reference's 512-key blocks,
+and each decoder token attends over a ring
+:class:`~repro_torch.models.common.KVCache` of its self-attention keys
+per layer and across to the encoder memory, whose keys and values
 are projected again at every step, as the reference does.  The token's
 learned position is ``pos_dec[min(pos, dec_len - 1)]``.
 """
@@ -105,7 +106,10 @@ def _mha(p, x, kv_src, lay: HeadLayout, causal: bool, group,
     when they are the same tensor), finished by the row-parallel output
     projection over ``group``.  With a ``cache`` (decoder self-attention
     while serving) the new keys at position ``pos`` are appended first and
-    the query at ``pos`` attends over the cache."""
+    the query at ``pos`` attends over the cache.  Serving (autograd off)
+    takes the reference's PREFILL_BLOCK_K-key blocks, the last one ragged,
+    for several queries (the encoder); one query (a decode step's
+    cross-attention) and training take every key in one block."""
     B, Sq, _ = x.shape
     Sk, hd = kv_src.shape[1], lay.head_dim
     nq, nk, nv, no = names
@@ -118,7 +122,11 @@ def _mha(p, x, kv_src, lay: HeadLayout, causal: bool, group,
     if not lay.kv_identity:
         runs = lay.kv_runs(C.tp_rank(group))
         k, v = C.expand_kv(k, runs), C.expand_kv(v, runs)
-    if cache is None:
+    if cache is None and Sq > 1 and not torch.is_grad_enabled():
+        q_pos, k_pos = (torch.arange(n, device=x.device) for n in (Sq, Sk))
+        out = C.blockwise_attention(q, k, v, q_pos, k_pos, causal=causal,
+                                    block_k=C.PREFILL_BLOCK_K)
+    elif cache is None:
         out = C.attention(q, k, v, causal=causal)
     else:
         q_pos = torch.arange(pos, pos + Sq, device=x.device)

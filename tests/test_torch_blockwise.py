@@ -117,6 +117,34 @@ def test_blockwise_attention_is_the_references(sk, sq, mode):
                                atol=ACC_RTOL * np.abs(wacc).max())
 
 
+@pytest.mark.parametrize("sk,sq", [(1100, 1100), (1536, 300)])
+def test_bidirectional_blockwise_attention_is_the_references(sk, sq):
+    """``causal=False`` over several blocks (whisper's serving encoder,
+    and its cross-attention over a prefill's queries): every query sees
+    every key; the output within ATTN_ATOL of the reference's (on the
+    ragged 1,100 keys one bf16 ulp more, as above), ``m`` and ``l`` as
+    above."""
+    q, k, v, q_pos, k_pos = _case(sk, sq, False, seed=1)
+    jargs = (jnp.asarray(q, jnp.bfloat16), jnp.asarray(k, jnp.bfloat16),
+             jnp.asarray(v, jnp.bfloat16), jnp.asarray(q_pos, jnp.int32),
+             jnp.asarray(k_pos, jnp.int32))
+    targs = (_bf16(q), _bf16(k), _bf16(v), torch.from_numpy(q_pos),
+             torch.from_numpy(k_pos))
+    want = JC.blockwise_attention(*jargs, causal=False)
+    got = C.blockwise_attention(*targs, block_k=512, causal=False)
+    np.testing.assert_allclose(_np(got), np.asarray(want, np.float32),
+                               rtol=2**-8 if sk % 512 else 0, atol=ATTN_ATOL)
+    wm, wl, _ = (np.asarray(a, np.float32) for a in JC.blockwise_attention(
+        *jargs, causal=False, return_stats=True))
+    m, l, _ = (a.numpy() for a in C.blockwise_attention(
+        *targs, block_k=512, causal=False, return_stats=True))
+    np.testing.assert_allclose(m, wm, rtol=M_RTOL)
+    np.testing.assert_allclose(l, wl, rtol=L_RTOL)
+    # the first query sees the last key, which a causal call hides from it
+    causal = C.blockwise_attention(*targs, block_k=512)
+    assert not torch.equal(causal[:, 0], got[:, 0])
+
+
 def _attend(q, k, v, keep, softcap):
     """The one-block formula: q (B, Sq, H, hd) scaled and rounded to its
     dtype, f32 scores over every key of k, v (B, Sk, H, hd), ``softcap``

@@ -325,6 +325,56 @@ def test_decode_is_the_references(arch, recording_routes):
         assert S + N > reduced(get_arch(arch)).window  # the ring wrapped
 
 
+# whisper's serving encoder over 1,100 frames: 512-key blocks, the last of
+# 76; the reference's blocks there are 4 keys (its halving rule)
+WHISPER_LONG_FRAMES = 1100
+# the multi-block encoder against the one-block one, bf16 memory of order
+# 5: at most 1/64 of its largest |value|, two bf16 ulps there (measured:
+# 0.0469 of 4.78, 46% of the values differ; each block rounds its
+# probabilities to bf16 against another running max)
+ENC_BLOCKS_RTOL = 1 / 64
+
+
+def test_whisper_long_encoder_is_the_references():
+    """Reduced whisper-small served on 1,100 frames (the encoder's
+    self-attention in three blocks, the last ragged): its memory within
+    XREF_ATOL of the reference's ``EncDecLM.encode``, the prefill (the
+    start token's step) and the next decode steps, teacher-forced, within
+    XREF_ATOL of the reference's ``decode_step``, as is the decoder over
+    them; and the encoder in one block (what training takes) within
+    ENC_BLOCKS_RTOL of the multi-block one."""
+    S = WHISPER_LONG_FRAMES
+    params, inputs, (rf, _, rd) = reference_serve("whisper-small", S, N)
+    pf, _, pd = port_serve("whisper-small", params, inputs, S, N)
+    np.testing.assert_allclose(pf, rf, rtol=0, atol=XREF_ATOL)
+    np.testing.assert_allclose(pd, rd, rtol=0, atol=XREF_ATOL)
+
+    jcfg = jreduced(jget_arch("whisper-small"))
+    mesh, topo, jgroups, pspecs, _ = _ref_params(jcfg)
+    jmodel = jbuild_model(jcfg, 1)
+    encode = jax.jit(jax.shard_map(
+        lambda p, f: jmodel.encode(JStore(jgroups, p, topo),
+                                   f.astype(jnp.bfloat16), remat=False),
+        mesh=mesh, in_specs=(pspecs, P()), out_specs=P(), check_vma=False))
+    want = np.asarray(encode(params, jnp.asarray(inputs["frames"])),
+                      np.float32)
+    cfg = reduced(get_arch("whisper-small"))
+    groups = tsteps.model_groups(cfg, 1)
+    store = FP.ServeStore(groups, interop.serve_from_reference(
+        params, groups=groups))
+    frames = _bf16(inputs["frames"])
+    with tmesh.dp_group(torch.device("cpu")), torch.inference_mode():
+        model = tsteps.build_model(cfg, 1, model_group=tmesh.model_group(1))
+        got = model.encode(store, frames, remat=False)
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(C, "PREFILL_BLOCK_K", S)
+            one = model.encode(store, frames, remat=False)
+    assert -(-S // C.PREFILL_BLOCK_K) == 3 and S % C.PREFILL_BLOCK_K
+    np.testing.assert_allclose(_np(got), want, rtol=0, atol=XREF_ATOL)
+    gap = (got.float() - one.float()).abs().max()
+    assert 0 < gap <= ENC_BLOCKS_RTOL * one.float().abs().max(), gap
+
+
 # ---------------------------------------------------------------------------
 # the reference's serve-window fault, and the port's window
 # ---------------------------------------------------------------------------

@@ -39,6 +39,7 @@ from repro.launch.mesh import make_local_mesh
 from repro.models import ssm as JS
 from repro_torch.configs.base import get_arch, reduced
 from repro_torch.models import ssm as TS
+from repro_torch.models import transformer as TT
 
 
 def _softplus_np(x):
@@ -94,23 +95,38 @@ def test_ssd_state_continuation_matches_decode():
     np.testing.assert_allclose(S_step.numpy(), Sf.numpy(), atol=2e-4)
 
 
-@pytest.mark.parametrize("T", [48, 256, 512, 1100])
-def test_ssd_chunked_matches_reference(T):
+@pytest.mark.parametrize("T,group", [
+    (48, None), (256, None), (512, None), (1100, None),
+    (1024, 1), (1024, 3), (1536, 4), (768, 2)],
+    ids=["48", "256", "512", "1100", "1024-group1", "1024-group3",
+         "1536-group4", "768-group2"])
+def test_ssd_chunked_matches_reference(T, group, monkeypatch):
     """One chunk (48), one full chunk (256), two chunks and the
     inter-chunk recurrence (512), and 1,100 steps, which the halving rule
     cuts into 275 chunks of 4 (a 1,100-token prefill's scan), with and
-    without an initial state."""
+    without an initial state.  With ``group`` (``ssm.GROUP``) the scan
+    runs over groups of that many chunks of 256 (the last one short on
+    1,024 steps in groups of 3 and 1,536 in groups of 4), each from the
+    state the one before it left: bit for bit the whole form (all chunks
+    in one group)."""
     a = ssd_inputs(T, 2, T, 3, 8, 16)
     rng = np.random.default_rng(T + 1)
     S0 = rng.standard_normal((2, 3, 16, 8)).astype(np.float32)
     for init in (None, S0):
         Yj, Sj = JS.ssd_chunked(*map(jnp.asarray, a), init_state=(
             None if init is None else jnp.asarray(init)))
-        Yt, St = TS.ssd_chunked(*_t(a), init_state=(
-            None if init is None else torch.from_numpy(init)))
+        init_t = None if init is None else torch.from_numpy(init)
+        if group is not None:
+            monkeypatch.setattr(TS, "GROUP", group)
+        Yt, St = TS.ssd_chunked(*_t(a), init_state=init_t)
         Yj, Sj = np.asarray(Yj), np.asarray(Sj)
         assert np.abs(Yt.numpy() - Yj).max() <= 1e-5 * np.abs(Yj).max()
         assert np.abs(St.numpy() - Sj).max() <= 1e-5 * np.abs(Sj).max()
+        if group is not None:
+            monkeypatch.setattr(TS, "GROUP", T)       # one group
+            Yw, Sw = TS.ssd_chunked(*_t(a), init_state=init_t)
+            assert T > group * TS.CHUNK
+            assert torch.equal(Yt, Yw) and torch.equal(St, Sw)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -128,6 +144,49 @@ def test_causal_conv_matches_reference(dtype, cached):
     assert np.array_equal(np.asarray(ccj, np.float32), cct.float().numpy())
     # the new cache is the last K - 1 inputs: a continuation sees them
     assert torch.equal(cct, torch.from_numpy(x).to(td)[:, -3:])
+
+
+def test_mamba_conv_caches_own_their_storage():
+    """A mamba layer's three conv caches after a 64-token prompt and after
+    one decode step are (B, K-1, ch) bf16 tensors that own B (K-1) ch
+    elements of storage: the contexts, not views into the conv's whole
+    (B, K-1 + T, ch) input, which a cache kept alive through the prefill
+    and every decode step after it."""
+    cfg = dataclasses.replace(reduced(get_arch("mamba2-2.7b")), d_model=64)
+    p = {k: torch.from_numpy(v).bfloat16()
+         for k, v in _mixer_params(cfg, 9).items()}
+    p["normm"] = torch.ones(64, dtype=torch.bfloat16)
+    Bb, K = 2, cfg.d_conv
+    cache = TT.init_decode_state(cfg, 1, Bb, 65, "cpu").mamba[0]
+    x = torch.from_numpy(np.random.default_rng(10).standard_normal(
+        (Bb, 65, 64)).astype(np.float32)).bfloat16()
+    for T, single in ((64, False), (1, True)):
+        with torch.inference_mode():
+            TT.mamba_layer(p, x[:, :T] if not single else x[:, 64:], cfg,
+                           cache=cache, single_step=single)
+        for c, ch in zip(cache.conv, (cfg.d_inner, cfg.ssm_state,
+                                      cfg.ssm_state)):
+            assert c.shape == (Bb, K - 1, ch) and c.dtype == torch.bfloat16
+            assert c.untyped_storage().nbytes() == Bb * (K - 1) * ch * 2
+
+
+def test_mixer_prefill_continues_a_filled_cache():
+    """A prompt's mixer in two calls, the second from the conv contexts and
+    SSD state the first left, is the one call over the whole prompt (f32:
+    within 1e-5 of the output's largest value; the two calls chunk it
+    otherwise), its contexts bit for bit."""
+    cfg = dataclasses.replace(reduced(get_arch("mamba2-2.7b")), d_model=64)
+    p = {k: torch.from_numpy(v) for k, v in _mixer_params(cfg, 11).items()}
+    x = torch.from_numpy(np.random.default_rng(12).standard_normal(
+        (2, 96, 64)).astype(np.float32))
+    y, (cc, S) = TS.mamba2_mixer(x, p, cfg)
+    y1, (cc1, S1) = TS.mamba2_mixer(x[:, :64], p, cfg)
+    y2, (cc2, S2) = TS.mamba2_mixer(x[:, 64:], p, cfg, conv_cache=cc1,
+                                    ssm_state=S1)
+    got = torch.cat([y1, y2], 1)
+    assert (got - y).abs().max() <= 1e-5 * y.abs().max()
+    assert (S2 - S).abs().max() <= 1e-5 * S.abs().max()
+    assert all(torch.equal(a, b) for a, b in zip(cc2, cc))
 
 
 def test_softplus_matches_jax():
