@@ -51,6 +51,7 @@ from repro_torch.core.hijack import (gather_fp, gather_with_sync,
                                      gather_with_sync_runs,
                                      replicated_grad_psum)
 from repro_torch.core.loco import SyncConfig
+from repro_torch.telemetry import profiler as PROF
 
 GRAIN = 512  # dp chunks stay divisible by 2 (int4 pack) * 256 (quant block)
 
@@ -361,7 +362,8 @@ def materialize(chunk: torch.Tensor, state, info: ParamInfo,
                 step: int | None = None, pplan: ParamPlan | None = None,
                 coalesce: bool = True, overlap: bool = False,
                 probe: torch.Tensor | None = None) -> torch.Tensor:
-    """f32 chunk -> logical bf16 tensor (FSDP gather with the LoCo backward).
+    """f32 chunk -> logical bf16 tensor (FSDP gather with the LoCo backward),
+    inside the ``loco/gather`` range.
 
     With a ``pplan`` the backward runs the bucketed schedule: under
     ``coalesce`` (default) ``state`` is the run-space tuple and the exchange
@@ -374,30 +376,32 @@ def materialize(chunk: torch.Tensor, state, info: ParamInfo,
     requires ``overlap=False``: the probe runs the flat schedule, which
     gives the pipelined one's bits.
     """
-    w = chunk.to(compute_dtype)
-    axes = topo.axes or None
     if probe is not None and overlap:
         raise ValueError("fidelity probe runs the flat (non-overlapped) "
                          "schedule")
-    if info.loco and pplan is not None and coalesce:
-        flat = gather_with_sync_runs(w, state, pplan, topo.group, step=step,
-                                     overlap=overlap, axes=axes, probe=probe)
-    elif info.loco and pplan is not None:
-        flat = gather_with_sync_buckets(w, state, pplan, topo.group,
-                                        coalesce=False, step=step, axes=axes,
-                                        probe=probe)
-    elif info.loco:
-        flat = gather_with_sync(w, state, cfg, topo.group, step=step,
-                                axes=axes, probe=probe)
-    else:
-        flat = gather_fp(w, topo.group)
-    n = info.numel_local(topo.tp)
-    t = flat[:n].reshape(info.local_shape(topo.tp))
-    if info.tp_dim is None and topo.tp > 1:
-        # a leaf every model rank holds whole: psum its gradient over the
-        # model group, so the sync sees the full gradient
-        t = replicated_grad_psum(t, topo.model)
-    return t
+    axes = topo.axes or None
+    with PROF.phase("gather"):
+        w = chunk.to(compute_dtype)
+        if info.loco and pplan is not None and coalesce:
+            flat = gather_with_sync_runs(w, state, pplan, topo.group,
+                                         step=step, overlap=overlap,
+                                         axes=axes, probe=probe)
+        elif info.loco and pplan is not None:
+            flat = gather_with_sync_buckets(w, state, pplan, topo.group,
+                                            coalesce=False, step=step,
+                                            axes=axes, probe=probe)
+        elif info.loco:
+            flat = gather_with_sync(w, state, cfg, topo.group, step=step,
+                                    axes=axes, probe=probe)
+        else:
+            flat = gather_fp(w, topo.group)
+        n = info.numel_local(topo.tp)
+        t = flat[:n].reshape(info.local_shape(topo.tp))
+        if info.tp_dim is None and topo.tp > 1:
+            # a leaf every model rank holds whole: psum its gradient over
+            # the model group, so the sync sees the full gradient
+            t = replicated_grad_psum(t, topo.model)
+        return t
 
 
 class TrainStore:

@@ -40,12 +40,17 @@ Each step makes the f32 master chunks autograd leaves (one per layer for
 stacked groups, so each layer's synced shard lands in its own ``.grad``),
 runs the microbatches, and writes the new chunks, optimizer moments and
 (reset) error states back into the :class:`TrainState`.  The compressor
-states are updated in place by each backward.
+states are updated in place by each backward.  Under a profiler each
+microbatch's loss and backward run inside ``loco/forward`` and
+``loco/backward``, the gradient mean, norm and clip inside ``loco/clip``
+and the update inside ``loco/apply`` (``telemetry/profiler``), and a
+step on a card adds its allocator calls to ``profiler.COUNTERS``.
 
 Serving (the reference's ``make_prefill_step`` and ``make_decode_step``):
 ``make_prefill_step`` runs a prompt batch into fresh caches and returns
-the last position's local logits; ``make_decode_step`` steps one token
-through the caches and samples greedily over the vocab shards.  The batch
+the last position's local logits (inside ``loco/serve/prefill``);
+``make_decode_step`` steps one token through the caches and samples
+greedily over the vocab shards (inside ``loco/serve/decode``).  The batch
 is cut over the data ranks when it has at least dp rows and replicated
 otherwise; no collective crosses dp.  The cache's window is the caller's
 argument: the reference sizes it to the prompt, so that from the first
@@ -529,6 +534,7 @@ def make_train_step(cfg: ArchConfig, run: RunConfig, topo: MeshTopo,
         mbs = {k: v[topo.rank * local_batch:(topo.rank + 1) * local_batch]
                .to(device).reshape(accum, micro, *v.shape[1:])
                for k, v in batch.items()}
+        alloc = PROF.alloc_counts(device)
         leaves = _leaves(ts.chunks, groups)
         probe = is_probe_step(run, step)
         pbufs = None
@@ -549,41 +555,42 @@ def make_train_step(cfg: ArchConfig, run: RunConfig, topo: MeshTopo,
                                   overlap=run.overlap and not probe,
                                   probe=pbufs)
             kw = {} if ef is None else {"moe_a2a_state": ef}
-            loss, aux = model.loss_fn(store, {k: v[i] for k, v in
-                                              mbs.items()},
-                                      remat=run.remat, **kw)
-            loss.backward()
-            if ef is not None:
-                # the microbatch's new residuals, stored once: the
-                # recomputed forwards of the backward read the old ones
-                ef.copy_(aux["moe_a2a_state"])
+            with PROF.phase("forward"):
+                loss, aux = model.loss_fn(store, {k: v[i] for k, v in
+                                                  mbs.items()},
+                                          remat=run.remat, **kw)
+            # the microbatch's new residuals, stored once: the recomputed
+            # forwards of the backward read the old ones
+            PROF.backward(loss, None if ef is None else
+                          lambda: ef.copy_(aux["moe_a2a_state"]))
             losses.append(loss.detach())
             if moe_metrics:
                 mvs.append(torch.stack([aux["aux"], aux["z"]]).detach())
-        grads = _grads(leaves, groups, accum)
-        del leaves
+        with PROF.phase("clip"):
+            grads = _grads(leaves, groups, accum)
+            del leaves
 
-        # ---- global grad-norm clip (TP replication-aware) -------------------
-        gnorm = grad_norm(grads, groups, topo, device)
-        if run.telemetry:
-            # the pre-clip synced gradients and the pre-reset states
-            with PROF.phase("metrics"):
-                mrows = METRICS.unit_rows(munits, grads, ts.states, topo.tp,
-                                          device)
-        fvec = None
-        if probe:
-            # the references average over the microbatches like the
-            # gradient: the fidelity of the step's synced mean
-            with PROF.phase("probe"):
-                for og in pbufs.values():
-                    for b in og.values():
-                        b.copy_(divide(b, accum))
-                fvec = FID.local_vector(funits, grads, pbufs, topo.tp,
-                                        device)
-            del pbufs
-        if run.clip_norm:
-            cs = OPT.clip_scale(gnorm, run.clip_norm)
-            grads = OPT.tree_map(lambda g: g * cs, grads)
+            # ---- global grad-norm clip (TP replication-aware) ---------------
+            gnorm = grad_norm(grads, groups, topo, device)
+            if run.telemetry:
+                # the pre-clip synced gradients and the pre-reset states
+                with PROF.phase("metrics"):
+                    mrows = METRICS.unit_rows(munits, grads, ts.states,
+                                              topo.tp, device)
+            fvec = None
+            if probe:
+                # the references average over the microbatches like the
+                # gradient: the fidelity of the step's synced mean
+                with PROF.phase("probe"):
+                    for og in pbufs.values():
+                        for b in og.values():
+                            b.copy_(divide(b, accum))
+                    fvec = FID.local_vector(funits, grads, pbufs, topo.tp,
+                                            device)
+                del pbufs
+            if run.clip_norm:
+                cs = OPT.clip_scale(gnorm, run.clip_norm)
+                grads = OPT.tree_map(lambda g: g * cs, grads)
 
         lr = sched(step)
         chunks = ts.chunks
@@ -617,6 +624,7 @@ def make_train_step(cfg: ArchConfig, run: RunConfig, topo: MeshTopo,
             metrics["moe_aux"], metrics["moe_z"] = means[1], means[2]
         tail = (packed[n_mean:].cpu()
                 if mvec is not None or fvec is not None else None)
+        PROF.count_alloc(alloc, device)
         if not finalize:
             metrics["sums"] = tail
             return metrics
@@ -689,20 +697,22 @@ def make_prefill_step(cfg: ArchConfig, topo: MeshTopo, device: torch.device,
 
     @torch.inference_mode()
     def prefill(params: dict, batch_in: dict):
-        store = FP.ServeStore(groups, params)
-        if cfg.enc_dec:
-            frames = batch_in["frames"][rows].to(device)
-            memory = model.encode(store, frames, remat=False)
-            state = model.init_decode_state(memory, frames.shape[0], window)
-            tok0 = torch.zeros(frames.shape[0], 1, dtype=torch.int64,
-                               device=device)
-            logits, state = model.decode_step(store, state, tok0)
+        with PROF.phase("serve/prefill"):
+            store = FP.ServeStore(groups, params)
+            if cfg.enc_dec:
+                frames = batch_in["frames"][rows].to(device)
+                memory = model.encode(store, frames, remat=False)
+                state = model.init_decode_state(memory, frames.shape[0],
+                                                window)
+                tok0 = torch.zeros(frames.shape[0], 1, dtype=torch.int64,
+                                   device=device)
+                logits, state = model.decode_step(store, state, tok0)
+                return logits[:, -1], state
+            tokens = batch_in["tokens"][rows].to(device)
+            state = init_decode_state(cfg, topo.tp, tokens.shape[0], window,
+                                      device)
+            logits, state = model.prefill(store, tokens, state, last=1)
             return logits[:, -1], state
-        tokens = batch_in["tokens"][rows].to(device)
-        state = init_decode_state(cfg, topo.tp, tokens.shape[0], window,
-                                  device)
-        logits, state = model.prefill(store, tokens, state, last=1)
-        return logits[:, -1], state
 
     return prefill
 
@@ -716,9 +726,10 @@ def make_decode_step(cfg: ArchConfig, topo: MeshTopo, device: torch.device):
 
     @torch.inference_mode()
     def decode(params: dict, state, token: torch.Tensor):
-        store = FP.ServeStore(groups, params)
-        logits, state = model.decode_step(store, state, token)
-        logits = logits[:, -1]
-        return greedy(logits, topo), logits, state
+        with PROF.phase("serve/decode"):
+            store = FP.ServeStore(groups, params)
+            logits, state = model.decode_step(store, state, token)
+            logits = logits[:, -1]
+            return greedy(logits, topo), logits, state
 
     return decode

@@ -1,35 +1,130 @@
-"""Phase-level trace annotation for the sync path, and step-window traces.
+"""Phase-level trace annotation of the train step, the sync path and
+serving; an allocator counter; step-window traces.
 
-Port of ``repro.telemetry.profiler``.  :func:`phase`: the sync phases
-(``encode`` -> ``exchange`` -> ``decode`` in core/comm, ``apply`` and
-``metrics`` in launch/steps) run inside ``torch.profiler.record_function``
-ranges named ``loco/<phase>``, the names the reference gives its XLA
-scopes, so a ``torch.profiler`` trace shows the comm structure by name.
-The overlapped schedule tags each range with its stage
-(``loco/encode/g1`` inside the window of ``loco/exchange/g0``'s
-collectives is the overlap itself).  Outside a profiler the ranges cost
-one cheap Python context manager each.
+Port of ``repro.telemetry.profiler``, extended.  :func:`phase` opens a
+``torch.profiler.record_function`` range named ``loco/<phase>``, the names
+the reference gives its XLA scopes, so a ``torch.profiler`` trace shares
+its clock with the device's work and names each phase.  The spans:
+
+* ``loco/forward`` and ``loco/backward``: each microbatch's loss and its
+  backward (``launch/steps.make_train_step``; the backward's recomputed
+  forward and the gradient sync run inside it, and a ``block8+ef`` MoE's
+  residual store).  :func:`backward` opens the latter on the thread that
+  runs the backward, so that on a card it spans the kernels that thread
+  launches;
+* ``loco/gather``: ``core/flatparam.materialize``, the bf16 cast and the
+  FSDP gather's forward, in the forward and again wherever remat
+  recomputes a layer;
+* ``loco/encode`` -> ``loco/exchange`` -> ``loco/decode``: the gradient
+  sync (core/comm), inside the backward.  The overlapped schedule tags
+  each with its stage (``loco/encode/g1`` inside the window of
+  ``loco/exchange/g0``'s collectives is the overlap itself);
+* ``loco/clip``: the gradient stack and mean over the microbatches, the
+  global norm and the clip multiply (under ``--telemetry`` or a probe
+  step, ``loco/metrics`` and ``loco/probe`` nest inside it);
+* ``loco/apply``: the optimizer update; ``loco/metrics``: the telemetry
+  sums (``--telemetry``); ``loco/probe``: a fidelity probe's reference
+  (``--fidelity-every``);
+* ``loco/serve/prefill`` and ``loco/serve/decode``: one prompt batch's
+  prefill, one decode step with its greedy pick (``make_prefill_step``,
+  ``make_decode_step``).
+
+Outside a profiler :func:`phase` returns the one shared :data:`NOOP`
+context and :func:`backward` hooks nothing, so an untraced step pays a
+flag check per range.
+
+:data:`COUNTERS`: the caching allocator's calls to CUDA for device memory
+during traced train steps on a card, the change over each step of
+``torch.cuda.memory_stats``' ``num_alloc_retries`` (failed
+``cudaMalloc`` calls that flushed the cache and retried),
+``num_device_alloc`` and ``num_device_free`` (the calls that map or
+allocate device memory, and that unmap or free it: ``cuMemMap`` and
+``cudaMalloc``, ``cuMemUnmap`` and ``cudaFree``), each summed under its
+own key (:func:`alloc_counts`, :func:`count_alloc`).  An untraced step
+reads nothing.
 
 :class:`TraceSession` and :func:`parse_window` capture a
 ``torch.profiler`` trace of an inclusive step window (``--profile-steps
-N:M`` in ``launch/train.py``) and write it as a Chrome trace into the
-trace directory.  A failure to start or stop the profiler is a warning: it
-never ends a training run.
+N:M`` in ``launch/train.py``, a decode step ``--profile-steps N`` in
+``launch/serve.py``) and write it as a Chrome trace into the trace
+directory, where the spans above show by name.  A failure to start or stop
+the profiler is a warning: it never ends a training run.
 """
 from __future__ import annotations
 
+import contextlib
 import os
 import warnings
 
 import torch
 
+NOOP = contextlib.nullcontext()
+ALLOC_KEYS = ("num_alloc_retries", "num_device_alloc", "num_device_free")
+COUNTERS: dict[str, int] = {}
+
 
 def phase(name: str, group: int | None = None):
-    """Profiler range for one sync phase (nestable); ``group`` is the
-    overlap-schedule stage index, named ``loco/<phase>/g<group>``."""
+    """Profiler range for one phase (nestable); ``group`` is the
+    overlap-schedule stage index, named ``loco/<phase>/g<group>``.
+    :data:`NOOP` when no profiler runs."""
+    if not torch.autograd._profiler_enabled():
+        return NOOP
     if group is None:
         return torch.profiler.record_function(f"loco/{name}")
     return torch.profiler.record_function(f"loco/{name}/g{group}")
+
+
+def backward(loss: torch.Tensor, then=None) -> None:
+    """``loss.backward()`` and then ``then()``, inside ``loco/backward``.
+
+    A card's backward kernels are launched by the autograd engine's device
+    thread, and a range spans on the device only the work launched from
+    the thread that opened it.  So under a profiler the range is opened by
+    a pre-hook of ``loss.grad_fn``, which runs on the thread that runs the
+    backward, and closed, after ``then()``, by a callback that the engine
+    runs when the backward has finished, on the thread that finished it
+    (the same one: every node of the step's graph is on one device)."""
+    if not torch.autograd._profiler_enabled() or loss.grad_fn is None:
+        loss.backward()
+        if then is not None:
+            then()
+        return
+    rf = torch.profiler.record_function("loco/backward")
+
+    def close():
+        if then is not None:
+            then()
+        rf.__exit__(None, None, None)
+
+    def open_(grad_outputs):
+        rf.__enter__()
+        torch.autograd.Variable._execution_engine.queue_callback(close)
+
+    hook = loss.grad_fn.register_prehook(open_)
+    try:
+        loss.backward()
+    finally:
+        hook.remove()
+
+
+def alloc_counts(device: torch.device) -> dict[str, int] | None:
+    """The allocator's :data:`ALLOC_KEYS` so far on ``device`` while a
+    profiler runs on a card; None otherwise (nothing to count)."""
+    if device.type != "cuda" or not torch.autograd._profiler_enabled():
+        return None
+    stats = torch.cuda.memory_stats(device)
+    return {k: stats.get(k, 0) for k in ALLOC_KEYS}
+
+
+def count_alloc(before: dict[str, int] | None,
+                device: torch.device) -> None:
+    """Add each key's change since ``before`` (:func:`alloc_counts`) to
+    :data:`COUNTERS`."""
+    if before is None:
+        return
+    stats = torch.cuda.memory_stats(device)
+    for k, v in before.items():
+        COUNTERS[k] = COUNTERS.get(k, 0) + stats.get(k, 0) - v
 
 
 def parse_window(spec: str) -> tuple[int, int]:
