@@ -32,7 +32,13 @@ Phases, in order; any failure exits non-zero and prints no result:
    device time (torch.profiler)
    and host time per call beside its HBM bound, the plain version's device
    time and, for ``act_decode``, the one PyTorch call that computes the same
-   function;
+   function; the attention kernels (``attention_fwd``, ``attention_bwd_dq``,
+   ``attention_bwd_dkdv``) at h2o-danube-1.8b's and mixtral-8x7b's training
+   attention shapes (ATTN_SHAPES): output and gradients against the plain
+   path within ATTN_PLAIN_RTOL, each kernel's device and host time beside
+   its bound (operations at the bf16 peak), its plain version's time and
+   ``scaled_dot_product_attention``'s (the yardstick; the port never calls
+   it);
 3. train, the main paths through ``repro_torch.launch.train`` on a
    world-size-1 NCCL group, each with the launch counters zeroed just
    before it and read just after:
@@ -112,7 +118,8 @@ Phases, in order; any failure exits non-zero and prints no result:
    losses finite (and falling on a, b, d, k-o), every kernel of the path
    launched as often as the code says (counts derived from the parameter
    declarations, the sync plan's encode runs or stage pieces and the
-   layer structure, below), split by bit width, and the bucketed sync's
+   layer structure, below; the attention kernels per attention layer,
+   ``attention_calls``), split by bit width, and the bucketed sync's
    packed collectives as many as its schedule has groups; each path gives
    its recorded losses bit for bit (``PARENT_LOSSES``, recorded on the
    card once Adam divided and took its root as the CPU does, and once
@@ -1055,16 +1062,122 @@ def kernel_onebit(SP, dev, rate: float) -> dict:
     return res
 
 
+# the benchmark's training attention shapes (B, S, H, hd, window); the
+# first gives the JSON row's times
+ATTN_SHAPES = {"h2o-danube-1.8b": (4, 2048, 32, 80, 4096),
+               "mixtral-8x7b": (2, 1024, 32, 128, 4096)}
+# the kernels' output and gradients against the plain path's, relative L2
+# (0.6-3.7e-3 measured on unit-normal inputs, PERF.md)
+ATTN_PLAIN_RTOL = 1e-2
+PEAK_FLOPS = 989.4e12   # bf16, dense: analysis/roofline.py, bench/peaks.json
+
+
+def kernel_attention(dev) -> dict:
+    """The attention kernels at ATTN_SHAPES: the output and dq, dk, dv of
+    a forward and backward against the plain path's (blockwise attention
+    with every key in one block, differentiated by autograd) within
+    ATTN_PLAIN_RTOL; then per kernel its device time per call
+    (torch.profiler), host time per call, bound (its operations at the
+    bf16 peak: 4, 6 and 8 hd per visible pair), its plain version's
+    device time, and as the yardstick the port never calls, PyTorch's
+    ``scaled_dot_product_attention``: its forward beside attention_fwd, its
+    whole backward beside attention_bwd_dq (the two backward kernels
+    together do that work)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import attention as KA
+
+    out = {}
+    for label, (B, S, H, hd, w) in ATTN_SHAPES.items():
+        gen = torch.Generator(device=dev).manual_seed(4)
+        q, k, v, g = (torch.randn(B, S, H, hd, generator=gen, device=dev,
+                                  dtype=torch.bfloat16) for _ in range(4))
+        res = []
+        for fn in (KA.attention, KA.attention_plain):
+            xs = [x.clone().requires_grad_() for x in (q, k, v)]
+            o = fn(*xs, w)
+            o.backward(g)
+            res.append([o.detach()] + [x.grad for x in xs])
+        torch.cuda.synchronize()
+        errs = {n: float((a.float() - b.float()).norm() / b.float().norm())
+                for n, a, b in zip(("out", "dq", "dk", "dv"), *res)}
+        worst = max(float((a.float() - b.float()).abs().max())
+                    for a, b in zip(*res))
+        del res
+        if max(errs.values()) > ATTN_PLAIN_RTOL:
+            raise AssertionError(f"kernels: attention at {label}'s shape "
+                                 f"against the plain path: {errs}")
+        o, lse = KA.attention_fwd(q, k, v, w)
+        dq, dsum, qs = KA.attention_bwd_dq(q, k, v, o, lse, g, w)
+        calls = {
+            "attention_fwd": (lambda: KA.attention_fwd(q, k, v, w),
+                              lambda: KA.attention_fwd_plain(q, k, v, w)),
+            "attention_bwd_dq": (
+                lambda: KA.attention_bwd_dq(q, k, v, o, lse, g, w),
+                lambda: KA.bwd_dq_plain(q, k, v, o, g, w)),
+            "attention_bwd_dkdv": (
+                lambda: KA.attention_bwd_dkdv(q, qs, k, v, lse, dsum, g, w),
+                lambda: KA.bwd_dkdv_plain(q, k, v, g, w))}
+        qt, kt, vt, gt = (x.transpose(1, 2) for x in (q, k, v, g))
+
+        def sdpa(backward: bool):
+            xs = [x.detach().requires_grad_(backward) for x in (qt, kt, vt)]
+            y = F.scaled_dot_product_attention(*xs, is_causal=True)
+            if backward:
+                y.backward(gt)
+
+        sdpa_fwd = device_ms(lambda: sdpa(False))
+        library = {"attention_fwd": sdpa_fwd,
+                   "attention_bwd_dq": device_ms(lambda: sdpa(True))
+                   - sdpa_fwd, "attention_bwd_dkdv": None}
+        line, ms = [], {}
+        for name, (kernel, plain) in calls.items():
+            flops = KA.flops(name, q.shape, w)
+            t = dict(ms=device_ms(kernel, reps=10, only=name),
+                     host_us=host_us(kernel, 1, reps=5),
+                     plain_ms=device_ms(plain, reps=1),
+                     bound_ms=flops / PEAK_FLOPS * 1e3,
+                     library_ms=library[name], max_abs_err=worst)
+            line.append(f"{name} {t['ms']:.3f} ms ({flops / t['ms'] / 1e9:.1f}"
+                        f" TFLOP/s, bound {t['bound_ms']:.3f} ms), host "
+                        f"{t['host_us']:.1f} us, plain {t['plain_ms']:.2f} ms")
+            ms[name] = t["ms"]
+            out.setdefault(name, t)
+        fwd = ms["attention_fwd"]
+        bwd = ms["attention_bwd_dq"] + ms["attention_bwd_dkdv"]
+        pairs = KA.pairs(S, w) * B * H
+        print(f"kernels: attention at {label}'s shape ({B} x {S}, {H} "
+              f"heads of {hd}): out, dq, dk, dv against the plain path "
+              + ", ".join(f"{e:.2e}" for e in errs.values())
+              + " (relative L2); " + "; ".join(line)
+              + f"; forward {4 * hd * pairs / fwd / 1e9:.1f} TFLOP/s, "
+              f"backward {10 * hd * pairs / bwd / 1e9:.1f} TFLOP/s (4 and "
+              f"10 hd per visible pair); sdpa forward {sdpa_fwd:.3f} ms, "
+              f"backward {library['attention_bwd_dq']:.3f} ms", flush=True)
+        del q, k, v, g, o, lse, dq, dsum, qs, calls
+        torch.cuda.empty_cache()
+    return out
+
+
 # ---------------------------------------------------------------------------
 # entry point
 # ---------------------------------------------------------------------------
 
-KERNEL_ROWS = (  # name, CUDA source, the TPU kernel it replaces
-    ("fused_compress", "loco_quant.cu", "src/repro/kernels/loco_quant.py:84"),
-    ("dequant_mean", "loco_quant.cu", "src/repro/kernels/loco_quant.py:172"),
-    ("onebit_pack", "sign_pack.cu", "src/repro/kernels/sign_pack.py:44"),
-    ("act_encode", "act_quant.cu", "src/repro/kernels/act_quant.py:50"),
-    ("act_decode", "act_quant.cu", "src/repro/kernels/act_quant.py:74"),
+KERNEL_ROWS = (  # name, CUDA source, the TPU kernel it replaces, bound
+    ("fused_compress", "loco_quant.cu", "src/repro/kernels/loco_quant.py:84",
+     "bytes"),
+    ("dequant_mean", "loco_quant.cu", "src/repro/kernels/loco_quant.py:172",
+     "bytes"),
+    ("onebit_pack", "sign_pack.cu", "src/repro/kernels/sign_pack.py:44",
+     "bytes"),
+    ("act_encode", "act_quant.cu", "src/repro/kernels/act_quant.py:50",
+     "bytes"),
+    ("act_decode", "act_quant.cu", "src/repro/kernels/act_quant.py:74",
+     "bytes"),
+    ("attention_fwd", "attention.cu", None, "flops"),
+    ("attention_bwd_dq", "attention.cu", None, "flops"),
+    ("attention_bwd_dkdv", "attention.cu", None, "flops"),
 )
 
 
@@ -1154,6 +1267,7 @@ def main(argv=None) -> int:
             timing[name]["max_abs_err"] = max(timing[name]["max_abs_err"],
                                               t["max_abs_err"])
     timing["onebit_pack"] = kernel_onebit(SP, dev, rate)
+    timing.update(kernel_attention(dev))
     torch.cuda.empty_cache()
     phase_s = {"build and kernels": time.perf_counter() - t_start}
     print(f"kernels: phase done at {phase_s['build and kernels']:.1f} s",
@@ -1194,7 +1308,7 @@ def _late_phases(LQ, dev, src, card, t_start, phase_s, launches, timing,
     _add(launches, serve_launches)
     phase_s["serve"] = time.perf_counter() - t0
     print(f"serve: phase took {phase_s['serve']:.1f} s", flush=True)
-    missing = [name for name, _, _ in KERNEL_ROWS if not launches.get(name)]
+    missing = [row[0] for row in KERNEL_ROWS if not launches.get(row[0])]
     if missing:
         raise AssertionError(f"train: kernels never launched: {missing}")
     t0 = time.perf_counter()
@@ -1209,14 +1323,14 @@ def _late_phases(LQ, dev, src, card, t_start, phase_s, launches, timing,
           "worker processes included)", flush=True)
 
     rows = []
-    for name, src, replaces in KERNEL_ROWS:
+    for name, src, replaces, bound_by in KERNEL_ROWS:
         t = timing[name]
         rows.append({"name": name, "route": "cuda",
                      "source": f"src/repro_torch/kernels/csrc/{src}",
                      "replaces": replaces, "launches": launches[name],
                      "max_abs_err": t["max_abs_err"], "ms": t["ms"],
                      "host_us": t["host_us"], "plain_ms": t["plain_ms"],
-                     "bound_ms": t["bound_ms"], "bound_by": "bytes",
+                     "bound_ms": t["bound_ms"], "bound_by": bound_by,
                      "library_ms": t["library_ms"]})
     print(f"done: all phases in {time.perf_counter() - t_start:.0f} s ("
           + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items()) + " s)",
@@ -1274,7 +1388,9 @@ def expected_launches(argv, steps: int | None = None) -> dict:
     decodes at D = 1 (two more dequant_mean; onebit decodes with plain
     ops); per MoE layer and microbatch EXCHANGES_PER_MOE_LAYER act_encode
     and act_decode, and under block8+ef EF_DECODES_PER_MOE_LAYER
-    act_decode."""
+    act_decode; per microbatch two attention_fwd (the forward and its
+    remat), one attention_bwd_dq and one attention_bwd_dkdv for each of
+    :func:`attention_calls`."""
     from repro_torch.launch import train
 
     args = train.build_args(argv)
@@ -1290,7 +1406,29 @@ def expected_launches(argv, steps: int | None = None) -> dict:
                else EXCHANGES_PER_MOE_LAYER)
         want.update(act_encode=EXCHANGES_PER_MOE_LAYER * mb,
                     act_decode=dec * mb)
+    att = attention_calls(cfg) * _backwards(argv, steps)
+    want.update(attention_fwd=2 * att, attention_bwd_dq=att,
+                attention_bwd_dkdv=att)
     return {k: v for k, v in want.items() if v}
+
+
+def attention_calls(cfg) -> int:
+    """Calls of ``common.attention`` that take the attention kernels in one
+    microbatch's forward: one per attention layer (a hybrid's per
+    application of its shared block, an encoder-decoder's per decoder
+    layer: its causal self-attention; the encoder's and the
+    cross-attention see every key), where the config's attention has no
+    soft cap and a head dim of ``kernels/attention.HEAD_DIMS``.  The
+    layer's remat runs each forward again in the backward, and the
+    backward runs the dq and the dk/dv kernel once each."""
+    from repro_torch.kernels import attention as KA
+
+    if (cfg.family == "ssm" or cfg.attn_softcap is not None
+            or cfg.hd not in KA.HEAD_DIMS):
+        return 0
+    if cfg.family == "hybrid":
+        return cfg.n_layers // cfg.hybrid_attn_every
+    return cfg.n_layers
 
 
 @contextlib.contextmanager
@@ -1413,24 +1551,26 @@ def _add(total: dict, launches: dict) -> None:
 # reduction instead of with atomics (run AM; before it, k and l gave other
 # losses from step 1 on in every run), and m-o as they first ran (n in run
 # AP, m and o in AS, once o's position table folded its constants as XLA
-# does): the losses each later run must give bit for bit.  (Launches and
-# sync collectives are held against the counts derived from the code in
+# does), and every path with attention layers (all but m) once training's
+# attention took the fused kernels of kernels/attention (run p3): the
+# losses each later run must give bit for bit.  (Launches and sync
+# collectives are held against the counts derived from the code in
 # train_path.)
 PARENT_LOSSES = {
-    "a": [10.68307113647461, 10.063494682312012, 9.444881439208984,
-          9.20444107055664, 8.938138961791992, 8.848569869995117],
-    "b": [11.144638061523438, 10.527666091918945, 9.800702095031738,
-          9.564414978027344, 9.370407104492188, 9.285638809204102],
-    "k": [12.531103134155273, 10.805315971374512, 11.063454627990723],
-    "l": [10.822874069213867, 9.450738906860352, 8.818324089050293],
+    "a": [10.683156967163086, 10.063125610351562, 9.4444580078125,
+          9.20425796508789, 8.937742233276367, 8.847794532775879],
+    "b": [11.144514083862305, 10.528319358825684, 9.800716400146484,
+          9.565072059631348, 9.370445251464844, 9.285581588745117],
+    "k": [12.531232833862305, 10.805893898010254, 11.068824768066406],
+    "l": [10.823051452636719, 9.44326400756836, 8.813516616821289],
     "m": [11.368759155273438, 11.360269546508789, 11.350048065185547],
-    "n": [10.82774543762207, 10.811525344848633, 10.770065307617188],
-    "o": [11.149747848510742, 10.374307632446289, 9.838129043579102],
-    "c": [10.68307113647461, 10.269109725952148, 9.740499496459961],
-    "d": [10.68307113647461, 10.062131881713867, 9.441957473754883],
-    "d'": [10.68307113647461, 10.062131881713867, 9.441957473754883]}
-PARENT_CKPT_LOSSES = [10.762600898742676, 9.794771194458008,
-                      9.225784301757812, 9.016292572021484]
+    "n": [10.8277006149292, 10.796977996826172, 10.784919738769531],
+    "o": [11.149742126464844, 10.374359130859375, 9.83842945098877],
+    "c": [10.683156967163086, 10.26899528503418, 9.740604400634766],
+    "d": [10.683156967163086, 10.062057495117188, 9.442174911499023],
+    "d'": [10.683156967163086, 10.062057495117188, 9.442174911499023]}
+PARENT_CKPT_LOSSES = [10.762544631958008, 9.79535961151123,
+                      9.225868225097656, 9.016066551208496]
 
 
 def check_parent(name: str, res: dict, label: str | None = None,
@@ -2146,7 +2286,7 @@ def checkpoint_phase(LQ, src: Path) -> dict:
     return total
 
 
-KERNEL_NAMES = tuple(name for name, _, _ in KERNEL_ROWS)
+KERNEL_NAMES = tuple(row[0] for row in KERNEL_ROWS)
 
 
 def _kernel_class(name: str) -> str:

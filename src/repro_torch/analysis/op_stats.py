@@ -261,11 +261,12 @@ class OpStats(TorchDispatchMode):
         return call
 
     @contextlib.contextmanager
-    def kernel(self, name: str, nbytes: float):
-        """One call of the kernel ``name``, moving ``nbytes``: counted as
-        one op; the ops dispatched inside (a plain version's) are not."""
+    def kernel(self, name: str, nbytes: float, flops: float = 0.0):
+        """One call of the kernel ``name``, moving ``nbytes`` and doing
+        ``flops``: counted as one op; the ops dispatched inside (a plain
+        version's) are not."""
         self.kernels[name] += 1
-        self._account(f"kernel:{name}", 0.0, float(nbytes))
+        self._account(f"kernel:{name}", float(flops), float(nbytes))
         self._inside += 1
         try:
             yield

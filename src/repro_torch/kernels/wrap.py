@@ -53,12 +53,13 @@ def same_start(a: torch.Tensor, b: torch.Tensor) -> bool:
     return a.data_ptr() == b.data_ptr()
 
 
-def observed(name: str, nbytes: float, t: torch.Tensor, planned, real):
+def observed(name: str, nbytes: float, t: torch.Tensor, planned, real,
+             flops: float = 0.0):
     """A wrapper's call on a planned tensor ``t`` or while ``OBSERVER``
     records: ``planned()`` (the outputs' shapes, no launch) on a fake
     ``t``, counted in ``PLANNED``; else ``real()``, the wrapper's own
     path, with ``OBSERVER`` unset meanwhile.  A recording ``OBSERVER``
-    counts the call as one kernel moving ``nbytes``."""
+    counts the call as one kernel moving ``nbytes`` and doing ``flops``."""
     global OBSERVER
     fake = is_planned(t)
     if fake:
@@ -68,7 +69,7 @@ def observed(name: str, nbytes: float, t: torch.Tensor, planned, real):
         return planned()
     OBSERVER = None
     try:
-        with obs.kernel(name, nbytes):
+        with obs.kernel(name, nbytes, flops):
             return planned() if fake else real()
     finally:
         OBSERVER = obs

@@ -33,11 +33,13 @@ loss: ``tp`` times its gradient, clipped by the global norm).
 ``torch.distributed``'s tensor collectives split dim 0, so a sequence
 (dim 1) collective moves that axis to the front and makes it contiguous.
 
-Attention is plain tensor ops: scores and softmax in f32 over bf16 inputs
-that were scaled in f32 and rounded back to bf16, as the reference does
-(``common.py`` blockwise attention).  Training's :func:`attention` takes
-every key in one block, where the reference's online softmax takes
-512-key blocks (ROADMAP.md C).
+Attention: scores and softmax in f32 over bf16 inputs that were scaled in
+f32 and rounded back to bf16, as the reference does (``common.py``
+blockwise attention).  Training's :func:`attention` takes the fused
+kernels of :mod:`repro_torch.kernels.attention` (an online softmax over
+key tiles, on the card) where their rule allows, and otherwise, as their
+plain version does on the CPU, every key in one block, where the
+reference's online softmax takes 512-key blocks (ROADMAP.md C).
 
 Serving runs the reference's online softmax, :func:`blockwise_attention`,
 over absolute query and key positions (a key slot at position -1 is
@@ -60,6 +62,8 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.core.comm import all_gather_flat, psum_scatter_flat
+from repro_torch.kernels import attention as KA
+from repro_torch.telemetry.profiler import phase
 
 NEG_INF = -1e30
 
@@ -344,12 +348,20 @@ def attention(q, k, v, causal: bool = True, window: int | None = None,
     key (encoder self-attention, cross-attention with Sk != Sq).
     ``window`` (causal only): query i sees keys j with ``i - window < j <=
     i`` (``window`` keys, its own included); ``softcap``: the f32 scores
-    are soft-capped (:func:`soft_cap`) before the mask.  Every key in one
-    block of :func:`blockwise_attention` (ROADMAP.md C)."""
-    q_pos, k_pos = (torch.arange(x.shape[1], device=q.device) for x in (q, k))
-    return blockwise_attention(q, k, v, q_pos, k_pos, causal=causal,
-                               window=window, softcap=softcap,
-                               block_k=k.shape[1])
+    are soft-capped (:func:`soft_cap`) before the mask.  Causal bf16
+    attention without a soft cap over q, k, v of one shape with a head dim
+    the kernels take goes to :func:`repro_torch.kernels.attention.attention`
+    (``takes``); every other call is every key in one block of
+    :func:`blockwise_attention` (ROADMAP.md C).  Inside span
+    ``loco/attention``."""
+    with phase("attention"):
+        if KA.takes(q, k, v, causal, softcap):
+            return KA.attention(q, k, v, window)
+        q_pos, k_pos = (torch.arange(x.shape[1], device=q.device)
+                        for x in (q, k))
+        return blockwise_attention(q, k, v, q_pos, k_pos, causal=causal,
+                                   window=window, softcap=softcap,
+                                   block_k=k.shape[1])
 
 
 # ---------------------------------------------------------------------------

@@ -106,9 +106,11 @@ def test_train_step_spans_and_bits():
     assert (count["loco/clip"], count["loco/apply"]) == (1, 1)
     assert count["loco/gather"] == accum * (fwd + remat) and remat > 0
     assert count["loco/encode"] == count["loco/exchange"] > 0
+    # each layer's attention: its forward, remat's and its backward
+    assert count["loco/attention"] == accum * CFG.n_layers * 3
     # no new span is named under the sync's phases or as the update
     assert set(count) <= {*TRAIN, "loco/encode", "loco/exchange",
-                          "loco/decode"}
+                          "loco/decode", "loco/attention"}
     # the spans change nothing
     loss0, chunks0, _ = _train(CPU, traced=False)
     assert loss == loss0
