@@ -9,6 +9,13 @@ forward passes (the backward is two), with no recomputation: the usual
 definition of MFU.  A MoE layer counts the ``top_k`` experts a token
 chooses and the router.
 
+The operations of training's attention kernels count what the
+algorithm needs (:data:`ATTENTION_HD`): the forward's scores and value
+product at each forward call, the recomputation in the backward
+included; the backward's scores, dP, dV, dK and dQ once, however the
+kernels split them.  So their roofline share reads the same work
+whatever implements them.
+
 Kernel bytes are copies of the program's ``chip_smoke.compress_bytes``
 and ``dequant_bytes``: each input read once and each output written
 once.
@@ -54,6 +61,30 @@ def prefill_flops(c: dict, prompt_len: int, batch: int) -> int:
     layer, head = params_per_token(c)
     return (2 * layer * c["n_layers"] * prompt_len * batch + 2 * head * batch
             + attn_flops(c, prompt_len) * batch)
+
+
+# operations per visible (query, key) pair, head and unit of head_dim
+# that one call of each of training's attention kernels is counted for:
+# the scores and the value product forward; the backward's 10 (the
+# scores, dP, dV, dK and dQ, 2 each), with dQ in dq and the rest in dk/dv
+# (dq recomputes the scores and dP, which count once)
+ATTENTION_HD = {"attention_fwd": 4, "attention_bwd_dq": 2,
+                "attention_bwd_dkdv": 8}
+
+
+def attention_calls(c: dict, t: dict) -> dict[str, int]:
+    """The calls of each attention kernel one training step makes: per
+    layer and microbatch, the forward, its recomputation in the backward,
+    and one of each backward kernel."""
+    per = c["n_layers"] * (t["global_batch"] // t["microbatch"])
+    return {"attention_fwd": 2 * per, "attention_bwd_dq": per,
+            "attention_bwd_dkdv": per}
+
+
+def attention_call_flops(c: dict, t: dict, kernel: str) -> int:
+    """Operations of one call of ``kernel`` at the step's microbatch."""
+    return (ATTENTION_HD[kernel] * c["head_dim"] * c["n_heads"]
+            * pairs(t["seq_len"], c["window"]) * t["microbatch"])
 
 
 def compress_bytes(n: int, g_bytes: int = 2) -> float:

@@ -10,10 +10,16 @@ each leaf's clipped gradient is read back from Adam's first moment
 (``m / (1 - b1)`` less the L2 term); after the last, each leaf's distance
 from its start.  The same state then runs the window: whole steps until
 ``seconds`` have passed, each step's loss read back, as a training loop
-that logs its loss does.
+that logs its loss does, but some ``AHEAD_S`` seconds of steps after it
+was dispatched, so that the card stays fed while the host stands still.
+Set-up's objects are frozen out of the interpreter's collector for the
+window (``gc.freeze``), and the time from one loss read to the next and
+the collections in the window are kept and printed as one line
+(``bench/pacing.py``).
 
-``train_tokens_per_s`` is the tokens of every step begun in the window
-over the time from its start to the end of its last step.  With
+``train_tokens_per_s`` is the tokens of every step dispatched in the
+window over the time from its start to the end of its last step, read
+after the wait for all of them.  With
 ``trace`` a further ``trace_steps`` steps run under ``torch.profiler``.
 Then the program's state is freed and the reference
 (``bench/reference/train.py``) runs the first steps from the same
@@ -24,20 +30,26 @@ median leaf's, whichever is larger.
 """
 from __future__ import annotations
 
+import collections
 import gc
 import math
 import statistics
+import sys
 import time
 
 import torch
 
 from bench import flops as FL
 from bench import harness, inputs
+from bench import pacing as PC
 from bench import trace as TR
 from bench.reference import model as RM
 from bench.reference import train as RT
 
 B1 = 0.9  # Adam's first-moment decay (the program's default)
+# seconds of steps dispatched ahead of the one whose loss is read: a host
+# that stands still for less than that leaves the card busy
+AHEAD_S = 4.0
 
 
 def run_config(t: dict):
@@ -147,8 +159,9 @@ def reference(c, t, seed, device, batches, fp8=False) -> dict:
 
 def setup(c, t, seed, device, topo, t0, fault=None):
     """The program's state driven through its first steps, with the
-    readings of them: ``(step_fn, state, batches, feed, readings)``;
-    ``feed`` is ``batches`` but where a planted fault changed the rows."""
+    readings of them: ``(step_fn, state, batches, feed, readings,
+    step_s)``; ``feed`` is ``batches`` but where a planted fault changed
+    the rows, and ``step_s`` the last step's seconds, its loss read."""
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.launch import steps
 
@@ -178,13 +191,62 @@ def setup(c, t, seed, device, topo, t0, fault=None):
 
     prog = {"losses": []}
     for s in range(t["setup_steps"]):
+        t_s = time.perf_counter()
         prog["losses"].append(float(step_fn(ts, s, {"tokens": feed[s]})
                                     ["loss"]))
+        step_s = time.perf_counter() - t_s
         harness.stage(t0, f"setup step {s}")
         if s == 0:
             prog["grad1"] = read_grad1(ts, lvs, t, seed, device)
     prog["change"] = read_change(ts, lvs, seed, device)
-    return step_fn, ts, batches, feed, prog
+    return step_fn, ts, batches, feed, prog, step_s
+
+
+def ahead_steps(step_s: float) -> int:
+    """Steps dispatched ahead of the one whose loss is read: ``AHEAD_S``
+    seconds of steps of ``step_s`` seconds, rounded up, and at least one."""
+    return max(1, math.ceil(AHEAD_S / step_s)) if step_s > 0 else 1
+
+
+def window(step_fn, ts, feed, step, seconds, ahead=1):
+    """Whole steps from ``step`` until ``seconds`` have passed, each
+    step's loss read back once ``ahead`` more steps have been dispatched.
+    When the time is up nothing more is sent, the losses in flight are
+    read, and the window ends after the last: every step sent counts,
+    over all that time.  Returns ``(times, start, collections, failed)``;
+    ``times`` runs from one loss read to the next, back to back from the
+    start, one a step, so it sums to the window."""
+    times, failed, pending = [], 0, collections.deque()
+    with PC.Collections() as gcs:
+        t_start = t_end = time.perf_counter()
+        while True:
+            if time.perf_counter() - t_start < seconds:
+                pending.append(step_fn(ts, step, {"tokens": feed[
+                    step % len(feed)]})["loss"])
+                step += 1
+                if len(pending) <= ahead:
+                    continue
+            elif not pending:
+                break
+            loss = float(pending.popleft())
+            failed += not math.isfinite(loss)
+            now = time.perf_counter()
+            times.append(now - t_end)
+            t_end = now
+    return times, t_start, gcs.events, failed
+
+
+def traced(step_fn, ts, feed, step, n, device):
+    """``n`` steps under ``torch.profiler``: ``(summary, seconds)``."""
+    prof = TR.profiler(device)
+    TR.sync(device)
+    with prof:
+        t_tr = time.perf_counter()
+        for s in range(step, step + n):
+            step_fn(ts, s, {"tokens": feed[s % len(feed)]})
+        TR.sync(device)
+        trace_s = time.perf_counter() - t_tr
+    return TR.summary(prof), trace_s
 
 
 def run(c, seed, seconds, trace, device, t0, fault=None) -> dict:
@@ -200,44 +262,40 @@ def run(c, seed, seconds, trace, device, t0, fault=None) -> dict:
         topo = MeshTopo.from_group(data, model=model,
                                    axes=mesh.mesh_axes(data, 1, 0, 0))
         harness.stage(t0, "process group up")
-        step_fn, ts, batches, feed, prog = setup(cfg_c, t, seed, device,
-                                                 topo, t0, fault)
-        n_pool = batches.shape[0]
-        TR.sync(device)
-        setup_peak = torch.cuda.max_memory_allocated(device) if cuda else 0
-        if cuda:
-            torch.cuda.reset_peak_memory_stats(device)
-        t_start = time.perf_counter()
-        setup_s = t_start - t0
-        step = t["setup_steps"]
-        n = failed = 0
-        while time.perf_counter() - t_start < seconds:
-            loss = float(step_fn(ts, step, {"tokens": feed[step % n_pool]})
-                         ["loss"])
-            failed += not math.isfinite(loss)
-            n += 1
-            step += 1
-        window_s = time.perf_counter() - t_start
-        peak = torch.cuda.max_memory_allocated(device) if cuda else 0
-        summ, trace_s = None, 0.0
-        if trace:
-            prof = TR.profiler(device)
+        step_fn, ts, batches, feed, prog, step_s = setup(
+            cfg_c, t, seed, device, topo, t0, fault)
+        ahead = ahead_steps(step_s)
+        # set-up's objects out of the collector's reach, as a training
+        # loop with manual collection does: a full collection in the
+        # window then scans the objects made since, not the whole heap
+        # (0.15-0.23 s a collection on danube without)
+        gc.collect()
+        gc.freeze()
+        try:
             TR.sync(device)
-            with prof:
-                t_tr = time.perf_counter()
-                for _ in range(t["trace_steps"]):
-                    step_fn(ts, step, {"tokens": feed[step % n_pool]})
-                    step += 1
-                TR.sync(device)
-                trace_s = time.perf_counter() - t_tr
-            summ = TR.summary(prof)
+            setup_peak = torch.cuda.max_memory_allocated(device) if cuda else 0
+            if cuda:
+                torch.cuda.reset_peak_memory_stats(device)
+            times, t_start, events, failed = window(
+                step_fn, ts, feed, t["setup_steps"], seconds, ahead)
+            peak = torch.cuda.max_memory_allocated(device) if cuda else 0
+            summ, trace_s = (traced(step_fn, ts, feed,
+                                    t["setup_steps"] + len(times),
+                                    t["trace_steps"], device)
+                             if trace else (None, 0.0))
+        finally:
+            gc.unfreeze()
         mem_peak = max(setup_peak, peak,
                        torch.cuda.max_memory_allocated(device) if cuda else 0)
         del step_fn, ts
         gc.collect()
         if cuda:
             torch.cuda.empty_cache()
+    setup_s = t_start - t0
+    n, window_s = len(times), sum(times)
     harness.stage(t0, f"window {n} steps in {window_s:.3f} s")
+    steps_s = dict(PC.summary(times, t_start, events), ahead=ahead)
+    print(PC.line(steps_s, times), file=sys.stderr, flush=True)
     ref = reference(cfg_c, t, seed, device, batches[:t["setup_steps"]])
     harness.stage(t0, "reference done")
     tokens = t["global_batch"] * t["seq_len"]
@@ -247,9 +305,9 @@ def run(c, seed, seconds, trace, device, t0, fault=None) -> dict:
            "window_steps": n, "window_s": window_s,
            "accum": t["global_batch"] // t["microbatch"],
            "trace": summ, "trace_units": t["trace_steps"],
-           "trace_window_s": trace_s,
+           "trace_window_s": trace_s, "steps": steps_s,
            "peaks": harness.load_json(harness.BENCH, "peaks.json")}
-    return {"e2e": {"train_tokens_per_s": n * tokens / window_s,
+    return {"e2e": {"train_tokens_per_s": n * tokens / window_s if n else 0.0,
                     "peak_mem_gib": peak / 2**30, "setup_s": setup_s},
             "ctx": ctx, "checks": compare(prog, ref),
             "attempted": t["setup_steps"] + n + (t["trace_steps"] if trace

@@ -71,10 +71,14 @@ def test_serve_fp8_control_is_not_correct():
 
 def test_traced_run_reads_what_the_cpu_has():
     """A ``--trace 1`` run on the CPU: the host-clock and span readers
-    find their numbers, the device ones (no card) return nothing."""
-    out = run(TRAIN[1], seconds=0.3, trace=True)
+    find their numbers, the device ones (no card) return nothing; a
+    host-paced cell reads its rate alone."""
+    out = run(TRAIN[0], seconds=0.3, trace=True)
     m = out["metrics"]
     assert "train_mfu" in m and "sync_host_ms" in m
     assert "fused_compress_roofline" not in m
     assert "device_idle.train" not in m
+    assert "train_tokens_per_s.host_paced" not in m
     assert out["device"]["busy_s"] == 0.0
+    m = run(TRAIN[1], seconds=0.3, trace=True)["metrics"]
+    assert list(m) == ["train_tokens_per_s.host_paced"]

@@ -16,6 +16,9 @@ def test_kernel_class():
     assert TR.kernel_class("void at::native::elementwise_kernel<128, 4, "
                            "direct_copy_kernel_cuda>") == \
         "dtype copies and memcpy"
+    for k in ("attention_fwd", "attention_bwd_dq", "attention_bwd_dkdv"):
+        assert TR.kernel_class(f"void {k}_kernel<80>(Args)") == \
+            "kernels (this repo)"
     assert TR.kernel_class("ncclDevKernel_AllGather_RING_LL") == "nccl"
     assert TR.kernel_class("void at::native::vectorized_elementwise_kernel"
                            "<4, at::native::exp_kernel_cuda>") == \

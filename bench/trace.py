@@ -16,7 +16,8 @@ from __future__ import annotations
 import numpy as np
 
 KERNEL_NAMES = ("fused_compress", "dequant_mean", "onebit_pack",
-                "act_encode", "act_decode")
+                "act_encode", "act_decode", "attention_fwd",
+                "attention_bwd_dq", "attention_bwd_dkdv")
 MATMUL = ("gemm", "cutlass", "xmma", "sm90_", "cublas", "nvjet")
 
 
